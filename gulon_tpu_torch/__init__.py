@@ -1,0 +1,55 @@
+"""gulon_tpu_torch — the PyTorch / CUDA port of ``gulon_tpu``.
+
+The same product-quantization ANN engine, written for an NVIDIA Hopper
+GPU: plain tensor code in PyTorch, and the fused ADC scan kernel written
+by hand in CUDA C++ (``csrc/adc_scan.cu``, built with ``nvcc`` at first
+use). The JAX package beside it is the reference the port is tested
+against; this package imports ``torch`` and never ``jax``. Its modules
+mirror ``gulon_tpu``'s layout (``ops/``, ``ops/cuda/`` for
+``ops/pallas/``, ``models/``, ``utils/``), and it reuses ``gulon_tpu``'s
+numpy-only host modules (``Index``/``Result``, key indices, ``Metric``,
+``SummaryStats``).
+
+This slice covers the flat main path: build a flat PQ index, answer
+batched top-k queries through the fused scan, measure recall.
+"""
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "SummaryStats": "gulon_tpu.ops.stats",
+    "KMeansConfig": "gulon_tpu_torch.ops.kmeans",
+    "fit_kmeans": "gulon_tpu_torch.ops.kmeans",
+    "PQConfig": "gulon_tpu_torch.ops.pq",
+    "ProductQuantizer": "gulon_tpu_torch.ops.pq",
+    "train_product_quantizer": "gulon_tpu_torch.ops.pq",
+    "Metric": "gulon_tpu.models.metric",
+    "Index": "gulon_tpu.models.index",
+    "Result": "gulon_tpu.models.index",
+    "FlatIndex": "gulon_tpu_torch.models.flat",
+    "build_flat_index": "gulon_tpu_torch.models.build",
+    "sample_ground_truth": "gulon_tpu_torch.utils.eval",
+    "ground_truth_for_queries": "gulon_tpu_torch.utils.eval",
+    "recall_of": "gulon_tpu_torch.utils.eval",
+    "format_recall": "gulon_tpu_torch.utils.eval",
+    "DEFAULT_KS": "gulon_tpu_torch.utils.eval",
+    "flat_index_from_numpy": "gulon_tpu_torch.interop",
+    "from_reference": "gulon_tpu_torch.interop",
+}
+
+__all__ = sorted(_EXPORTS) + ["__version__"]
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module 'gulon_tpu_torch' has no attribute {name!r}"
+        )
+    import importlib
+
+    return getattr(importlib.import_module(module), name)
+
+
+def __dir__():
+    return __all__

@@ -1,0 +1,237 @@
+"""Flat full-scan PQ index (counterpart of ``gulon_tpu/models/flat.py``,
+reference ``SortedIndex``, ``Index.scala:310-337``).
+
+Keys are globally sorted; the whole code matrix is scanned per query
+batch. Scan strategies:
+
+- ``"pallas"``: the fused scan kernel K1 (``csrc/adc_scan.cu``), whose
+  JAX counterpart is the Pallas kernel; the name is kept so strategy
+  values carry over between the packages. On CPU tensors it runs K1's
+  plain PyTorch twin;
+- ``"decode"``: gather-decode + matmul per row tile, no kernel limits;
+- ``"lut"``: per-query lookup-table scan, the cheapest for tiny batches;
+- ``"auto"`` (default): <= 4 queries -> lut; codes on a CUDA device and
+  inside the kernel's limits -> pallas; otherwise decode.
+
+``"cached"``, ``pack_memory``, ``add``/``remove`` and OPQ rotations come
+with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from gulon_tpu.models.index import Index, Result
+from gulon_tpu.models.keyindex import SortedKeyIndex
+from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.distance import normalize_rows
+from gulon_tpu_torch.ops.pq import ProductQuantizer
+
+# Below this many queries the LUT scan moves less data than decode.
+_AUTO_LUT_MAX_QUERIES = 4
+
+
+def _later(what: str, where: str):
+    raise NotImplementedError(
+        f"{what} comes with the {where} slice of the PyTorch port"
+    )
+
+
+@dataclasses.dataclass
+class FlatIndex(Index):
+    _key_index: SortedKeyIndex
+    pq: ProductQuantizer
+    codes: torch.Tensor  # [N, m] codes, on the index's device
+    recon_norms: torch.Tensor  # [N] f32
+    metric: Metric
+    scan_strategy: str = "auto"  # "auto"|"decode"|"lut"|"pallas"
+    tile_rows: int = scan_ops.DEFAULT_TILE_ROWS
+    # "default" = TF32 allowed on CUDA, "highest" = full f32
+    precision: str = "default"
+    # accepted for parity with the JAX package; the port's top-k is exact
+    topk_impl: str = "approx"
+    recall_target: float = 0.95
+    # >1: the pallas scan over-fetches k*rerank_factor candidates and
+    # rescores them exactly in f32; 0 = auto from code degeneracy
+    rerank_factor: int = 0
+    # ranked candidates the fused kernel keeps per 128-row block (1..4);
+    # 0 = auto from code degeneracy
+    pallas_winners: int = 0
+    # query-invariant [m, N] kernel code operand, built lazily
+    _pallas_codes_t: Optional[torch.Tensor] = None
+    # memoized auto knobs (rerank_factor/pallas_winners == 0)
+    _auto_rerank: Optional[int] = None
+    _auto_dup: Optional[float] = None
+
+    @property
+    def key_index(self) -> SortedKeyIndex:
+        return self._key_index
+
+    @property
+    def dimension(self) -> int:
+        return self.pq.dimension
+
+    @property
+    def size(self) -> int:
+        return int(self.codes.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    def _prepare_queries(self, vectors) -> torch.Tensor:
+        q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+        if q.ndim != 2 or q.shape[1] != self.dimension:
+            raise ValueError(
+                f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
+            )
+        if self.metric.normalized:
+            q = normalize_rows(q)  # Index.scala:324-331
+        return q
+
+    def batch_query(self, k: int, vectors) -> List[Result]:
+        dists, ids = self.query_arrays(k, vectors)
+        return self._make_results(dists.cpu().numpy(), ids.cpu().numpy())
+
+    def resolve_strategy(self, num_queries: int, k: int) -> str:
+        """The scan strategy a ``query_arrays(k, [num_queries, D])`` call
+        takes (the ``auto`` policy of ``gulon_tpu/models/flat.py:146-156``,
+        with "on a TPU" read as "codes on a CUDA device")."""
+        if self.scan_strategy != "auto":
+            return self.scan_strategy
+        k_eff = min(k, self.size)
+        if num_queries <= _AUTO_LUT_MAX_QUERIES:
+            return "lut"
+        if self.device.type == "cuda" and self._kernel_bounds_ok(k_eff):
+            return "pallas"
+        return "decode"
+
+    def query_arrays(self, k: int, vectors):
+        """([Q, k] squared distances, [Q, k] int32 row ids) as tensors on
+        the index's device."""
+        scan_ops.resolve_precision(self.precision)
+        q = self._prepare_queries(vectors)
+        k_eff = min(k, self.size)
+        strategy = self.resolve_strategy(q.shape[0], k)
+        k_scan = k_eff
+        rerank = 1
+        if strategy == "pallas":
+            rerank = self.resolved_rerank_factor()
+        if strategy == "pallas" and rerank > 1:
+            # stay inside the kernel's k <= 128 / n >= 256*k envelope
+            k_scan = min(self.size, k_eff * rerank, 128, max(k_eff, self.size // 256))
+        if strategy == "decode":
+            dists, ids = scan_ops.adc_scan_decode(
+                q, self.pq.codebooks, self.codes, self.recon_norms,
+                bounds=self.pq.bounds, k=k_eff, tile_rows=self.tile_rows,
+                precision=self.precision, topk_impl=self.topk_impl,
+                recall_target=self.recall_target,
+            )
+        elif strategy == "lut":
+            dists, ids = scan_ops.adc_scan_lut(
+                self.pq.lut(q),
+                self.codes,
+                torch.ones((self.size,), dtype=torch.bool, device=self.device),
+                k=k_eff, tile_rows=self.tile_rows, topk_impl=self.topk_impl,
+                recall_target=self.recall_target,
+            )
+        elif strategy == "pallas":
+            from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused, pack_codes_t
+
+            if not self._kernel_bounds_ok(k_scan):
+                # tiny corpus / large k / large K: the decode scan
+                return dataclasses.replace(
+                    self, scan_strategy="decode"
+                ).query_arrays(k, vectors)
+            if self._pallas_codes_t is None:
+                self._pallas_codes_t = pack_codes_t(
+                    self.codes, self.pq.num_clusters
+                )
+            dists, ids = adc_scan_fused(
+                q, self.pq.codebooks, self._pallas_codes_t, self.recon_norms,
+                bounds=self.pq.bounds, k=k_scan, num_rows=self.size,
+                winners=self.resolved_pallas_winners(),
+            )
+        elif strategy == "cached":
+            _later("the 'cached' scan strategy", "exact/cached")
+        else:
+            raise ValueError(f"unknown scan strategy {strategy!r}")
+        if k_scan > k_eff:
+            dists, ids = scan_ops.rescore_exact(
+                q, self.pq.codebooks, self.codes, self.recon_norms, ids,
+                bounds=self.pq.bounds, k=k_eff,
+            )
+        return dists, ids
+
+    def resolved_rerank_factor(self) -> int:
+        """The effective rerank factor: the explicit knob, or (at 0) an
+        auto value from code degeneracy, memoized (see
+        ``gulon_tpu/models/flat.py:296-322``). Rows sharing one code tuple
+        have equal scan distances, and block-granular selection returns
+        at most ``pallas_winners`` of such a cohort per block; corpora that
+        collapse onto few codes need over-fetch + exact rescore."""
+        if self.rerank_factor:
+            return self.rerank_factor
+        if self._auto_rerank is None:
+            dup = self._code_duplication()
+            if dup <= 1.25:
+                self._auto_rerank = 1
+            else:
+                self._auto_rerank = int(min(12, max(4, round(dup))))
+        return self._auto_rerank
+
+    def resolved_pallas_winners(self) -> int:
+        """Effective per-block winner count: the explicit knob, or (at 0)
+        ``ceil(128 * dup / N)`` clamped to 1..4 — the expected members of
+        an equal-distance cohort that share one 128-row block."""
+        if self.pallas_winners:
+            return self.pallas_winners
+        dup = self._code_duplication()
+        if dup <= 1.25 or self.size == 0:
+            return 1
+        per_block = 128.0 * dup / self.size
+        return int(min(4, max(1, -(-per_block // 1))))
+
+    def _code_duplication(self) -> float:
+        """Rows per distinct code over a row sample (memoized)."""
+        if self._auto_dup is None:
+            n = self.size
+            if n == 0:
+                self._auto_dup = 1.0
+            else:
+                sample = min(n, 65536)
+                codes = self.codes[:sample].cpu().numpy()
+                distinct = np.unique(codes, axis=0).shape[0]
+                self._auto_dup = sample / max(distinct, 1)
+        return self._auto_dup
+
+    def _kernel_bounds_ok(self, k_eff: int) -> bool:
+        return (
+            self.size >= 256 * min(k_eff, 128)
+            and k_eff <= 128
+            and self.pq.num_clusters <= 1024
+        )
+
+    def enable_cache(self, dtype=None, chunk: int = 16384) -> None:
+        _later("the decoded cache ('cached' strategy)", "exact/cached")
+
+    def pack_memory(self) -> None:
+        _later("sub-byte code packing (pack_memory)", "packed-serving")
+
+    def add(self, keys, vectors) -> "FlatIndex":
+        _later("FlatIndex.add", "updates")
+
+    def remove(self, keys) -> "FlatIndex":
+        _later("FlatIndex.remove", "updates")
+
+    def lookup(self, word: str) -> Optional[np.ndarray]:
+        row = self._key_index.lookup(word)
+        if row is None:
+            return None
+        rec = self.pq.decode(self.codes[row : row + 1])
+        return rec.cpu().numpy()[0]

@@ -1,0 +1,531 @@
+"""Fused ADC scan: the counterpart of ``gulon_tpu/ops/pallas/adc.py``.
+
+Kernel K1 (``csrc/adc_scan.cu``) replaces the TPU kernel
+``_adc_fused_kernel``: per 128-row block of the corpus and per query it
+decodes the PQ codes, scores them against the query in f32 and keeps the
+block's lane-packed minimum. This module holds everything around it,
+with the JAX package's names and semantics so that the two compare one
+for one:
+
+- tile geometry (``padded_depth``, ``_pick_tiles``, ``block_layout``);
+  the row tile only fixes the winner-column order now, which keeps the
+  epilogue's ``base_cols`` and tie order identical;
+- operand prep (``_split_hi_lo``, ``pack_codes_t``,
+  ``prepare_scan_operands``): -2-scaled bf16 queries with unit lanes
+  facing the hi/lo bf16 norm rows, and in centered mode
+  ``||q||^2 + mean`` lanes facing two rows of ones, so the contraction
+  emits the true ADC distance;
+- the launch (:func:`fused_block_scan`), which runs K1 for CUDA tensors
+  and its plain PyTorch twin :func:`_block_scan_plain` for CPU tensors;
+- the plain-torch epilogue (``unpack_block_winners``, ``finish_scan``):
+  an exact top-k over block winners, id decode, optional f32 LUT rescore;
+- the entry points :func:`adc_scan_fused` (``adc_scan_pallas``) and
+  :func:`adc_block_scan_fused` (``adc_block_scan_pallas``).
+
+Selection keeps one winner (1-4 with ``winners``) per 128-row block,
+exactly like the TPU kernel: losing a true top-k member needs two of
+them in one block, so callers keep ``N >= 256*k``. Limits: K <= 1024,
+k <= 128, N >= 256*k; ``FlatIndex`` falls back to the decode scan
+outside them. ``center_scores`` is an explicit argument (centered for
+the flat scan, uncentered for block-scan callers).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from gulon_tpu_torch.ops.distance import sq_norms
+from gulon_tpu_torch.ops.pq import _lut, split_subspaces
+from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.ops.topk import smallest_k
+
+_BIG = 3.0e38
+_INVALID_MIN = 1.0e38  # values at/above this are padding, not real rows
+_LANES = 128
+_PLAIN_SCORE_BYTES = 1 << 30  # score tile budget of the plain twin
+
+# Launches of kernel K1 (csrc/adc_scan.cu) in this process: one per
+# fused_block_scan call on CUDA tensors, counted where the kernel is
+# launched and nowhere else.
+adc_scan_kernel_launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def padded_depth(m: int, dsub: int) -> int:
+    """Contraction depth of the query operand: ``m * dsub`` decode rows,
+    the hi/lo norm rows and two ones rows, padded to a multiple of 8."""
+    return _round_up(m * dsub + 4, 8)
+
+
+def _pick_tiles(
+    num_q: int, k_codes: int, mdp: int, winners: int = 1
+) -> Tuple[int, int]:
+    """(query tile, row tile) of the TPU kernel (``adc.py:130-154``). The
+    row tile fixes the winner-column order; the query tile the query
+    padding."""
+    budget = 14 * 1024 * 1024
+    qt = min(_round_up(num_q, 16), 512)
+    score_copies = 2 if winners > 1 else 1
+    for t in (4096, 2048, 1024):
+        work = 4 * qt * t * score_copies + 2 * t * mdp + 2 * 2 * t * k_codes
+        if work < budget:
+            return qt, t
+    return qt, 1024
+
+
+def block_layout(
+    num_q: int, k_codes: int, mdp: int, n: int, tile_rows: int = 0,
+    winners: int = 1,
+) -> Tuple[int, int, int, int]:
+    """(qt, t, n_rt, nblk): query tile, row tile, row tiles, 128-row
+    blocks per tile. ``mdp`` is :func:`padded_depth`."""
+    qt, t = _pick_tiles(num_q, k_codes, mdp, winners)
+    if tile_rows:
+        t = tile_rows
+    if n < t:
+        t = _round_up(n, 1024)
+    n_pad = _round_up(n, t)
+    return qt, t, n_pad // t, t // _LANES
+
+
+def _split_hi_lo(norms: torch.Tensor, center=0.0) -> torch.Tensor:
+    """``[N] f32 -> [2, N] bf16`` with ``hi + lo ~= norms - center`` to
+    ~2^-17 relative. +inf padding clamps to ``_BIG`` first, since
+    ``inf - inf`` would be NaN."""
+    norms = torch.clamp(norms, max=_BIG) - center
+    hi = norms.to(torch.bfloat16)
+    lo = (norms - hi.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, lo])
+
+
+def pack_codes_t(codes: torch.Tensor, k_codes: int) -> torch.Tensor:
+    """Pretransposed code operand ``[m, N]`` at minimal width: K <= 256
+    as offset-encoded int8 (``code - 128``), K <= 32768 int16, else int32."""
+    c = codes.to(torch.int32)
+    if k_codes <= 256:
+        return (c - 128).to(torch.int8).T.contiguous()
+    if k_codes <= 32768:
+        return c.to(torch.int16).T.contiguous()
+    return c.T.contiguous()
+
+
+def prepare_scan_operands(
+    queries: torch.Tensor,
+    codebooks: torch.Tensor,
+    codes: torch.Tensor,
+    recon_norms: torch.Tensor,
+    *,
+    bounds,
+    tile_rows: int,
+    num_rows: int,
+    winners: int = 1,
+    center_scores: bool = False,
+) -> dict:
+    """Padded -2-scaled queries with norm/center lanes, transposed padded
+    codes, padded norms and the (qt, t) geometry, as
+    ``gulon_tpu/ops/pallas/adc.py::prepare_scan_operands`` builds them."""
+    num_q = queries.shape[0]
+    m, k_codes, dsub = codebooks.shape
+    pretransposed = num_rows > 0
+    n = num_rows if pretransposed else codes.shape[0]
+    if k_codes > 1024:
+        raise ValueError(f"fused ADC kernel supports K <= 1024, got {k_codes}")
+    mdp = padded_depth(m, dsub)
+    if tile_rows and tile_rows % 1024:
+        raise ValueError(f"tile_rows must be a 1024-multiple, got {tile_rows}")
+    qt, t, _, _ = block_layout(num_q, k_codes, mdp, n, tile_rows, winners)
+
+    md = m * dsub
+    dev = queries.device
+    qs = split_subspaces(queries, bounds, dsub)  # [m, Q, dsub]
+    q_pad = qs.permute(1, 0, 2).reshape(num_q, md) * -2.0
+    if center_scores:
+        nf = torch.clamp(recon_norms.to(torch.float32), max=_BIG)
+        valid = nf < _INVALID_MIN
+        center = torch.sum(torch.where(valid, nf, 0.0)) / torch.clamp(
+            torch.sum(valid.to(torch.float32)), min=1.0
+        )
+        qc = sq_norms(queries) + center  # [Q]
+        qc_hi = qc.to(torch.bfloat16).to(torch.float32)
+        qn_lanes = torch.stack([qc_hi, qc - qc_hi], dim=1)  # [Q, 2]
+    else:
+        center = torch.zeros((), dtype=torch.float32, device=dev)
+        qn_lanes = torch.zeros((num_q, 2), dtype=q_pad.dtype, device=dev)
+    q_pad = torch.cat(
+        [q_pad, torch.ones((num_q, 2), dtype=q_pad.dtype, device=dev), qn_lanes],
+        dim=1,
+    )
+    q_pad = torch.nn.functional.pad(
+        q_pad, (0, mdp - md - 4, 0, (-num_q) % qt)
+    )
+
+    if pretransposed:
+        codes_t = torch.nn.functional.pad(codes, (0, (-codes.shape[1]) % t))
+    else:
+        codes_i = torch.nn.functional.pad(codes.to(torch.int32), (0, 0, 0, (-n) % t))
+        codes_t = codes_i.T.contiguous()  # [m, N']
+    norms = recon_norms.to(torch.float32)
+    if norms.shape[0] < codes_t.shape[1]:
+        norms = torch.nn.functional.pad(
+            norms, (0, codes_t.shape[1] - norms.shape[0]), value=_BIG
+        )
+    return dict(
+        q_pad=q_pad, codes_t=codes_t, norms=norms, center=center, qs=qs,
+        qt=qt, t=t, mdp=mdp, pretransposed=pretransposed, num_q=num_q,
+        m=m, k_codes=k_codes, dsub=dsub,
+    )
+
+
+def _winner_columns(blocks: torch.Tensor, w: int, winners: int, nblk: int):
+    """Output column of winner ``w`` of each global 128-row block: rank-
+    major inside each row tile of ``nblk`` blocks (``adc.py:494-500``)."""
+    return (blocks // nblk) * winners * nblk + w * nblk + blocks % nblk
+
+
+def _check_operands(codes_t, norms_hl, q_op, cb, winners: int, nblk: int):
+    if codes_t.dim() != 2 or codes_t.dtype not in (torch.int8, torch.int16, torch.int32):
+        raise ValueError(
+            f"codes_t must be [m, N] int8/int16/int32, got "
+            f"{tuple(codes_t.shape)} {codes_t.dtype}"
+        )
+    m, n_cols = codes_t.shape
+    if cb.dim() != 3 or cb.shape[0] != m or cb.dtype != torch.bfloat16:
+        raise ValueError(
+            f"codebooks must be [{m}, K, dsub] bf16, got {tuple(cb.shape)} {cb.dtype}"
+        )
+    depth = m * cb.shape[2] + 4
+    if n_cols % _LANES or n_cols == 0 or (n_cols // _LANES) % nblk:
+        raise ValueError(
+            f"codes_t width {n_cols} must be a positive multiple of "
+            f"{_LANES} * nblk ({nblk})"
+        )
+    if norms_hl.shape != (2, n_cols) or norms_hl.dtype != torch.bfloat16:
+        raise ValueError(
+            f"norms must be [2, {n_cols}] bf16, got {tuple(norms_hl.shape)} "
+            f"{norms_hl.dtype}"
+        )
+    if q_op.dim() != 2 or q_op.shape[1] < depth or q_op.dtype != torch.bfloat16:
+        raise ValueError(
+            f"queries must be [Q, >={depth}] bf16, got {tuple(q_op.shape)} "
+            f"{q_op.dtype}"
+        )
+    if not 1 <= winners <= 4:
+        raise ValueError(f"winners must be in 1..4, got {winners}")
+
+
+def _block_scan_plain(
+    codes_t: torch.Tensor,  # [m, N'] int8 (code - 128) / int16 / int32
+    norms_hl: torch.Tensor,  # [2, N'] bf16
+    q_op: torch.Tensor,  # [Q, mdp] bf16
+    cb: torch.Tensor,  # [m, K, dsub] bf16
+    *,
+    winners: int,
+    nblk: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 on the same operands: gather-decode,
+    bf16 values upcast to f32, one f32 matmul, lane pack, per-block min
+    (repeated with the winner masked for ``winners > 1``). Tiled over rows
+    so no more than ``_PLAIN_SCORE_BYTES`` of scores exist at once. Returns
+    ``[Q, N'/128 * winners]`` f32 packed winners."""
+    _check_operands(codes_t, norms_hl, q_op, cb, winners, nblk)
+    m, n_cols = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    depth = m * dsub + 4
+    num_q = q_op.shape[0]
+    dev = codes_t.device
+    q = q_op[:, :depth].to(torch.float32)  # [Q, depth]
+    cbf = cb.to(torch.float32)
+    out = torch.empty((num_q, n_cols // _LANES * winners), dtype=torch.float32, device=dev)
+    step = max(_LANES, _PLAIN_SCORE_BYTES // (4 * num_q) // _LANES * _LANES)
+    sub = torch.arange(m, device=dev)[:, None]
+    for start in range(0, n_cols, step):
+        stop = min(start + step, n_cols)
+        rows = stop - start
+        c = codes_t[:, start:stop].to(torch.int32)
+        if codes_t.dtype == torch.int8:
+            c = c + 128
+        valid = (c >= 0) & (c < k_codes)
+        dec = cbf[sub, torch.where(valid, c, 0).long()]  # [m, T, dsub]
+        dec = torch.where(valid[..., None], dec, 0.0)
+        dec = torch.cat(
+            [
+                dec.permute(1, 0, 2).reshape(rows, m * dsub),
+                norms_hl[:, start:stop].to(torch.float32).T,
+                torch.ones((rows, 2), dtype=torch.float32, device=dev),
+            ],
+            dim=1,
+        )
+        scores = matmul(dec, q.T, "highest")  # [T, Q]
+        lane = (torch.arange(rows, dtype=torch.int32, device=dev) % _LANES)[:, None]
+        packed = ((scores.view(torch.int32) & ~127) | lane).view(torch.float32)
+        masked = packed.reshape(rows // _LANES, _LANES, num_q)
+        blocks = torch.arange(start // _LANES, stop // _LANES, device=dev)
+        for w in range(winners):
+            vmin = torch.amin(masked, dim=1)  # [nb, Q]
+            out[:, _winner_columns(blocks, w, winners, nblk)] = vmin.T
+            if w + 1 < winners:
+                masked = torch.where(masked == vmin[:, None, :], _BIG, masked)
+    return out
+
+
+_LIB = None
+
+
+def _kernel():
+    """The built K1 library, with its C signature declared."""
+    global _LIB
+    if _LIB is None:
+        from gulon_tpu_torch.ops.cuda import _build
+
+        lib = _build.load("adc_scan")
+        fn = lib.gulon_adc_scan
+        fn.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int]  # codes, code bytes
+            + [ctypes.c_void_p] * 4  # norms, queries, cb, out
+            + [ctypes.c_int] * 9  # n_cols num_q q_stride depth m K dsub winners nblk
+            + [ctypes.c_void_p]  # stream
+        )
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def fused_block_scan(
+    codes_t: torch.Tensor,
+    norms_hl: torch.Tensor,
+    q_op: torch.Tensor,
+    cb: torch.Tensor,
+    *,
+    winners: int,
+    nblk: int,
+) -> torch.Tensor:
+    """Packed block winners ``[Q, N'/128 * winners]`` of K1.
+
+    CUDA tensors launch the kernel on the current stream (or raise); CPU
+    tensors take :func:`_block_scan_plain`. Operands as
+    :func:`_block_scan_plain` documents."""
+    global adc_scan_kernel_launches
+    tensors = (codes_t, norms_hl, q_op, cb)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands must share one device, got {devices}")
+    if not codes_t.is_cuda:
+        return _block_scan_plain(
+            codes_t, norms_hl, q_op, cb, winners=winners, nblk=nblk
+        )
+    _check_operands(codes_t, norms_hl, q_op, cb, winners, nblk)
+    m, n_cols = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    depth = m * dsub + 4
+    num_q = q_op.shape[0]
+    if num_q == 0:
+        raise ValueError("need at least one query")
+    codes_t, norms_hl, q_op, cb = (
+        t.contiguous() for t in (codes_t, norms_hl, q_op, cb)
+    )
+    lib = _kernel()
+    with torch.cuda.device(codes_t.device):
+        out = torch.empty(
+            (num_q, n_cols // _LANES * winners), dtype=torch.float32,
+            device=codes_t.device,
+        )
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gulon_adc_scan(
+            codes_t.data_ptr(), codes_t.element_size(), norms_hl.data_ptr(),
+            q_op.data_ptr(), cb.data_ptr(), out.data_ptr(), n_cols, num_q,
+            q_op.shape[1], depth, m, k_codes, dsub, winners, nblk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"adc_scan kernel launch failed: cudaError_t {err}")
+    adc_scan_kernel_launches += 1
+    return out
+
+
+def _block_scan(
+    queries: torch.Tensor,
+    codebooks: torch.Tensor,
+    codes: torch.Tensor,
+    recon_norms: torch.Tensor,
+    *,
+    bounds,
+    tile_rows: int,
+    num_rows: int,
+    winners: int = 1,
+    center_scores: bool = False,
+):
+    """Run K1; returns ``(packed [Q, NW], base_cols [NW] int32, qs,
+    codes_t, pretransposed)`` as ``adc.py:422-507`` does: ``packed``
+    holds lane-packed winner floats, ``base_cols[c]`` the first row of
+    winner column ``c``'s block, so ``row = base_cols[c] +
+    (bits(packed) & 127)``. Values ``>= _INVALID_MIN`` mark padding."""
+    ops = prepare_scan_operands(
+        queries, codebooks, codes, recon_norms,
+        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
+        winners=winners, center_scores=center_scores,
+    )
+    codes_t, t, num_q = ops["codes_t"], ops["t"], ops["num_q"]
+    nblk = t // _LANES
+    packed = fused_block_scan(
+        codes_t,
+        _split_hi_lo(ops["norms"], ops["center"]),
+        ops["q_pad"][:num_q].to(torch.bfloat16),
+        codebooks.to(torch.bfloat16).contiguous(),
+        winners=winners,
+        nblk=nblk,
+    )
+    n_rt = codes_t.shape[1] // t
+    wn = winners * nblk
+    cols = np.arange(n_rt * wn, dtype=np.int64)
+    base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
+    return (
+        packed,
+        torch.from_numpy(base_cols).to(packed.device),
+        ops["qs"],
+        codes_t,
+        ops["pretransposed"],
+    )
+
+
+def unpack_block_winners(
+    packed: torch.Tensor, base_cols: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lane-packed block winners -> ``([Q, NW] values, [Q, NW] row ids)``;
+    values keep the <=2^-16 packing coarseness."""
+    bits = packed.view(torch.int32)
+    vals = (bits & ~127).view(torch.float32)
+    ids = base_cols[None, :] + (bits & 127)
+    return vals, ids
+
+
+def adc_block_scan_fused(
+    queries: torch.Tensor,  # [Q, D] f32
+    codebooks: torch.Tensor,  # [m, K, dsub] f32
+    codes: torch.Tensor,  # [N, m] codes, or [m, N] when num_rows is given
+    recon_norms: torch.Tensor,  # [N] f32
+    *,
+    bounds,
+    tile_rows: int = 0,
+    num_rows: int = 0,
+    winners: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw block winners ``([Q, NB] values, [Q, NB] row ids)`` for custom
+    epilogues (counterpart of ``adc_block_scan_pallas``). Uncentered:
+    values are ``recon_norms[row] - 2<q, dec(row)>``."""
+    if not 1 <= winners <= 4:
+        raise ValueError(f"winners must be in 1..4, got {winners}")
+    packed, base_cols, _, _, _ = _block_scan(
+        queries, codebooks, codes, recon_norms,
+        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
+        winners=winners,
+    )
+    return unpack_block_winners(packed, base_cols)
+
+
+def finish_scan(
+    packed: torch.Tensor,  # [Q, NW] lane-packed block winners
+    base_cols: torch.Tensor,  # [NW] int32
+    qs: torch.Tensor,  # [m, Q, dsub] split queries
+    codes_t: torch.Tensor,  # the kernel's code operand
+    pretransposed: bool,
+    *,
+    queries: torch.Tensor,
+    codebooks: torch.Tensor,
+    codes: torch.Tensor,
+    k: int,
+    kk: int,
+    rescore: bool,
+    centered: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Epilogue of ``gulon_tpu/ops/pallas/adc.py:569-660`` in plain torch:
+    strip the lane bits, exact top-k over the block winners (equal values
+    keep the lowest column, i.e. the earliest rows, as the reference heap
+    does), decode ids from column + lane bits, optional exact f32 LUT
+    rescore."""
+    num_q = queries.shape[0]
+    m = codebooks.shape[0]
+    bits_all = packed.view(torch.int32)
+    vals_all = (bits_all & ~127).view(torch.float32)
+    best_v, pos = smallest_k(vals_all, kk)
+    pos = pos.long()
+    lanes = torch.gather(bits_all & 127, 1, pos)
+    best_ids = base_cols[pos] + lanes
+    invalid = best_v >= _INVALID_MIN
+
+    if rescore:
+        lut = _lut(qs, codebooks.to(torch.float32))  # [Q, m, K]
+        safe = torch.where(invalid, 0, best_ids).long()
+        if pretransposed:
+            sel = codes_t[:, safe.reshape(-1)].to(torch.int32)
+            if codes_t.dtype == torch.int8:  # undo the offset encoding
+                sel = sel + 128
+            sel = sel.reshape(m, num_q, kk).permute(1, 2, 0)
+        else:
+            sel = codes[safe.reshape(-1)].to(torch.int32).reshape(num_q, kk, m)
+        dev = lut.device
+        exact = lut[
+            torch.arange(num_q, device=dev)[:, None, None],
+            torch.arange(m, device=dev)[None, None, :],
+            sel.long(),
+        ].sum(dim=-1)  # [Q, kk]
+        exact = torch.where(invalid, float("inf"), exact)
+        best_ids = torch.where(invalid, -1, best_ids)
+        best_d, pos2 = smallest_k(exact, kk)
+        best_ids = torch.gather(best_ids, 1, pos2.long())
+    else:
+        # centered: the contraction already emitted the full distance
+        if centered:
+            best_d = torch.where(invalid, float("inf"), best_v)
+        else:
+            qn = sq_norms(queries)
+            best_d = torch.where(invalid, float("inf"), best_v + qn[:, None])
+        best_ids = torch.where(invalid, -1, best_ids)
+    if kk < k:
+        best_d = torch.nn.functional.pad(best_d, (0, k - kk), value=float("inf"))
+        best_ids = torch.nn.functional.pad(best_ids, (0, k - kk), value=-1)
+    return best_d, best_ids
+
+
+def adc_scan_fused(
+    queries: torch.Tensor,  # [Q, D] f32
+    codebooks: torch.Tensor,  # [m, K, dsub] f32 (zero-padded subspaces)
+    codes: torch.Tensor,  # [N, m] codes, or pretransposed [m, N] (num_rows)
+    recon_norms: torch.Tensor,  # [N] f32
+    *,
+    bounds,
+    k: int,
+    tile_rows: int = 0,  # 0 = the TPU kernel's choice (column order only)
+    num_rows: int = 0,  # >0: codes is pretransposed [m, num_rows]
+    rescore: bool = False,  # exact f32 LUT rescore of the k winners
+    winners: int = 1,  # ranked candidates per 128-row block (1..4)
+    center_scores: bool = True,  # the kernel emits the true ADC distance
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused-kernel ADC scan (counterpart of ``adc_scan_pallas``).
+    Returns ([Q, k] dists ascending, [Q, k] ids)."""
+    if not 1 <= winners <= 4:
+        raise ValueError(f"winners must be in 1..4, got {winners}")
+    n = num_rows if num_rows > 0 else codes.shape[0]
+    if k > _LANES:
+        raise ValueError(f"fused ADC kernel supports k <= 128, got {k}")
+    kk = min(k, n)
+    if n < 256 * kk:
+        raise ValueError(
+            f"fused ADC kernel needs corpus >= 256*k rows (n={n}, k={kk}); "
+            "use the decode scan for small corpora"
+        )
+    packed, base_cols, qs, codes_t, pretransposed = _block_scan(
+        queries, codebooks, codes, recon_norms,
+        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
+        winners=winners, center_scores=center_scores,
+    )
+    return finish_scan(
+        packed, base_cols, qs, codes_t, pretransposed,
+        queries=queries, codebooks=codebooks, codes=codes,
+        k=k, kk=kk, rescore=rescore, centered=center_scores,
+    )

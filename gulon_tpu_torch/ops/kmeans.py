@@ -1,0 +1,171 @@
+"""Lloyd's k-means with the PQ subspaces as a batch dimension.
+
+Counterpart of ``gulon_tpu/ops/kmeans.py`` (reference ``KMeans.scala``):
+
+- assignment is a blocked matmul + argmin (``||c||^2 - 2<x,c>``,
+  ``KMeans.scala:37-52``), so no ``[n, k]`` score matrix of the whole
+  input is ever held;
+- the centroid update is a segment sum of the rows by cluster; empty
+  clusters become zero vectors (``KMeans.scala:198-226``);
+- all m subspaces of a stacked ``[m, n, d]`` input train at once, and
+  each stops at its own fixpoint ("assignment unchanged",
+  ``KMeans.scala:149``): a converged subspace keeps its centroids and
+  assignments while the others iterate.
+
+The JAX version runs the loop inside ``lax.while_loop``; here it is a
+Python loop that reads the ``done`` mask back once per iteration.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gulon_tpu_torch.ops.distance import sq_norms
+from gulon_tpu_torch.ops.precision import matmul
+
+
+class KMeansConfig(NamedTuple):
+    """Mirrors ``KMeans.Config`` (reference ``KMeans.scala:129-132``)."""
+
+    k: int
+    max_iters: int = 100
+    seed: int = 0
+    block_rows: int = 65536
+    # matmul precision of the assignment, see ops/precision.py
+    precision: str = "default"
+    # "sample" = uniform rows with replacement; "kmeans++" waits for a
+    # later slice of the port
+    init: str = "sample"
+
+
+class KMeansResult(NamedTuple):
+    centroids: torch.Tensor  # [m, k, d] (or [k, d] for unstacked input)
+    assignments: torch.Tensor  # [m, n] int32 (or [n])
+    iterations: int
+    converged: torch.Tensor  # [m] bool (or scalar)
+
+
+def _assign_blocked(
+    x: torch.Tensor, centroids: torch.Tensor, block: int,
+    precision: str = "default",
+) -> torch.Tensor:
+    """Nearest centroid, tiled over rows: ``[m, n, d], [m, k, d] -> [m, n]``
+    int32 (ties to the lowest centroid, as ``jnp.argmin``)."""
+    n = x.shape[1]
+    block = max(1, min(block, n))
+    cn = sq_norms(centroids)  # [m, k]
+    ct = centroids.transpose(1, 2)  # [m, d, k]
+    out = torch.empty(x.shape[:2], dtype=torch.int32, device=x.device)
+    for start in range(0, n, block):
+        xt = x[:, start : start + block]
+        scores = cn[:, None, :] - 2.0 * matmul(xt, ct, precision)
+        out[:, start : start + block] = torch.argmin(scores, dim=-1)
+    return out
+
+
+def _update(x: torch.Tensor, assignments: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-cluster means ``[m, k, d]`` by segment sum; empty -> zeros."""
+    m, n, d = x.shape
+    seg = (
+        assignments.long()
+        + torch.arange(m, device=x.device)[:, None] * k
+    ).reshape(-1)
+    sums = torch.zeros((m * k, d), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, seg, x.reshape(m * n, d))
+    counts = torch.bincount(seg, minlength=m * k).to(torch.float32)
+    means = sums / torch.clamp(counts, min=1.0)[:, None]
+    means = torch.where(counts[:, None] > 0, means, torch.zeros_like(means))
+    return means.reshape(m, k, d)
+
+
+def draw_init_indices(
+    m: int, n: int, k: int, seed: int, device="cpu"
+) -> torch.Tensor:
+    """``[m, k]`` init row samples, uniform with replacement. Subspace i
+    draws from its own ``torch.Generator`` seeded from ``(seed, i)`` only,
+    so its init does not depend on how many subspaces are stacked with it
+    (the reference seeds subspace i with ``seed + i``,
+    ``ProductQuantizer.scala:140``). These are not ``jax.random``'s
+    draws: pass ``init_indices=`` to :func:`fit_kmeans` to replay those."""
+    rows = []
+    for i in range(m):
+        gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
+        rows.append(torch.randint(0, n, (k,), generator=gen))
+    return torch.stack(rows).to(device)
+
+
+def fit_kmeans(
+    x,
+    config: KMeansConfig,
+    report_fn=None,
+    *,
+    init_indices: Optional[torch.Tensor] = None,
+) -> KMeansResult:
+    """Train k-means. ``x`` is ``[n, d]`` or stacked ``[m, n, d]``.
+
+    ``init_indices`` (``[m, k]`` ints) overrides the seeded draw of
+    initial rows; the parity tests pass the JAX package's draw through
+    it. Training runs on the device of ``x`` (the CPU for numpy input).
+    """
+    if report_fn is not None:
+        raise NotImplementedError(
+            "k-means progress reports (report_fn) come with a later slice "
+            "of the port"
+        )
+    if config.init == "kmeans++":
+        raise NotImplementedError(
+            "kmeans++ seeding comes with a later slice of the port"
+        )
+    if config.init != "sample":
+        raise ValueError(
+            f"unknown init {config.init!r} (expected 'sample' or 'kmeans++')"
+        )
+    x = torch.as_tensor(x, dtype=torch.float32)
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[None]
+    m, n, _ = x.shape
+    k = config.k
+    if init_indices is None:
+        idx = draw_init_indices(m, n, k, config.seed, x.device)
+    else:
+        if not isinstance(init_indices, torch.Tensor):
+            init_indices = torch.from_numpy(np.array(init_indices, np.int64))
+        idx = init_indices.to(device=x.device, dtype=torch.long)
+        if idx.shape != (m, k):
+            raise ValueError(f"init_indices must be [{m}, {k}], got {tuple(idx.shape)}")
+    centroids = torch.stack([x[i, idx[i]] for i in range(m)])
+    bs = config.block_rows
+    assignments = _assign_blocked(x, centroids, bs, config.precision)
+    done = torch.zeros(m, dtype=torch.bool, device=x.device)
+    it = 0
+    while it < config.max_iters and not bool(done.all()):
+        new_c = _update(x, assignments, k)
+        new_c = torch.where(done[:, None, None], centroids, new_c)
+        new_a = _assign_blocked(x, new_c, bs, config.precision)
+        new_a = torch.where(done[:, None], assignments, new_a)
+        done = done | torch.all(new_a == assignments, dim=1)
+        centroids, assignments = new_c, new_a
+        it += 1
+    if squeeze:
+        return KMeansResult(centroids[0], assignments[0], it, done[0])
+    return KMeansResult(centroids, assignments, it, done)
+
+
+def lloyd_step(
+    x: torch.Tensor, centroids: torch.Tensor, block_rows: int = 65536
+):
+    """One assign+update Lloyd step on ``[n, d]`` input (benchmark unit).
+    Returns (new_centroids, assignments)."""
+    a = _assign_blocked(x[None], centroids[None], block_rows)
+    c = _update(x[None], a, centroids.shape[0])
+    return c[0], a[0]
+
+
+def kmeans_objective(x, centroids, assignments) -> torch.Tensor:
+    """Mean squared distance to the assigned centroid."""
+    picked = centroids[assignments.long()]
+    return torch.mean(torch.sum((x - picked) ** 2, dim=-1))

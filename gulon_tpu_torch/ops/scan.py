@@ -1,0 +1,201 @@
+"""Streaming ADC / exact scans with a fused top-k.
+
+Counterpart of ``gulon_tpu/ops/scan.py``. Every scan walks the rows in
+tiles and carries the best ``(distance, row id)`` pairs across tiles
+(concatenate + top-k per tile, the functional ``TopKHeap``):
+
+- ``adc_scan_decode``: decode a tile of codes to ``[T, m*dsub]``, then one
+  queries x tile matmul with precomputed reconstruction norms,
+  ``||q||^2 + ||x^||^2 - 2<q, x^>``;
+- ``adc_scan_lut``: per-subspace gathers from the ``[Q, m, K]`` lookup
+  table (``Index.scala:393-409``), the cheaper path for tiny batches;
+- ``exact_scan``: brute force over raw vectors
+  (``exactNearestNeighbours``, ``Index.scala:209-229``), also the ground
+  truth of the recall harness.
+
+All return squared-L2 distances ascending and global row ids; padding
+rows carry +inf norms and never enter the top-k.
+
+``topk_impl="approx"`` asks the JAX package for ``lax.approx_min_k``,
+which torch does not have. The port accepts ``"approx"`` and
+``recall_target`` and computes the top-k exactly, so both names give
+the same (exact) answer here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from gulon_tpu_torch.ops.distance import sq_norms
+from gulon_tpu_torch.ops.pq import split_subspaces
+from gulon_tpu_torch.ops.precision import matmul, resolve_precision
+from gulon_tpu_torch.ops.topk import smallest_k
+
+DEFAULT_TILE_ROWS = 16384
+
+
+def _check_topk_impl(topk_impl: str) -> None:
+    if topk_impl not in ("approx", "exact"):
+        raise ValueError(f"unknown topk impl {topk_impl!r}")
+
+
+def _streaming_topk(
+    dist_tile_fn: Callable[[int, int], torch.Tensor],
+    n: int,
+    tile_rows: int,
+    num_queries: int,
+    k: int,
+    device,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold ``dist_tile_fn(start, stop) -> [Q, stop-start]`` over the rows,
+    keeping the k best (distance, global row id) per query. Equal
+    distances keep the lowest row; slots no finite row fills are
+    ``(inf, -1)``."""
+    best_d = torch.full((num_queries, k), float("inf"), device=device)
+    best_i = torch.full((num_queries, k), -1, dtype=torch.int32, device=device)
+    for start in range(0, n, tile_rows):
+        stop = min(start + tile_rows, n)
+        d = dist_tile_fn(start, stop)
+        rows = torch.arange(start, stop, dtype=torch.int32, device=device)
+        cand_d = torch.cat([best_d, d], dim=1)
+        cand_i = torch.cat([best_i, rows.expand(num_queries, -1)], dim=1)
+        best_d, pos = smallest_k(cand_d, k)
+        best_i = torch.gather(cand_i, 1, pos.long())
+    best_i = torch.where(torch.isinf(best_d), -1, best_i)
+    return best_d, best_i
+
+
+def _q_pad(queries: torch.Tensor, bounds, dsub: int) -> torch.Tensor:
+    """Queries in the padded subspace layout ``[Q, m*dsub]``."""
+    qs = split_subspaces(queries, bounds, dsub)  # [m, Q, dsub]
+    return qs.permute(1, 0, 2).reshape(queries.shape[0], -1)
+
+
+def decode_tile(codebooks: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """Decode a tile of PQ codes ``[T, m]`` to ``[T, m*dsub]`` by indexing
+    the codebooks ``[m, K, dsub]``; exact. (The JAX package's one-hot
+    matmul formulation exists because a TPU has no fast gather; a GPU
+    gathers from cache at full speed.)"""
+    m, _, dsub = codebooks.shape
+    dec = codebooks[torch.arange(m, device=ci.device)[None, :], ci.long()]
+    return dec.reshape(ci.shape[0], m * dsub)
+
+
+def adc_scan_decode(
+    queries: torch.Tensor,  # [Q, D] f32
+    codebooks: torch.Tensor,  # [m, K, dsub] f32
+    codes: torch.Tensor,  # [N, m] codes
+    recon_norms: torch.Tensor,  # [N] f32 = ||decode(codes)||^2
+    *,
+    bounds,
+    k: int,
+    tile_rows: int = DEFAULT_TILE_ROWS,
+    precision: str = "default",
+    topk_impl: str = "approx",
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode + matmul ADC scan. Returns ([Q,k] dists, [Q,k] ids)."""
+    _check_topk_impl(topk_impl)
+    resolve_precision(precision)
+    num_q = queries.shape[0]
+    n = codes.shape[0]
+    tile_rows = min(tile_rows, max(n, 1))
+    q_pad = _q_pad(queries, bounds, codebooks.shape[2])
+    qn = sq_norms(queries)
+
+    def dist_tile(start, stop):
+        dec = decode_tile(codebooks, codes[start:stop])
+        ip = matmul(q_pad, dec.T, precision)
+        return qn[:, None] + recon_norms[None, start:stop] - 2.0 * ip
+
+    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, queries.device)
+
+
+def adc_scan_lut(
+    lut: torch.Tensor,  # [Q, m, K] f32 = ||q_sub - c||^2
+    codes: torch.Tensor,  # [N, m] codes
+    valid_rows: torch.Tensor,  # [N] bool (True = scannable)
+    *,
+    k: int,
+    tile_rows: int = DEFAULT_TILE_ROWS,
+    topk_impl: str = "approx",
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LUT gather-accumulate ADC scan (``Index.scala:393-409``)."""
+    _check_topk_impl(topk_impl)
+    num_q, m, _ = lut.shape
+    n = codes.shape[0]
+    tile_rows = min(tile_rows, max(n, 1))
+    lut_t = lut.permute(1, 2, 0)  # [m, K, Q]
+
+    def dist_tile(start, stop):
+        ci = codes[start:stop].long()
+        acc = torch.zeros((stop - start, num_q), device=lut.device)
+        for s in range(m):
+            acc = acc + lut_t[s][ci[:, s]]  # [T, Q]
+        d = acc.T
+        return torch.where(valid_rows[None, start:stop], d, float("inf"))
+
+    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, lut.device)
+
+
+def rescore_exact(
+    queries: torch.Tensor,  # [Q, D] f32
+    codebooks: torch.Tensor,  # [m, K, dsub] f32
+    codes: torch.Tensor,  # [N, m] codes
+    recon_norms: torch.Tensor,  # [N] f32
+    cand_ids: torch.Tensor,  # [Q, C] candidate rows (-1 = empty slot)
+    *,
+    bounds,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 ADC rescore of per-query candidate sets: the bf16-ranked
+    fast scans over-fetch, and this ranks the survivors at full precision.
+    Returns ([Q, k] exact dists ascending, [Q, k] ids)."""
+    num_q, c = cand_ids.shape
+    m, _, dsub = codebooks.shape
+    cand_ids = cand_ids.to(torch.int32)
+    safe = torch.clamp(cand_ids, min=0).long()
+    dec = decode_tile(codebooks, codes[safe.reshape(-1)]).reshape(
+        num_q, c, m * dsub
+    )
+    q_pad = _q_pad(queries, bounds, dsub)
+    ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, C]
+    d = sq_norms(queries)[:, None] + recon_norms[safe] - 2.0 * ip
+    d = torch.where(cand_ids < 0, float("inf"), d)
+    kf = min(k, c)
+    vals, pos = smallest_k(d, kf)
+    ids = torch.gather(cand_ids, 1, pos.long())
+    ids = torch.where(torch.isinf(vals), -1, ids)
+    if kf < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kf), value=float("inf"))
+        ids = torch.nn.functional.pad(ids, (0, k - kf), value=-1)
+    return vals, ids
+
+
+def exact_scan(
+    queries: torch.Tensor,  # [Q, D] f32
+    data: torch.Tensor,  # [N, D] f32
+    *,
+    k: int,
+    tile_rows: int = DEFAULT_TILE_ROWS,
+    precision: str = "highest",
+    topk_impl: str = "exact",
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force squared-L2 top-k (``exactNearestNeighbours``)."""
+    _check_topk_impl(topk_impl)
+    resolve_precision(precision)
+    num_q = queries.shape[0]
+    n = data.shape[0]
+    tile_rows = min(tile_rows, max(n, 1))
+    qn = sq_norms(queries)
+    xn = sq_norms(data)
+
+    def dist_tile(start, stop):
+        ip = matmul(queries, data[start:stop].T, precision)
+        return qn[:, None] + xn[None, start:stop] - 2.0 * ip
+
+    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, queries.device)

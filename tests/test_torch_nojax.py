@@ -1,0 +1,50 @@
+"""The port stands without JAX: a fresh interpreter imports
+``gulon_tpu_torch``, builds, queries and measures recall on the CPU, and
+never loads ``jax``. The port's sources name no jax import at all."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import sys
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+import gulon_tpu_torch as gt
+
+rng = np.random.default_rng(0)
+x = rng.normal(size=(1200, 12)).astype(np.float32)
+keys = np.array([f"k{i:05d}" for i in range(1200)], dtype=object)
+index = gt.build_flat_index(
+    keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=5)
+)
+assert index.query(3, x[7]).keys[0] == "k00007"
+truth = gt.sample_ground_truth(keys, x, num_samples=50, ks=(1, 10))
+index.scan_strategy = "pallas"
+recall = gt.recall_of(index, truth, x, keys)
+assert 0.0 < recall[10].mean <= 1.0
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("ok")
+"""
+
+
+def test_port_runs_without_importing_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    sources = list((ROOT / "gulon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 10
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
