@@ -8,7 +8,9 @@ the script exits non-zero:
 
 1. device: the card's name, and its name and power limit as
    ``nvidia-smi`` reports them;
-2. build: ``nvcc`` builds kernel K1 from ``gulon_tpu_torch/csrc``;
+2. build: ``nvcc`` builds kernel K1 (``adc_scan``) and kernels K2/K3
+   (``dense_scan``) from ``gulon_tpu_torch/csrc``, one process each, in
+   parallel;
 3. kernel: K1 against its plain PyTorch version on the same operands at
    the glove100 shape (400,000 rows, D=100, PQ 8x256, 1024 queries), for
    1 and 2 winners per block, centered and uncentered, and once with
@@ -16,10 +18,22 @@ the script exits non-zero:
 4. main path: build a flat PQ index of a seeded 400,000 x 100 low-rank
    corpus on the card, answer 4 batches of 1024 top-10 queries through
    the ``auto`` strategy (which must pick the fused kernel), and measure
-   recall@1/@10 on 1000 sampled queries against the decode strategy.
+   recall@1/@10 on 1000 sampled queries against the decode strategy;
+5. dense kernel: K2 and K3 against their plain versions on the same
+   operands at the fasttext shape (a seeded 2,000,000 x 300 low-rank
+   corpus, Dp 304 / 320, 1024 queries drawn from it), and K2 once at the
+   glove100 cache width (400,000 x 104, Dp 112); K2 within
+   ``2^-14 * max(|v|, ||x||^2 + ||q||^2)`` with >= 99.5 % equal ids, K3
+   bit for bit;
+6. exact path: ``build_exact_index`` of that corpus on the card; 4
+   batches of 1024 top-10 queries through ``auto`` (which must pick the
+   kernel route, K2), then with ``operand="int8"`` (K3) and with
+   ``scan_strategy="xla"``; recall@1/@10 of each on 1000 sampled queries;
+7. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
+   pick ``cached``; 4 batches through K2; recall against decode.
 
-Then a line with each kernel's launches on the main path, error and
-times, the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+Then a line with each kernel's launches on the paths, error and times,
+the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -77,6 +91,32 @@ def low_rank_corpus(seed: int, n: int, d: int, intrinsic: int = 32,
     z = centers[labels] + 0.3 * rng.standard_normal((n, intrinsic), dtype=np.float32)
     x = z @ basis / np.float32(np.sqrt(intrinsic))
     return (x + noise * rng.standard_normal((n, d), dtype=np.float32)).astype(np.float32)
+
+
+def _serve(index, x, rows, k):
+    """(host ms ending in a synchronize, dists, ids) of one query batch."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dists, ids = index.query_arrays(k, x[rows])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, dists, ids
+
+
+def _serve_checked(index, x, rows, k) -> float:
+    """Serve one batch and check it: shape, finite distances, ids in
+    range, distances ascending. Returns its ms."""
+    import torch
+
+    ms, dists, ids = _serve(index, x, rows, k)
+    if dists.shape != (len(rows), k) or not bool(torch.isfinite(dists).all()):
+        raise AssertionError(f"bad distances {tuple(dists.shape)}")
+    if not bool(((ids >= 0) & (ids < len(x))).all()):
+        raise AssertionError("row ids out of range")
+    if not bool((dists[:, 1:] >= dists[:, :-1]).all()):
+        raise AssertionError("distances not ascending")
+    return ms
 
 
 def phase_kernel(seed: int) -> dict:
@@ -143,8 +183,10 @@ def phase_kernel(seed: int) -> dict:
     return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
-def phase_main_path(seed: int) -> dict:
-    """Build -> serve -> recall through the port's entry points."""
+def phase_main_path(seed: int):
+    """Build -> serve -> recall through the port's entry points. Returns
+    the phase line and the index, corpus and ground truth for the cached
+    path."""
     import numpy as np
     import torch
 
@@ -173,26 +215,12 @@ def phase_main_path(seed: int) -> dict:
     if strategy != "pallas":
         raise AssertionError(f"auto resolved to {strategy!r}, not 'pallas'")
 
-    def serve(idx, rows):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        dists, ids = idx.query_arrays(k, x[rows])
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3, dists, ids
-
     decode = dataclasses.replace(index, scan_strategy="decode")
     fused_ms, decode_ms = [], []
     for b in range(4):
         rows = rng.choice(n, batch, replace=False)
-        ms, dists, ids = serve(index, rows)
-        fused_ms.append(ms)
-        if dists.shape != (batch, k) or not bool(torch.isfinite(dists).all()):
-            raise AssertionError(f"bad distances {tuple(dists.shape)}")
-        if not bool(((ids >= 0) & (ids < n)).all()):
-            raise AssertionError("row ids out of range")
-        if not bool((dists[:, 1:] >= dists[:, :-1]).all()):
-            raise AssertionError("distances not ascending")
-        decode_ms.append(serve(decode, rows)[0])
+        fused_ms.append(_serve_checked(index, x, rows, k))
+        decode_ms.append(_serve(decode, x, rows, k)[0])
     launches_serve = adc.adc_scan_kernel_launches
 
     truth = gt.sample_ground_truth(
@@ -217,6 +245,222 @@ def phase_main_path(seed: int) -> dict:
         raise AssertionError(f"K1 launched {launches_serve} times for 4 batches")
     if ratio < 0.97:
         raise AssertionError(f"fused/decode recall@10 ratio {ratio:.4f} < 0.97")
+    return out, dict(index=index, x=x, keys=keys, truth=truth, rec_decode=rec_decode)
+
+
+def _dense_case(name, block_scan, plain, data, q_op, exact) -> dict:
+    """One kernel against its plain version on the same operands: K3
+    (``exact``) bit for bit; K2 with >= 99.5 % equal block-winner ids and
+    every value, and both values of every id mismatch, within
+    ``2^-14 * max(|v|, S)``. ``S = ||x||^2 + ||q||^2`` of the winner row
+    and the query bounds the f32 partial sums: two summation orders of
+    the same exact bf16 products differ by a fraction of the summands, not
+    of a score that cancels to near 0. How many values miss the tighter
+    ``2^-14 * max(|v|, 1)`` is reported as ``outside_value_tol``."""
+    import torch
+
+    got = block_scan(data, q_op)
+    torch.cuda.synchronize()
+    ref = plain(data, q_op)
+    shape = [q_op.shape[0], data.shape[0], data.shape[1]]
+    if exact:
+        err = (got.to(torch.int64) - ref.to(torch.int64)).abs()
+        ok = bool(torch.equal(got, ref))
+        case = dict(id_equal=float(((got & 127) == (ref & 127)).float().mean()))
+    else:
+        bk, bp = got.view(torch.int32), ref.view(torch.int32)
+        vk, vp = (bk & ~127).view(torch.float32), (bp & ~127).view(torch.float32)
+        ik, ip = bk & 127, bp & 127
+        rows = torch.clamp(
+            torch.arange(bp.shape[1], device=bp.device)[None, :] * 128 + ip,
+            max=data.shape[0] - 1,
+        ).long()
+        x_norm = data[:, -2].float() + data[:, -1].float()  # hi + lo lanes
+        q_norm = (q_op[:, :-2].float() ** 2).sum(1) / 4.0  # lanes hold -2q
+        scale = torch.clamp(x_norm[rows] + q_norm[:, None], min=1.0)
+        tol = 2.0 ** -14 * torch.maximum(vp.abs(), scale)
+        err = (vk - vp).abs()
+        id_equal = float((ik == ip).float().mean())
+        vals_ok = bool((err <= tol).all())
+        ties_ok = bool((err[ik != ip] <= tol[ik != ip]).all())
+        ok = id_equal >= 0.995 and vals_ok and ties_ok
+        outside = err > 2.0 ** -14 * torch.clamp(vp.abs(), min=1.0)
+        case = dict(
+            id_equal=id_equal, values_ok=vals_ok, ties_ok=ties_ok,
+            max_err_over_scale=float((err / scale).max()),
+            outside_value_tol=int(outside.sum()), values=err.numel(),
+        )
+    case = dict(
+        kernel=name, shape=shape, dtype=str(data.dtype).replace("torch.", ""),
+        **case, max_abs_err=float(err.max()), ok=ok,
+        ms=_cuda_ms(lambda: block_scan(data, q_op)),
+        plain_ms=_cuda_ms(lambda: plain(data, q_op)),
+    )
+    _emit({"phase": "dense_kernel", **case})
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: {case}")
+    return case
+
+
+def phase_dense_kernel(seed: int, x, glove) -> dict:
+    """K2 and K3 against their plain versions at the fasttext shape, and
+    K2 at the glove100 cache width (the cached strategy's operand)."""
+    import numpy as np
+    import torch
+
+    from gulon_tpu_torch.models.flat import _augment_cache
+    from gulon_tpu_torch.ops import scan as scan_ops
+    from gulon_tpu_torch.ops.cuda import dense
+
+    rng = np.random.default_rng(seed + 3)
+    q_n = 1024
+    xd = torch.from_numpy(x).to("cuda")
+    q = xd[torch.from_numpy(rng.choice(len(x), q_n, replace=False)).to("cuda")]
+
+    def q_aug(q, dp):
+        d = q.shape[1]
+        return torch.cat(
+            [-2.0 * q, torch.zeros((len(q), dp - d - 2), device=q.device),
+             torch.ones((len(q), 2), device=q.device)], dim=1,
+        ).to(torch.bfloat16)
+
+    data = dense.prepare_data(xd)
+    k2 = _dense_case(
+        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, data,
+        q_aug(q, data.shape[1]), exact=False,
+    )
+    del data
+    d8, meta, _ = dense.prepare_data_i8(xd)
+    qi = torch.clamp(torch.round(-q / (meta.scale * meta.gain)), -127, 127)
+    q8 = torch.cat(
+        [qi, torch.zeros((q_n, meta.dp - meta.d - 2), device="cuda"),
+         torch.full((q_n, 1), 127.0, device="cuda"),
+         torch.ones((q_n, 1), device="cuda")], dim=1,
+    ).to(torch.int8)
+    k3 = _dense_case(
+        "K3", dense.dense_block_scan_i8, dense._dense_block_scan_plain_i8, d8,
+        q8, exact=True,
+    )
+    del d8, xd
+
+    index, gx = glove["index"], glove["x"]
+    pq = index.pq
+    cache = scan_ops.decode_tile(pq.codebooks, index.codes).to(torch.bfloat16)
+    aug = _augment_cache(cache, index.recon_norms)
+    gq = torch.from_numpy(gx[rng.choice(len(gx), q_n, replace=False)]).to("cuda")
+    k2_cache = _dense_case(
+        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, aug,
+        q_aug(scan_ops._q_pad(gq, pq.bounds, pq.pad_width), aug.shape[1]),
+        exact=False,
+    )
+    return dict(k2=k2, k3=k3, k2_cache=k2_cache)
+
+
+def phase_exact_path(seed: int, x) -> dict:
+    """``build_exact_index`` -> serve through the kernel route (K2), the
+    int8 operand (K3) and the ``xla`` route -> recall of each."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import dense
+
+    n, d = x.shape
+    batch, k = 1024, 10
+    keys = np.array([f"w{i:07d}" for i in range(n)], dtype=object)
+    rng = np.random.default_rng(seed + 2)
+    batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
+
+    dense.dense_scan_kernel_launches = 0
+    dense.dense_scan_i8_kernel_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = gt.build_exact_index(keys, x, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    strategy = index.resolve_strategy(k)
+    if strategy != "pallas":
+        raise AssertionError(f"auto resolved to {strategy!r}, not 'pallas'")
+    routes = {
+        "bf16": index,
+        "int8": dataclasses.replace(index, operand="int8"),
+        "xla": dataclasses.replace(index, scan_strategy="xla"),
+    }
+    truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10), device="cuda")
+    out = dict(n=n, d=d, batch=batch, k=k, build_s=build_s, strategy=strategy)
+    for name, idx in routes.items():
+        before = (dense.dense_scan_kernel_launches, dense.dense_scan_i8_kernel_launches)
+        ms = [_serve_checked(idx, x, rows, k) for rows in batches]
+        served = (dense.dense_scan_kernel_launches - before[0],
+                  dense.dense_scan_i8_kernel_launches - before[1])
+        rec = gt.recall_of(idx, truth, x, keys)
+        out[name] = dict(
+            ms_per_batch=ms, launches_k2_k3=list(served),
+            recall={1: rec[1].mean, 10: rec[10].mean},
+        )
+    out["resolved_operand_int8"] = routes["int8"].resolved_operand
+    out["launches_k2"] = dense.dense_scan_kernel_launches
+    out["launches_k3"] = dense.dense_scan_i8_kernel_launches
+    xla10 = max(out["xla"]["recall"][10], 1e-12)
+    out["recall10_ratio"] = {
+        "bf16": out["bf16"]["recall"][10] / xla10,
+        "int8": out["int8"]["recall"][10] / xla10,
+    }
+    _emit({"phase": "exact_path", **out})
+    if out["resolved_operand_int8"] != "int8":
+        raise AssertionError("the int8 route fell back to the bf16 operand")
+    if out["bf16"]["launches_k2_k3"][0] < 4 or out["int8"]["launches_k2_k3"][1] < 4:
+        raise AssertionError(f"K2/K3 launched too rarely for 4 batches: {out}")
+    if out["recall10_ratio"]["bf16"] < 0.99 or out["recall10_ratio"]["int8"] < 0.98:
+        raise AssertionError(f"exact-path recall@10 ratios {out['recall10_ratio']}")
+    return out
+
+
+def phase_cached_path(glove) -> dict:
+    """``enable_cache()`` on the glove100 index -> ``auto`` picks
+    ``cached`` -> 4 batches through K2 -> recall against decode."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import dense
+
+    index, x, keys = glove["index"], glove["x"], glove["keys"]
+    batch, k = 1024, 10
+    rng = np.random.default_rng(4)
+    dense.dense_scan_kernel_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.enable_cache()
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    cache_dtype = str(index.decoded_cache.dtype).replace("torch.", "")
+    strategy = index.resolve_strategy(batch, k)
+    if strategy != "cached":
+        raise AssertionError(f"auto resolved to {strategy!r}, not 'cached'")
+    pallas = dataclasses.replace(index, scan_strategy="pallas")
+    cached_ms, pallas_ms = [], []
+    for _ in range(4):
+        rows = rng.choice(len(x), batch, replace=False)
+        cached_ms.append(_serve_checked(index, x, rows, k))
+        pallas_ms.append(_serve(pallas, x, rows, k)[0])
+    launches_serve = dense.dense_scan_kernel_launches
+    rec = gt.recall_of(index, glove["truth"], x, keys)
+    rec_decode = glove["rec_decode"]
+    out = dict(
+        n=len(x), cache_s=cache_s, strategy=strategy,
+        cache_dtype=cache_dtype,
+        cached_ms_per_batch=cached_ms, pallas_ms_per_batch=pallas_ms,
+        launches_serve=launches_serve, launches=dense.dense_scan_kernel_launches,
+        recall_cached={1: rec[1].mean, 10: rec[10].mean},
+        recall_decode={1: rec_decode[1].mean, 10: rec_decode[10].mean},
+        recall10_ratio=rec[10].mean / max(rec_decode[10].mean, 1e-12),
+    )
+    _emit({"phase": "cached_path", **out})
+    if launches_serve < 4:
+        raise AssertionError(f"K2 launched {launches_serve} times for 4 cached batches")
+    if out["recall10_ratio"] < 0.97:
+        raise AssertionError(f"cached/decode recall@10 ratio {out['recall10_ratio']:.4f} < 0.97")
     return out
 
 
@@ -230,7 +474,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gulon_tpu_torch.ops.cuda import _build, adc
+    from gulon_tpu_torch.ops.cuda import _build, adc, dense
 
     smi = _nvidia_smi()
     _emit({
@@ -240,30 +484,56 @@ def main(argv=None) -> int:
     })
 
     t0 = time.perf_counter()
+    _build.build(["adc_scan", "dense_scan"])  # one nvcc each, in parallel
     adc._kernel()
-    ptxas = [
-        line.strip() for line in _build.BUILD_INFO.get("adc_scan", (0, ""))[1].splitlines()
-        if "registers" in line
-    ]
-    _emit({
-        "phase": "build", "kernel": "adc_scan",
-        "seconds": time.perf_counter() - t0,
-        "library": str(_build.library_path("adc_scan").name),
-        "ptxas": sorted(set(ptxas)),
-    })
+    dense._kernel()
+    for name in ("adc_scan", "dense_scan"):
+        seconds, report = _build.BUILD_INFO.get(name, (0.0, ""))
+        _emit({
+            "phase": "build", "kernel": name, "nvcc_seconds": seconds,
+            "seconds": time.perf_counter() - t0,
+            "library": str(_build.library_path(name).name),
+            "ptxas": sorted({
+                line.strip() for line in report.splitlines()
+                if "registers" in line or "spill" in line
+            }),
+        })
 
     k1 = phase_kernel(args.seed)
-    main_path = phase_main_path(args.seed)
+    main_path, glove = phase_main_path(args.seed)
     if main_path["launches"] == 0:
         raise AssertionError("the main path never launched K1")
-    _emit({"kernels": [{
-        "name": "adc_scan", "route": "cuda",
-        "source": "gulon_tpu_torch/csrc/adc_scan.cu",
-        "replaces": "gulon_tpu/ops/pallas/adc.py:276",
-        "launches": main_path["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-    }]})
+    x2m = low_rank_corpus(args.seed, 2_000_000, 300)
+    dense_k = phase_dense_kernel(args.seed, x2m, glove)
+    exact = phase_exact_path(args.seed, x2m)
+    cached = phase_cached_path(glove)
+    k2, k3 = dense_k["k2"], dense_k["k3"]
+    _emit({"kernels": [
+        {
+            "name": "adc_scan", "route": "cuda",
+            "source": "gulon_tpu_torch/csrc/adc_scan.cu",
+            "replaces": "gulon_tpu/ops/pallas/adc.py:276",
+            "launches": main_path["launches"],
+            "max_abs_err": k1["max_abs_err"],
+            "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        },
+        {
+            "name": "dense_scan_bf16", "route": "cuda",
+            "source": "gulon_tpu_torch/csrc/dense_scan.cu",
+            "replaces": "gulon_tpu/ops/pallas/dense.py:89",
+            "launches": exact["launches_k2"] + cached["launches"],
+            "max_abs_err": max(k2["max_abs_err"], dense_k["k2_cache"]["max_abs_err"]),
+            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        },
+        {
+            "name": "dense_scan_i8", "route": "cuda",
+            "source": "gulon_tpu_torch/csrc/dense_scan.cu",
+            "replaces": "gulon_tpu/ops/pallas/dense.py:419",
+            "launches": exact["launches_k3"],
+            "max_abs_err": k3["max_abs_err"],
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        },
+    ]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,18 @@
 """gulon_tpu_torch — the PyTorch / CUDA port of ``gulon_tpu``.
 
 The same product-quantization ANN engine, written for an NVIDIA Hopper
-GPU: plain tensor code in PyTorch, and the fused ADC scan kernel written
-by hand in CUDA C++ (``csrc/adc_scan.cu``, built with ``nvcc`` at first
-use). The JAX package beside it is the reference the port is tested
+GPU: plain tensor code in PyTorch, and the scan kernels written by hand
+in CUDA C++ (``csrc/adc_scan.cu``, ``csrc/dense_scan.cu``, built with
+``nvcc`` at first use). The JAX package beside it is the reference the port is tested
 against; this package imports ``torch`` and never ``jax``. Its modules
 mirror ``gulon_tpu``'s layout (``ops/``, ``ops/cuda/`` for
 ``ops/pallas/``, ``models/``, ``utils/``), and it reuses ``gulon_tpu``'s
 numpy-only host modules (``Index``/``Result``, key indices, ``Metric``,
 ``SummaryStats``).
 
-This slice covers the flat main path: build a flat PQ index, answer
-batched top-k queries through the fused scan, measure recall.
+Ported so far: the flat main path (build a flat PQ index, answer batched
+top-k queries through the fused scan, measure recall), the flat
+``cached`` strategy, and the exact brute-force index.
 """
 
 __version__ = "0.1.0"
@@ -28,12 +29,15 @@ _EXPORTS = {
     "Result": "gulon_tpu.models.index",
     "FlatIndex": "gulon_tpu_torch.models.flat",
     "build_flat_index": "gulon_tpu_torch.models.build",
+    "ExactIndex": "gulon_tpu_torch.models.exact",
+    "build_exact_index": "gulon_tpu_torch.models.exact",
     "sample_ground_truth": "gulon_tpu_torch.utils.eval",
     "ground_truth_for_queries": "gulon_tpu_torch.utils.eval",
     "recall_of": "gulon_tpu_torch.utils.eval",
     "format_recall": "gulon_tpu_torch.utils.eval",
     "DEFAULT_KS": "gulon_tpu_torch.utils.eval",
     "flat_index_from_numpy": "gulon_tpu_torch.interop",
+    "exact_index_from_numpy": "gulon_tpu_torch.interop",
     "from_reference": "gulon_tpu_torch.interop",
 }
 

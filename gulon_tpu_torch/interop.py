@@ -1,8 +1,8 @@
 """Carry an index's arrays across from numpy or from the JAX package.
 
-``from_reference`` reads a ``gulon_tpu`` ``FlatIndex`` by duck typing
-(``np.asarray`` on its arrays) and never imports jax, so the port serves
-exactly the codebooks, codes and norms the JAX index serves.
+``from_reference`` reads a ``gulon_tpu`` ``FlatIndex`` or ``ExactIndex``
+by duck typing (``np.asarray`` on its arrays) and never imports jax, so
+the port serves exactly the arrays the JAX index serves.
 """
 
 from __future__ import annotations
@@ -12,13 +12,19 @@ import torch
 
 from gulon_tpu.models.keyindex import SortedKeyIndex
 from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.models.exact import ExactIndex
 from gulon_tpu_torch.models.flat import FlatIndex
+from gulon_tpu_torch.ops.cuda.dense import DenseI8Meta
 from gulon_tpu_torch.ops.pq import ProductQuantizer, code_dtype
 
 # serving knobs copied from a reference index, so both compute alike
 _KNOBS = (
     "scan_strategy", "tile_rows", "precision", "topk_impl", "recall_target",
     "rerank_factor", "pallas_winners",
+)
+_EXACT_KNOBS = (
+    "scan_strategy", "tile_rows", "precision", "topk_impl", "recall_target",
+    "rescore_factor", "exact_rescore", "operand",
 )
 
 
@@ -57,11 +63,51 @@ def flat_index_from_numpy(
     )
 
 
-def from_reference(jax_flat_index, *, device="cpu") -> FlatIndex:
-    """The port's ``FlatIndex`` over a ``gulon_tpu`` ``FlatIndex``'s
-    arrays and serving knobs. Packed codes and OPQ rotations come with
-    later slices of the port."""
-    ref = jax_flat_index
+def exact_index_from_numpy(
+    keys, vectors, metric: Metric = Metric.L2, *, device="cpu"
+) -> ExactIndex:
+    """An ``ExactIndex`` over given arrays: ``keys`` globally sorted,
+    ``vectors [N, D]`` in key order (already normalized for Cosine)."""
+    keys = np.asarray(keys, dtype=object)
+    x = np.array(vectors, np.float32)  # a writable copy the tensor owns
+    if x.ndim != 2 or len(x) != len(keys):
+        raise ValueError(f"vectors must be [{len(keys)}, D], got {x.shape}")
+    return ExactIndex(
+        _key_index=SortedKeyIndex(keys),
+        vectors=torch.from_numpy(x).to(device),
+        metric=metric,
+    )
+
+
+def _exact_from_reference(ref, device, prepared_i8) -> ExactIndex:
+    index = exact_index_from_numpy(
+        ref.key_index.keys, np.asarray(ref.vectors), Metric(ref.metric.value),
+        device=device,
+    )
+    for name in _EXACT_KNOBS:
+        setattr(index, name, getattr(ref, name))
+    if prepared_i8 is not None:
+        data_i8, meta = prepared_i8
+        index._data_i8 = (
+            torch.from_numpy(np.array(data_i8, np.int8)).to(device),
+            DenseI8Meta(meta.scale, meta.nmean, meta.d, meta.dp, meta.gain),
+        )
+    return index
+
+
+def from_reference(jax_index, *, device="cpu", prepared_i8=None):
+    """The port's ``FlatIndex`` or ``ExactIndex`` over a ``gulon_tpu``
+    index's arrays and serving knobs. An exact index is recognised by
+    having ``vectors`` and no ``pq``; ``prepared_i8=(data_i8, meta)`` then
+    hands it an int8 operand prepared by the JAX package, which it serves
+    unchanged. A flat index with a decoded cache gets its cache rebuilt
+    (the decode is exact) in the same dtype. Packed codes and OPQ
+    rotations come with later slices of the port."""
+    ref = jax_index
+    if hasattr(ref, "vectors") and not hasattr(ref, "pq"):
+        return _exact_from_reference(ref, device, prepared_i8)
+    if prepared_i8 is not None:
+        raise ValueError("prepared_i8 applies to an exact index only")
     if getattr(ref, "packed_width", 0):
         raise NotImplementedError(
             "packed codes (pack_memory) come with a later slice of the port"
@@ -82,4 +128,8 @@ def from_reference(jax_flat_index, *, device="cpu") -> FlatIndex:
     )
     for name in _KNOBS:
         setattr(index, name, getattr(ref, name))
+    cache = getattr(ref, "decoded_cache", None)
+    if cache is not None or getattr(ref, "_cache_aug", None) is not None:
+        bf16 = cache is None or str(cache.dtype) == "bfloat16"
+        index.enable_cache(torch.bfloat16 if bf16 else torch.float32)
     return index

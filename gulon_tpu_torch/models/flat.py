@@ -10,11 +10,16 @@ batch. Scan strategies:
   plain PyTorch twin;
 - ``"decode"``: gather-decode + matmul per row tile, no kernel limits;
 - ``"lut"``: per-query lookup-table scan, the cheapest for tiny batches;
-- ``"auto"`` (default): <= 4 queries -> lut; codes on a CUDA device and
-  inside the kernel's limits -> pallas; otherwise decode.
+- ``"cached"``: scans a decoded copy of the codes built by
+  :meth:`FlatIndex.enable_cache`; on a CUDA device inside the kernel's
+  limits through the dense kernel K2 (``csrc/dense_scan.cu``) over the
+  cache with hi/lo norm lanes, otherwise through ``cached_scan``;
+- ``"auto"`` (default): <= 4 queries -> lut; a cache built -> cached;
+  codes on a CUDA device and inside the kernel's limits -> pallas;
+  otherwise decode.
 
-``"cached"``, ``pack_memory``, ``add``/``remove`` and OPQ rotations come
-with later slices of the port.
+``pack_memory``, ``add``/``remove`` and OPQ rotations come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -29,11 +34,18 @@ from gulon_tpu.models.index import Index, Result
 from gulon_tpu.models.keyindex import SortedKeyIndex
 from gulon_tpu.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.cuda.dense import dense_scan_fused, prepare_data
 from gulon_tpu_torch.ops.distance import normalize_rows
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 
 # Below this many queries the LUT scan moves less data than decode.
 _AUTO_LUT_MAX_QUERIES = 4
+
+
+def _augment_cache(cache: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
+    """Dense-kernel operand over a decoded cache: ``[N, D] -> [N,
+    padded_dim(D)]`` bf16 with hi/lo norm lanes, on the cache's device."""
+    return prepare_data(cache, norms)
 
 
 def _later(what: str, where: str):
@@ -49,7 +61,7 @@ class FlatIndex(Index):
     codes: torch.Tensor  # [N, m] codes, on the index's device
     recon_norms: torch.Tensor  # [N] f32
     metric: Metric
-    scan_strategy: str = "auto"  # "auto"|"decode"|"lut"|"pallas"
+    scan_strategy: str = "auto"  # "auto"|"decode"|"lut"|"cached"|"pallas"
     tile_rows: int = scan_ops.DEFAULT_TILE_ROWS
     # "default" = TF32 allowed on CUDA, "highest" = full f32
     precision: str = "default"
@@ -62,8 +74,13 @@ class FlatIndex(Index):
     # ranked candidates the fused kernel keeps per 128-row block (1..4);
     # 0 = auto from code degeneracy
     pallas_winners: int = 0
+    # [N, m*dsub] decoded codes for the "cached" strategy (enable_cache)
+    decoded_cache: Optional[torch.Tensor] = None
     # query-invariant [m, N] kernel code operand, built lazily
     _pallas_codes_t: Optional[torch.Tensor] = None
+    # dense-kernel operand over the decoded cache (norm lanes appended),
+    # built lazily on CUDA; it replaces decoded_cache once built
+    _cache_aug: Optional[torch.Tensor] = None
     # memoized auto knobs (rerank_factor/pallas_winners == 0)
     _auto_rerank: Optional[int] = None
     _auto_dup: Optional[float] = None
@@ -107,6 +124,8 @@ class FlatIndex(Index):
         k_eff = min(k, self.size)
         if num_queries <= _AUTO_LUT_MAX_QUERIES:
             return "lut"
+        if self._has_cache():
+            return "cached"
         if self.device.type == "cuda" and self._kernel_bounds_ok(k_eff):
             return "pallas"
         return "decode"
@@ -120,11 +139,13 @@ class FlatIndex(Index):
         strategy = self.resolve_strategy(q.shape[0], k)
         k_scan = k_eff
         rerank = 1
-        if strategy == "pallas":
+        if strategy in ("pallas", "cached"):
             rerank = self.resolved_rerank_factor()
-        if strategy == "pallas" and rerank > 1:
-            # stay inside the kernel's k <= 128 / n >= 256*k envelope
-            k_scan = min(self.size, k_eff * rerank, 128, max(k_eff, self.size // 256))
+        if strategy in ("pallas", "cached") and rerank > 1:
+            k_scan = min(self.size, k_eff * rerank)
+            if strategy == "pallas":
+                # stay inside the kernel's k <= 128 / n >= 256*k envelope
+                k_scan = min(k_scan, 128, max(k_eff, self.size // 256))
         if strategy == "decode":
             dists, ids = scan_ops.adc_scan_decode(
                 q, self.pq.codebooks, self.codes, self.recon_norms,
@@ -158,7 +179,35 @@ class FlatIndex(Index):
                 winners=self.resolved_pallas_winners(),
             )
         elif strategy == "cached":
-            _later("the 'cached' scan strategy", "exact/cached")
+            q_pad = scan_ops._q_pad(q, self.pq.bounds, self.pq.pad_width)
+            if (
+                self.device.type == "cuda"
+                and self.topk_impl != "exact"  # "exact" ranks every row
+                and k_scan <= 128
+                and self.size >= 256 * k_scan
+            ):
+                if self._cache_aug is None:
+                    if self.decoded_cache is None:
+                        self.enable_cache()
+                    self._cache_aug = _augment_cache(
+                        self.decoded_cache, self.recon_norms
+                    )
+                    # the operand IS the cache now: hold one copy
+                    self.decoded_cache = None
+                # the operand rescore (x4 over-fetch) repairs 128-row
+                # block collisions in cached_scan's bf16 distance class
+                dists, ids = dense_scan_fused(
+                    q_pad, self._cache_aug, self.recon_norms, k=k_scan,
+                    rescore=max(rerank, 4),
+                )
+            else:
+                if self.decoded_cache is None:
+                    self.enable_cache()
+                dists, ids = scan_ops.cached_scan(
+                    q_pad, self.decoded_cache, self.recon_norms, k=k_scan,
+                    tile_rows=self.tile_rows, topk_impl=self.topk_impl,
+                    recall_target=self.recall_target,
+                )
         else:
             raise ValueError(f"unknown scan strategy {strategy!r}")
         if k_scan > k_eff:
@@ -210,6 +259,11 @@ class FlatIndex(Index):
                 self._auto_dup = sample / max(distinct, 1)
         return self._auto_dup
 
+    def _has_cache(self) -> bool:
+        """Either cache representation counts: the decoded matrix or the
+        dense-kernel operand it turns into on CUDA."""
+        return self.decoded_cache is not None or self._cache_aug is not None
+
     def _kernel_bounds_ok(self, k_eff: int) -> bool:
         return (
             self.size >= 256 * min(k_eff, 128)
@@ -218,7 +272,21 @@ class FlatIndex(Index):
         )
 
     def enable_cache(self, dtype=None, chunk: int = 16384) -> None:
-        _later("the decoded cache ('cached' strategy)", "exact/cached")
+        """Materialize the decoded corpus for the ``"cached"`` strategy:
+        bf16 when the codes live on a CUDA device (2 bytes a dimension),
+        f32 on the CPU, decoded ``chunk`` rows at a time by the exact
+        gather."""
+        if dtype is None:
+            dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        m, dsub = self.pq.num_quantizers, self.pq.pad_width
+        cache = torch.empty((self.size, m * dsub), dtype=dtype, device=self.device)
+        for start in range(0, self.size, chunk):
+            stop = min(start + chunk, self.size)
+            cache[start:stop] = scan_ops.decode_tile(
+                self.pq.codebooks, self.codes[start:stop]
+            ).to(dtype)
+        self.decoded_cache = cache
+        self._cache_aug = None  # the dense-kernel operand rebuilds lazily
 
     def pack_memory(self) -> None:
         _later("sub-byte code packing (pack_memory)", "packed-serving")

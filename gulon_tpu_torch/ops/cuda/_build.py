@@ -4,7 +4,8 @@ Each source compiles on its own with ``nvcc`` into a shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``gulon_tpu_torch/_build/``,
 named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing here runs at import.
+rebuilds and an unchanged one is reused. :func:`build` compiles several
+sources in parallel. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
-# name -> (seconds spent compiling in this process, ptxas report)
+# name -> (seconds until its nvcc finished in this process, ptxas report)
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
 
 
@@ -57,32 +58,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+def build(names) -> None:
+    """Build the named ``csrc/<name>.cu`` sources that have no library
+    yet: one ``nvcc`` process for each, all started together."""
     with _LOCK:
-        lib = _LOADED.get(name)
-        if lib is not None:
-            return lib
-        so = library_path(name)
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                    capture_output=True, text=True,
+        missing = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+        if not missing:
+            return
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        jobs = []  # (name, temporary output, process)
+        failed = []
+        try:
+            for name in missing:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                jobs.append([name, tmp, None])
+                jobs[-1][2] = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )
+            for name, tmp, proc in jobs:
+                _, err = proc.communicate()
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}"
-                    )
-                os.replace(tmp, so)
-            finally:
+                    failed.append(f"nvcc failed on csrc/{name}.cu:\n{err}")
+                    continue
+                os.replace(tmp, library_path(name))
+                BUILD_INFO[name] = (time.perf_counter() - t0, err)
+        finally:
+            for _, tmp, proc in jobs:
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-            BUILD_INFO[name] = (time.perf_counter() - t0, proc.stderr)
-        lib = ctypes.CDLL(str(so))
-        _LOADED[name] = lib
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    build([name])
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
         return lib

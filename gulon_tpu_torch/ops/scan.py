@@ -9,6 +9,8 @@ tiles and carries the best ``(distance, row id)`` pairs across tiles
   ``||q||^2 + ||x^||^2 - 2<q, x^>``;
 - ``adc_scan_lut``: per-subspace gathers from the ``[Q, m, K]`` lookup
   table (``Index.scala:393-409``), the cheaper path for tiny batches;
+- ``cached_scan``: one queries x tile matmul over a decoded cache of the
+  codes (no per-batch decode);
 - ``exact_scan``: brute force over raw vectors
   (``exactNearestNeighbours``, ``Index.scala:209-229``), also the ground
   truth of the recall harness.
@@ -173,6 +175,36 @@ def rescore_exact(
         vals = torch.nn.functional.pad(vals, (0, k - kf), value=float("inf"))
         ids = torch.nn.functional.pad(ids, (0, k - kf), value=-1)
     return vals, ids
+
+
+def cached_scan(
+    q_pad: torch.Tensor,  # [Q, m*dsub] f32, queries in the padded layout
+    decoded: torch.Tensor,  # [N, m*dsub] bf16/f32 precomputed reconstructions
+    recon_norms: torch.Tensor,  # [N] f32 (exact, not recomputed from the cache)
+    *,
+    k: int,
+    tile_rows: int = DEFAULT_TILE_ROWS,
+    topk_impl: str = "approx",
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ADC scan over a *cached decode* of the code matrix.
+
+    The queries are cast to the cache's dtype and the matmul accumulates
+    in f32 (both operands upcast; products of bf16 values are exact in
+    f32). Results equal the decode scan's up to the rounding of the
+    stored reconstructions."""
+    _check_topk_impl(topk_impl)
+    num_q = q_pad.shape[0]
+    n = decoded.shape[0]
+    tile_rows = min(tile_rows, max(n, 1))
+    qn = sq_norms(q_pad)
+    qc = q_pad.to(decoded.dtype).to(torch.float32)
+
+    def dist_tile(start, stop):
+        ip = matmul(qc, decoded[start:stop].to(torch.float32).T, "highest")
+        return qn[:, None] + recon_norms[None, start:stop] - 2.0 * ip
+
+    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, q_pad.device)
 
 
 def exact_scan(

@@ -19,13 +19,21 @@ import pytest
 import torch
 
 from generators import random_keys
+import jax.numpy as jnp
+
+from gulon_tpu.models import flat as jflat
 from gulon_tpu.models.build import build_flat_index as jax_build
 from gulon_tpu.models.metric import Metric
 from gulon_tpu.ops.pq import PQConfig as JaxPQConfig
 from gulon_tpu.utils import eval as jeval
+from gulon_tpu.ops import scan as jscan
+from gulon_tpu.ops.pallas import dense as jdense
 from gulon_tpu_torch import interop
+from gulon_tpu_torch.models import flat as tflat
 from gulon_tpu_torch.models.build import build_flat_index
 from gulon_tpu_torch.models.flat import FlatIndex
+from gulon_tpu_torch.ops import scan as tscan
+from gulon_tpu_torch.ops.cuda import dense as tdense
 from gulon_tpu_torch.ops.pq import PQConfig
 from gulon_tpu_torch.utils import eval as teval
 
@@ -158,9 +166,8 @@ def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
     port = interop.from_reference(jax_index)
     for call in (
-        port.enable_cache, port.pack_memory,
+        port.pack_memory,
         lambda: port.add(["zz"], x[:1]), lambda: port.remove([keys[0]]),
-        lambda: dataclasses.replace(port, scan_strategy="cached").query_arrays(5, x[:8]),
         lambda: build_flat_index(keys[:500], x[:500], pq_config=PQConfig(**PQ), opq_iters=2),
         lambda: build_flat_index(keys[:500], x[:500], pq_config=PQConfig(**PQ), mesh=object()),
     ):
@@ -168,3 +175,97 @@ def test_deferred_paths_raise(data, jax_index):
             call()
     with pytest.raises(ValueError):
         dataclasses.replace(port, scan_strategy="bogus").query_arrays(5, x[:8])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cached_scan_matches_jax(data, jax_index, dtype):
+    """The same decoded cache and padded queries through both packages'
+    ``cached_scan``: ids equal, distances within 1e-4 (f32 sums)."""
+    x, _, truth = data
+    jx = dataclasses.replace(jax_index)
+    jx.enable_cache(dtype=getattr(jnp, dtype))
+    q_pad = jx._q_pad(jnp.asarray(truth.queries[:16]))
+    dj, ij = jscan.cached_scan(
+        q_pad, jx.decoded_cache, jx.recon_norms, k=10, tile_rows=2048,
+        topk_impl="exact",
+    )
+    cache = torch.from_numpy(np.array(jx.decoded_cache, np.float32)).to(getattr(torch, dtype))
+    dt, it = tscan.cached_scan(
+        torch.from_numpy(np.array(q_pad)), cache,
+        torch.from_numpy(np.array(jx.recon_norms)), k=10, tile_rows=2048,
+    )
+    assert np.mean(it.numpy() == np.asarray(ij)) >= 0.99
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+
+
+def test_cached_strategy_policy_and_from_reference(data, jax_index):
+    """A JAX index with a cache comes across with one: ``auto`` resolves
+    to ``cached`` in both packages (lut still wins at <= 4 queries), and
+    the answers match, over-fetch + exact rescore included."""
+    x, _, truth = data
+    jx = dataclasses.replace(jax_index, rerank_factor=4)
+    jx.enable_cache()  # f32 on the CPU
+    port = interop.from_reference(jx)
+    assert port.decoded_cache is not None and port.decoded_cache.dtype == torch.float32
+    np.testing.assert_array_equal(port.decoded_cache.numpy(), np.asarray(jx.decoded_cache))
+    assert port.resolve_strategy(64, 10) == "cached"
+    assert port.resolve_strategy(3, 10) == "lut"
+    q = truth.queries[:32]
+    dj, ij = jx.query_arrays(10, q)
+    dt, it = port.query_arrays(10, q)
+    assert np.mean(it.numpy() == np.asarray(ij)) >= 0.99
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+    plain = interop.from_reference(jax_index)
+    assert plain.decoded_cache is None and plain.resolve_strategy(64, 10) == "decode"
+    plain.enable_cache()
+    assert plain.resolve_strategy(64, 10) == "cached"
+    torch.testing.assert_close(plain.decoded_cache, port.decoded_cache)
+
+
+def test_cached_kernel_route_matches_jax():
+    """The cached strategy's kernel route (``_augment_cache`` + the dense
+    scan over the decoded cache) against the JAX package's
+    (``test_pallas.py:311``), on a bf16 cache."""
+    rng = np.random.default_rng(23)
+    n, d = 40960, 16
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    keys = np.array([f"w{i:06d}" for i in range(n)], dtype=object)
+    jx = jax_build(keys, x, pq_config=JaxPQConfig(num_clusters=64, num_quantizers=4, max_iters=6))
+    jx.enable_cache(dtype=jnp.bfloat16)
+    port = interop.from_reference(jx)
+    assert port.decoded_cache.dtype == torch.bfloat16
+    q_pad = jx._q_pad(jnp.asarray(x[:16] + 0.01))
+    aug_j = jflat._augment_cache(jx.decoded_cache, jx.recon_norms)
+    aug_t = tflat._augment_cache(port.decoded_cache, port.recon_norms)
+    np.testing.assert_array_equal(
+        aug_t.view(torch.int16).numpy(), np.asarray(aug_j).view(np.int16)
+    )
+    dj, ij = jdense.dense_scan_pallas(
+        q_pad, aug_j, jx.recon_norms, k=5, interpret=True, rescore=4
+    )
+    dt, it = tdense.dense_scan_fused(
+        torch.from_numpy(np.array(q_pad)), aug_t, port.recon_norms, k=5, rescore=4
+    )
+    np.testing.assert_array_equal(it.numpy()[:, 0], np.asarray(ij)[:, 0])
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cached kernel route runs K2 on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cached_strategy_runs_k2_on_the_card(cuda_device, data, jax_index):
+    x, keys, truth = data
+    port = interop.from_reference(jax_index, device=cuda_device)
+    port.enable_cache()
+    assert port.decoded_cache.dtype == torch.bfloat16
+    before = tdense.dense_scan_kernel_launches
+    _, ids = port.query_arrays(10, truth.queries[:64])
+    assert tdense.dense_scan_kernel_launches == before + 1
+    assert port.decoded_cache is None and port._cache_aug is not None
+    decode = dataclasses.replace(port, scan_strategy="decode")
+    assert _recall10(port, data) >= 0.97 * _recall10(decode, data)

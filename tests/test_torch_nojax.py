@@ -1,6 +1,7 @@
 """The port stands without JAX: a fresh interpreter imports
-``gulon_tpu_torch``, builds, queries and measures recall on the CPU, and
-never loads ``jax``. The port's sources name no jax import at all."""
+``gulon_tpu_torch``, builds, queries (fused, cached and exact paths) and
+measures recall on the CPU, and never loads ``jax``. The port's sources
+name no jax import at all."""
 
 import pathlib
 import re
@@ -28,6 +29,20 @@ truth = gt.sample_ground_truth(keys, x, num_samples=50, ks=(1, 10))
 index.scan_strategy = "pallas"
 recall = gt.recall_of(index, truth, x, keys)
 assert 0.0 < recall[10].mean <= 1.0
+index.scan_strategy = "auto"
+index.enable_cache()
+assert index.resolve_strategy(64, 10) == "cached"
+assert index.query_arrays(10, x[:64])[1].shape == (64, 10)
+
+from gulon_tpu_torch.ops.cuda import dense
+
+exact = gt.build_exact_index(keys, x)
+exact.scan_strategy = "pallas"
+assert exact.query(3, x[9]).keys[0] == "k00009"
+exact.operand = "int8"
+assert exact.resolved_operand == "int8"
+assert exact.query(3, x[9]).keys[0] == "k00009"
+assert gt.exact_index_from_numpy(keys, x).size == 1200
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
 """
