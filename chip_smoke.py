@@ -13,8 +13,9 @@ the script exits non-zero:
    parallel;
 3. kernel: K1 against its plain PyTorch version on the same operands at
    the glove100 shape (400,000 rows, D=100, PQ 8x256, 1024 queries), for
-   1 and 2 winners per block, centered and uncentered, and once with
-   int16 codes (K=512); median ms of 10 timed runs after 3 warm-ups;
+   1 and 2 winners per block, centered and uncentered, 4 winners
+   uncentered, and once with int16 codes (K=512); median ms of 10 timed
+   runs after 3 warm-ups;
 4. main path: build a flat PQ index of a seeded 400,000 x 100 low-rank
    corpus on the card, answer 4 batches of 1024 top-10 queries through
    the ``auto`` strategy (which must pick the fused kernel), and measure
@@ -30,7 +31,17 @@ the script exits non-zero:
    kernel route, K2), then with ``operand="int8"`` (K3) and with
    ``scan_strategy="xla"``; recall@1/@10 of each on 1000 sampled queries;
 7. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
-   pick ``cached``; 4 batches through K2; recall against decode.
+   pick ``cached``; 4 batches through K2; recall against decode;
+8. IVF path (ivf1m): ``build_ivf_index`` of a seeded 1,000,000 x 96
+   low-rank corpus (intrinsic 24, 4096 clusters) on the card, PQ 12x256,
+   the default 1000 partitions and probe limit 50; K1 at 4 winners
+   against its plain version on the index's own partition-padded
+   operands (no padding row may win); 4 batches of 1024 top-10 queries
+   through ``auto`` (which must pick ``pallas``, K1), through 2 winners
+   with and without rescore 4, and through the masked scan; ``auto`` must
+   go sublinear for 1 and 8 queries and match the masked scan's
+   distances; recall@1/@10 of each route on 1000 sampled queries
+   (recall@10 >= 0.97x masked at 4 winners, >= 0.95x at 2 + rescore 4).
 
 Then a line with each kernel's launches on the paths, error and times,
 the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
@@ -135,7 +146,7 @@ def phase_kernel(seed: int) -> dict:
     cases = []
     for k_codes, winners, centered in (
         (256, 1, True), (256, 1, False), (256, 2, True), (256, 2, False),
-        (512, 1, True),
+        (512, 1, True), (256, 4, False),
     ):
         cb = torch.randn((m, k_codes, dsub), generator=gen, device=dev)
         for s, (_, w) in enumerate(bounds):
@@ -464,6 +475,209 @@ def phase_cached_path(glove) -> dict:
     return out
 
 
+def _ivf_kernel_check(index, q) -> dict:
+    """K1 at 4 winners, uncentered, against its plain version on the
+    index's own partition-padded operands. Values within ``2^-14 *
+    max(|v|, S)``, ``S = |rc| + 2 ||q|| ||r^||`` the scale of the winner
+    row's summands (the uncentered score ``rc - 2<q, r^>`` cancels toward
+    0 where ``rc`` is negative); >= 99.5 % equal ids, every mismatch a
+    near-tie; in both, every block yields exactly ``min(4, real rows)``
+    valid winners, all of them real rows, so no padding row ever wins.
+    How many values miss ``2^-14 * max(|v|, 1)`` is reported."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+
+    winners = 4
+    pq = index.pq
+    codes_t, rc_pal, _, row_map = index._pallas_operands()
+    npad = codes_t.shape[1]
+    ops = adc.prepare_scan_operands(
+        q, pq.codebooks, codes_t, rc_pal, bounds=pq.bounds, tile_rows=0,
+        num_rows=npad, winners=winners, center_scores=False,
+    )
+    nblk = ops["t"] // 128
+    operands = (
+        ops["codes_t"], adc._split_hi_lo(ops["norms"], ops["center"]),
+        ops["q_pad"][: len(q)].to(torch.bfloat16),
+        pq.codebooks.to(torch.bfloat16).contiguous(),
+    )
+    got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
+    torch.cuda.synchronize()
+    ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
+    n_cols = ops["codes_t"].shape[1]
+    cols = torch.arange(n_cols // 128 * winners, device=q.device)
+    wn = winners * nblk
+    base = ((cols // wn) * ops["t"] + (cols % wn) % nblk * 128).to(torch.int32)
+    rank = (cols % wn) // nblk
+    vk, ik = adc.unpack_block_winners(got, base)
+    vp, ip = adc.unpack_block_winners(ref, base)
+
+    # real rows per 128-row block of the padded operand (the tail past
+    # npad is all padding)
+    real = torch.zeros(n_cols // 128, dtype=torch.int64, device=q.device)
+    real[: npad // 128] = (row_map.view(-1, 128) >= 0).sum(1)
+    expect_valid = rank[None, :] < real[(base // 128).long()][None, :]
+    row_ok = torch.cat([row_map >= 0, row_map.new_zeros(n_cols - npad).bool()])
+
+    def winners_ok(v, i):
+        valid = v < adc._INVALID_MIN
+        return bool(torch.equal(valid, expect_valid.expand_as(valid))) and bool(
+            row_ok[i[valid].long()].all()
+        )
+
+    # the summand scale of each winner row: |rc| + 2 ||q|| ||r^||
+    codes_pal = (ops["codes_t"].to(torch.int32) + 128).T  # [n_cols, m]
+    rnorm = pq.reconstruction_norms(codes_pal)
+    rc_full = torch.cat([rc_pal, rc_pal.new_full((n_cols - npad,), adc._BIG)])
+    qnorm = torch.sqrt((q * q).sum(1))
+    rows = ip.long()
+    scale = rc_full[rows].abs() + 2.0 * qnorm[:, None] * torch.sqrt(rnorm[rows])
+    tol = 2.0 ** -14 * torch.maximum(vp.abs(), torch.clamp(scale, min=1.0))
+    err = (vk - vp).abs()
+    mism = ik != ip
+    case = dict(
+        winners=winners, shape=[len(q), npad, pq.num_quantizers * pq.pad_width],
+        id_equal=float((~mism).float().mean()),
+        values_ok=bool((err <= tol).all()),
+        ties_ok=bool((err[mism] <= tol[mism]).all()),
+        no_padding_winner_kernel=winners_ok(vk, ik),
+        no_padding_winner_plain=winners_ok(vp, ip),
+        outside_value_tol=int((err > 2.0 ** -14 * torch.clamp(vp.abs(), min=1.0)).sum()),
+        values=err.numel(),
+        max_abs_err=float(torch.where(vp < adc._INVALID_MIN, err, 0.0).max()),
+        ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
+        plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
+    )
+    _emit({"phase": "ivf_kernel", **case})
+    ok = (
+        case["id_equal"] >= 0.995 and case["values_ok"] and case["ties_ok"]
+        and case["no_padding_winner_kernel"] and case["no_padding_winner_plain"]
+    )
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version on IVF operands: {case}")
+    return case
+
+
+def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
+    """ivf1m at full size: build -> K1 check on the index's operands ->
+    serve through auto (pallas), W=2 + rescore 4, masked, and sublinear
+    small batches -> recall of each route."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import adc
+
+    d, batch, k = 96, 1024, 10
+    x = low_rank_corpus(seed, n, d, intrinsic=24, n_clusters=4096)
+    keys = np.array([f"r{i:08d}" for i in range(n)], dtype=object)
+    rng = np.random.default_rng(seed + 5)
+    batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = gt.build_ivf_index(
+        keys, x,
+        pq_config=gt.PQConfig(
+            num_clusters=256, num_quantizers=12, max_iters=10,
+            train_sample=200_000,
+        ),
+        coarse_max_iters=10,
+        device=device,
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sizes = index.partition_sizes()
+    t0 = time.perf_counter()
+    index._pallas_operands()
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+
+    kernel = _ivf_kernel_check(
+        index, torch.from_numpy(x[batches[0]]).to(device)
+    )
+
+    adc.adc_scan_kernel_launches = 0
+    strategy = index.resolve_strategy(batch, k)
+    if strategy != "pallas":
+        raise AssertionError(f"auto resolved to {strategy!r}, not 'pallas'")
+    routes = {
+        "pallas_w4": index,
+        "pallas_w2_rescore4": dataclasses.replace(
+            index, pallas_winners=2, pallas_rescore=4
+        ),
+        "pallas_w2": dataclasses.replace(index, pallas_winners=2),
+        "masked": dataclasses.replace(index, scan_strategy="masked"),
+    }
+    out = dict(
+        n=n, d=d, pq="12x256", partitions=index.num_partitions,
+        probe=index.strategy.count, batch=batch, k=k,
+        partition_rows=[int(sizes.min()), int(sizes.max())],
+        padded_rows=int(index._pallas_layout[0].shape[1]),
+        build_s=build_s, layout_s=layout_s, strategy=strategy,
+    )
+    for name, idx in routes.items():
+        before = adc.adc_scan_kernel_launches
+        out[name] = dict(
+            ms_per_batch=[_serve_checked(idx, x, rows, k) for rows in batches],
+            launches=adc.adc_scan_kernel_launches - before,
+        )
+    launches_serve = adc.adc_scan_kernel_launches
+
+    # small batches go sublinear and return the masked scan's distances
+    # (all three at full f32, so only summation order differs)
+    small = {}
+    exact = {
+        name: dataclasses.replace(index, scan_strategy=name, precision="highest")
+        for name in ("masked", "gathered", "bucketed")
+    }
+    for nq in (1, 8):
+        rows = batches[1][:nq]
+        resolved = index.resolve_strategy(nq, k)
+        ms = [_serve_checked(index, x, rows, k) for _ in range(3)]
+        d_m = _serve(exact["masked"], x, rows, k)[1]
+        gaps = {}
+        for name in ("gathered", "bucketed"):
+            d_s = _serve(exact[name], x, rows, k)[1]
+            gaps[name] = float(
+                ((d_s - d_m).abs() / torch.clamp(d_m.abs(), min=1.0)).max()
+            )
+        small[nq] = dict(strategy=resolved, ms=ms, max_rel_gap_to_masked=gaps)
+    out["small_batches"] = small
+
+    truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10), device=device)
+    recall = {}
+    for name, idx in routes.items():
+        rec = gt.recall_of(idx, truth, x, keys)
+        recall[name] = {1: rec[1].mean, 10: rec[10].mean}
+    out["recall"] = recall
+    masked10 = max(recall["masked"][10], 1e-12)
+    out["recall10_ratio"] = {
+        name: recall[name][10] / masked10
+        for name in ("pallas_w4", "pallas_w2_rescore4", "pallas_w2")
+    }
+    out["launches_serve"] = launches_serve
+    out["launches"] = adc.adc_scan_kernel_launches
+    _emit({"phase": "ivf_path", **out})
+    if min(out[name]["launches"] for name in routes if name != "masked") < 4:
+        raise AssertionError(f"K1 launched too rarely on the IVF routes: {out}")
+    if out["masked"]["launches"] != 0:
+        raise AssertionError("the masked route launched K1")
+    for nq, s in small.items():
+        if s["strategy"] not in ("gathered", "bucketed"):
+            raise AssertionError(f"auto took {s['strategy']!r} for {nq} queries")
+        if max(s["max_rel_gap_to_masked"].values()) > 1e-4:
+            raise AssertionError(f"sublinear routes disagree with masked: {s}")
+    # two winners a block lose every true neighbour past the second that
+    # shares a 128-row block, which no rescore recovers: W=2 + rescore 4
+    # is held to 0.95x masked, the default W=4 to 0.97x
+    ratio = out["recall10_ratio"]
+    if ratio["pallas_w4"] < 0.97 or ratio["pallas_w2_rescore4"] < 0.95:
+        raise AssertionError(f"IVF recall@10 ratios {ratio}")
+    return dict(out, kernel=kernel)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -507,15 +721,19 @@ def main(argv=None) -> int:
     dense_k = phase_dense_kernel(args.seed, x2m, glove)
     exact = phase_exact_path(args.seed, x2m)
     cached = phase_cached_path(glove)
+    del glove, x2m
+    ivf = phase_ivf_path(args.seed)
     k2, k3 = dense_k["k2"], dense_k["k3"]
     _emit({"kernels": [
         {
             "name": "adc_scan", "route": "cuda",
             "source": "gulon_tpu_torch/csrc/adc_scan.cu",
             "replaces": "gulon_tpu/ops/pallas/adc.py:276",
-            "launches": main_path["launches"],
-            "max_abs_err": k1["max_abs_err"],
+            "launches": main_path["launches"] + ivf["launches"],
+            "launches_by_path": {"flat": main_path["launches"], "ivf": ivf["launches"]},
+            "max_abs_err": max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"]),
             "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+            "ivf_w4_ms": ivf["kernel"]["ms"], "ivf_w4_plain_ms": ivf["kernel"]["plain_ms"],
         },
         {
             "name": "dense_scan_bf16", "route": "cuda",

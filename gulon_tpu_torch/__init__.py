@@ -12,7 +12,9 @@ numpy-only host modules (``Index``/``Result``, key indices, ``Metric``,
 
 Ported so far: the flat main path (build a flat PQ index, answer batched
 top-k queries through the fused scan, measure recall), the flat
-``cached`` strategy, and the exact brute-force index.
+``cached`` strategy, the exact brute-force index, and the IVF residual
+index (build, probe strategies, all four scan strategies, probe-limit
+tuning).
 """
 
 __version__ = "0.1.0"
@@ -31,6 +33,15 @@ _EXPORTS = {
     "build_flat_index": "gulon_tpu_torch.models.build",
     "ExactIndex": "gulon_tpu_torch.models.exact",
     "build_exact_index": "gulon_tpu_torch.models.exact",
+    "IVFIndex": "gulon_tpu_torch.models.ivf",
+    "LimitGroups": "gulon_tpu_torch.models.ivf",
+    "LimitVectors": "gulon_tpu_torch.models.ivf",
+    "build_ivf_index": "gulon_tpu_torch.models.build",
+    "default_num_partitions": "gulon_tpu_torch.models.build",
+    "default_limit": "gulon_tpu_torch.models.build",
+    "ivf_index_from_numpy": "gulon_tpu_torch.interop",
+    "tune_probe_limit": "gulon_tpu_torch.utils.tune",
+    "TuneResult": "gulon_tpu_torch.utils.tune",
     "sample_ground_truth": "gulon_tpu_torch.utils.eval",
     "ground_truth_for_queries": "gulon_tpu_torch.utils.eval",
     "recall_of": "gulon_tpu_torch.utils.eval",

@@ -1,21 +1,29 @@
-"""Flat index builder (counterpart of ``gulon_tpu/models/build.py``,
-``BuildIndex.scala:84-93``): sort keys -> train PQ -> chunked encode ->
-reconstruction norms -> ``FlatIndex``, on an explicit ``device``.
+"""Index builders (counterparts of ``gulon_tpu/models/build.py``), on an
+explicit ``device``:
 
-OPQ rotations, mesh (multi-device) builds and the IVF builder come with
-later slices of the port.
+- linear (``BuildIndex.scala:84-93``): sort keys -> train PQ -> chunked
+  encode -> reconstruction norms -> ``FlatIndex``;
+- sublinear (``BuildIndex.scala:70-82``): coarse k-means over the full
+  vectors -> group rows by (cluster, key), dropping empty clusters
+  (``WordVectors.scala:24-58``) -> train PQ on the residuals -> encode ->
+  row constants -> ``IVFIndex``.
+
+OPQ rotations and mesh (multi-device) builds come with later slices of
+the port.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from gulon_tpu.models.keyindex import SortedKeyIndex
+from gulon_tpu.models.keyindex import GroupedKeyIndex, SortedKeyIndex
 from gulon_tpu.models.metric import Metric
 from gulon_tpu_torch.models.flat import FlatIndex
+from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, Strategy
+from gulon_tpu_torch.ops.kmeans import KMeansConfig, fit_kmeans
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
 
 _DEFAULT_ENCODE_CHUNK = 1 << 20
@@ -84,4 +92,181 @@ def build_flat_index(
         codes=codes,
         recon_norms=recon_norms,
         metric=metric,
+    )
+
+
+def _balanced_split(
+    xp: np.ndarray, k: int, cap: int, rng: np.random.Generator
+) -> np.ndarray:
+    """Assign ``xp``'s rows to ``k`` children, each holding <= ``cap`` rows
+    (``gulon_tpu/models/build.py:115``, numpy, carried over unchanged).
+
+    A few host-side Lloyd iterations for quality, then a capacity repair
+    pass: each overfull child keeps its ``cap`` nearest rows and the rest
+    greedily move to the nearest child with spare room. Feasible because
+    ``k*cap >= len(xp)`` by construction.
+    """
+    n = len(xp)
+    init = xp[rng.choice(n, size=k, replace=False)]
+    cents = init.astype(np.float32)
+    xn = (xp * xp).sum(1)
+    for _ in range(10):
+        d2 = xn[:, None] - 2.0 * (xp @ cents.T) + (cents * cents).sum(1)[None]
+        assign = d2.argmin(1)
+        for j in range(k):
+            sel = assign == j
+            if sel.any():
+                cents[j] = xp[sel].mean(0)
+    d2 = xn[:, None] - 2.0 * (xp @ cents.T) + (cents * cents).sum(1)[None]
+    assign = d2.argmin(1)
+    counts = np.bincount(assign, minlength=k)
+    for j in range(k):
+        if counts[j] <= cap:
+            continue
+        idx = np.nonzero(assign == j)[0]
+        move = idx[np.argsort(d2[idx, j])][cap:]
+        counts[j] = cap
+        for r in move:
+            for cnd in np.argsort(d2[r]):
+                if cnd != j and counts[cnd] < cap:
+                    assign[r] = cnd
+                    counts[cnd] += 1
+                    break
+    return assign
+
+
+def _split_oversized_partitions(
+    fetch_rows,
+    assignments: np.ndarray,
+    centroids: np.ndarray,
+    cap: int,
+    seed: int,
+):
+    """Split every partition with > ``cap`` rows into <= ``cap``-row
+    children with their own centroids (the child-member means), so the
+    per-probe cost of the sublinear strategies, which scales with the
+    largest partition, stays bounded. ``fetch_rows(row_ids) -> [len, d]``
+    supplies vectors on demand. Numpy, as ``gulon_tpu/models/build.py:154``.
+    """
+    assignments = np.asarray(assignments, np.int64).copy()
+    cents = list(np.asarray(centroids, np.float32))
+    rng = np.random.default_rng(seed)
+    next_id = len(cents)
+    for pid in range(len(cents)):
+        rows = np.nonzero(assignments == pid)[0]
+        if len(rows) <= cap:
+            continue
+        xp = np.asarray(fetch_rows(rows), np.float32)
+        kchild = -(-len(rows) // cap)
+        child = _balanced_split(xp, kchild, cap, rng)
+        for j in range(kchild):
+            sel = child == j
+            c_j = (
+                xp[sel].mean(0).astype(np.float32)
+                if sel.any()
+                else cents[pid]
+            )
+            if j == 0:
+                cents[pid] = c_j
+            else:
+                assignments[rows[sel]] = next_id
+                cents.append(c_j)
+                next_id += 1
+    return assignments, np.stack(cents)
+
+
+def default_num_partitions(n: int) -> int:
+    """Reference default: ``size / 1000`` (``BuildIndex.scala:104``)."""
+    return max(1, n // 1000)
+
+
+def default_limit(num_partitions: int) -> int:
+    """Reference default: ``max(0.05 * partitions, 5)`` (``BuildIndex.scala:105``)."""
+    return max(int(0.05 * num_partitions), 5)
+
+
+def build_ivf_index(
+    keys: Sequence[str],
+    vectors,
+    metric: Metric = Metric.L2,
+    pq_config: PQConfig = PQConfig(),
+    *,
+    num_partitions: Optional[int] = None,
+    strategy: Optional[Strategy] = None,
+    coarse_max_iters: int = 100,
+    coarse_seed: int = 0,
+    coarse_init: str = "sample",
+    max_partition_size: Optional[int] = None,
+    encode_chunk: int = _DEFAULT_ENCODE_CHUNK,
+    opq_iters: int = 0,
+    report_fn=None,
+    mesh=None,
+    device="cpu",
+) -> IVFIndex:
+    """Sublinear build (``BuildIndex.scala:70-82``).
+
+    Coarse k-means, PQ training, encoding and the row constants run on
+    ``device``; the grouping is ``gulon_tpu.utils.word2vec``'s numpy
+    ``WordVectors.grouped``. ``max_partition_size`` splits oversized
+    partitions into capacity-bounded children. The coarse init draws from
+    ``torch.Generator``, not ``jax.random``, so a build matches the JAX
+    package's by recall, not id for id."""
+    from gulon_tpu.utils.word2vec import WordVectors
+
+    if opq_iters > 0:
+        raise NotImplementedError(
+            "OPQ rotations (opq_iters > 0) come with slice 4 of the PyTorch port"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh builds come with the parallel slice of the PyTorch port"
+        )
+    x = np.asarray(vectors, np.float32)
+    keys = np.asarray(keys, dtype=object)
+    if len(keys) != len(x):
+        raise ValueError("keys and vectors must have equal length")
+    if metric.normalized:
+        x = _normalize_np(x)
+    if num_partitions is None:
+        num_partitions = default_num_partitions(len(x))
+    if strategy is None:
+        strategy = LimitGroups(default_limit(num_partitions))
+
+    # coarse clustering over the full vectors (CommandUtils.scala:127-133)
+    coarse = fit_kmeans(
+        torch.as_tensor(x, device=device),
+        KMeansConfig(
+            k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed,
+            init=coarse_init,
+        ),
+        report_fn,
+    )
+    coarse_cents = coarse.centroids.cpu().numpy()
+    coarse_assign = coarse.assignments.cpu().numpy()
+    if max_partition_size is not None:
+        if max_partition_size < 1:
+            raise ValueError("max_partition_size must be >= 1")
+        coarse_assign, coarse_cents = _split_oversized_partitions(
+            lambda rows: x[rows], coarse_assign, coarse_cents,
+            max_partition_size, coarse_seed,
+        )
+    grouped = WordVectors(keys, x).grouped(coarse_cents, coarse_assign)
+
+    residuals = grouped.residuals()
+    pq = train_product_quantizer(residuals, pq_config, report_fn, device=device)
+    codes = _encode_chunked(pq, residuals, encode_chunk)
+    # per-row constant of the expanded residual distance,
+    # ||r^||^2 + 2<c_g, r^>, by per-partition LUT gathers
+    row_const = pq.reconstruction_norms(codes) + 2.0 * pq.centroid_code_dot(
+        codes, grouped.centroids, grouped.group_ids
+    )
+    return IVFIndex(
+        _key_index=GroupedKeyIndex(grouped.keys, grouped.group_offsets),
+        pq=pq,
+        codes=codes,
+        row_const=row_const,
+        group_ids=torch.from_numpy(grouped.group_ids).to(device),
+        centroids=torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device),
+        metric=metric,
+        strategy=strategy,
     )

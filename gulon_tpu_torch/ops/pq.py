@@ -162,6 +162,48 @@ class ProductQuantizer:
         """ADC lookup table ``[Q, m, K]`` of ``||q_sub - c||^2``."""
         return _lut(self.split(queries), self.codebooks)
 
+    def centroid_code_dot(
+        self, codes, centroids, group_ids, chunk_rows: int = 1 << 20
+    ) -> torch.Tensor:
+        """``<centroids[group_ids[i]], decode(codes[i])>`` per row: ``[n]``
+        f32 on the quantizer's device.
+
+        Computed without decoding the corpus: per-partition LUTs
+        ``lut[p, m, K] = <centroid_p restricted to subspace m, codebook[m, K]>``
+        for the partition range each row chunk touches, then
+        ``sum_m lut[g_i, m, codes[i, m]]``. Assumes the grouped row layout
+        (``group_ids`` nondecreasing), so a chunk's partition range stays
+        narrow."""
+        dev = self.device
+        codes, centroids, gids = (
+            a.to(dev) if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a)).to(dev)
+            for a in (codes, centroids, group_ids)
+        )
+        gids = gids.long()
+        cs = self.split(centroids)  # [m, P, dp]
+        n = codes.shape[0]
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        for start in range(0, n, chunk_rows):
+            stop = min(start + chunk_rows, n)
+            g = gids[start:stop]
+            g0, g1 = int(g.min()), int(g.max()) + 1
+            out[start:stop] = _centroid_code_dot_chunk(
+                codes[start:stop], g - g0, cs[:, g0:g1], self.codebooks
+            )
+        return out
+
+
+def _centroid_code_dot_chunk(
+    codes: torch.Tensor,  # [R, m] codes
+    gid_rel: torch.Tensor,  # [R] relative to the chunk's first partition
+    cs_chunk: torch.Tensor,  # [m, Pc, dp] centroid subspace stack
+    codebooks: torch.Tensor,  # [m, K, dp]
+) -> torch.Tensor:
+    lut = matmul(cs_chunk, codebooks.transpose(1, 2), "highest")  # [m, Pc, K]
+    m = codes.shape[1]
+    sub = torch.arange(m, device=codes.device)[None, :]
+    return lut[sub, gid_rel[:, None], codes.long()].sum(dim=1)
+
 
 def _lut(qs: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     """``[m, Q, dp], [m, K, dp] -> [Q, m, K]`` at full f32."""

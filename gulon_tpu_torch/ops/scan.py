@@ -13,7 +13,9 @@ tiles and carries the best ``(distance, row id)`` pairs across tiles
   codes (no per-batch decode);
 - ``exact_scan``: brute force over raw vectors
   (``exactNearestNeighbours``, ``Index.scala:209-229``), also the ground
-  truth of the recall harness.
+  truth of the recall harness;
+- ``ivf_block_rescore``: exact f32 re-rank of the IVF fused strategy's
+  over-fetched block winners.
 
 All return squared-L2 distances ascending and global row ids; padding
 rows carry +inf norms and never enter the top-k.
@@ -175,6 +177,42 @@ def rescore_exact(
         vals = torch.nn.functional.pad(vals, (0, k - kf), value=float("inf"))
         ids = torch.nn.functional.pad(ids, (0, k - kf), value=-1)
     return vals, ids
+
+
+def ivf_block_rescore(
+    queries: torch.Tensor,  # [Q, D] f32 (normalized residual basis)
+    q_norms: torch.Tensor,  # [Q] f32 ||q||^2
+    codebooks: torch.Tensor,  # [m, K, dsub] f32 residual codebooks
+    codes_t: torch.Tensor,  # [m, Npad] kernel code operand (int8 offset or int)
+    rc: torch.Tensor,  # [Npad] f32 row constants of the padded layout
+    cand_vals: torch.Tensor,  # [Q, F] block-min values (inf = invalid slot)
+    cand_rows: torch.Tensor,  # [Q, F] padded-layout rows of the winners
+    cand_gt: torch.Tensor,  # [Q, F] per-candidate group term
+    *,
+    bounds,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 re-rank of IVF fused-kernel block winners (counterpart of
+    ``gulon_tpu/ops/scan.py::ivf_block_rescore``): the expanded residual
+    distance ``||q||^2 + rc + group_term - 2<q, dec(row)>`` recomputed at
+    full f32 for the over-fetched candidates. Returns ``([Q, k] exact
+    dists, [Q, k] re-ranked padded-layout rows)``."""
+    num_q, fetch = cand_rows.shape
+    m, _, dsub = codebooks.shape
+    invalid = torch.isinf(cand_vals)
+    safe = torch.where(invalid, 0, cand_rows).long()
+    sel = codes_t[:, safe.reshape(-1)].to(torch.int32)  # [m, Q*F]
+    if codes_t.dtype == torch.int8:  # undo the offset encoding
+        sel = sel + 128
+    dec = decode_tile(codebooks.to(torch.float32), sel.T).reshape(
+        num_q, fetch, m * dsub
+    )
+    q_pad = _q_pad(queries, bounds, dsub)
+    ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, F]
+    exact = q_norms[:, None] + rc[safe] + cand_gt - 2.0 * ip
+    exact = torch.where(invalid, float("inf"), exact)
+    best, pos = smallest_k(exact, min(k, fetch))
+    return best, torch.gather(cand_rows, 1, pos.long())
 
 
 def cached_scan(

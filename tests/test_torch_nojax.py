@@ -1,5 +1,5 @@
 """The port stands without JAX: a fresh interpreter imports
-``gulon_tpu_torch``, builds, queries (fused, cached and exact paths) and
+``gulon_tpu_torch``, builds, queries (fused, cached, exact and IVF paths) and
 measures recall on the CPU, and never loads ``jax``. The port's sources
 name no jax import at all."""
 
@@ -43,6 +43,18 @@ exact.operand = "int8"
 assert exact.resolved_operand == "int8"
 assert exact.query(3, x[9]).keys[0] == "k00009"
 assert gt.exact_index_from_numpy(keys, x).size == 1200
+
+ivf = gt.build_ivf_index(
+    keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=5),
+    num_partitions=6, strategy=gt.LimitGroups(3), coarse_max_iters=5,
+)
+assert "k00005" in set(ivf.query(3, x[5]).keys)
+for strategy in ("masked", "pallas", "gathered", "bucketed"):
+    ivf.scan_strategy = strategy
+    assert ivf.query_arrays(10, x[:16])[1].shape == (16, 10)
+ivf.enable_cache()
+assert ivf.query_arrays(10, x[:16])[1].shape == (16, 10)
+assert gt.tune_probe_limit(ivf, x, keys, target_recall=0.1, num_samples=32).met
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("ok")
 """
