@@ -2,49 +2,73 @@
 """Smoke run of the PyTorch port (``gulon_tpu_torch``) on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``.
-It needs one CUDA device and the CUDA toolkit (``nvcc``), and it
-imports no JAX. Phases, one JSON line each; any failure raises and
-the script exits non-zero:
+It needs one CUDA device and the CUDA toolkit (``nvcc``), and it imports
+no JAX. Phases, one JSON line each (a line per case in the kernel
+phases); any failure raises and the script exits non-zero:
 
 1. device: the card's name, and its name and power limit as
    ``nvidia-smi`` reports them;
 2. build: ``nvcc`` builds kernel K1 (``adc_scan``) and kernels K2/K3
    (``dense_scan``) from ``gulon_tpu_torch/csrc``, one process each, in
    parallel;
-3. kernel: K1 against its plain PyTorch version on the same operands at
+3. main path: build a flat PQ index of a seeded 400,000 x 100 low-rank
+   corpus on the card, answer 4 batches of 1024 top-10 queries through
+   the ``auto`` strategy (which must pick the fused kernel, K1), and
+   measure recall@1/@10 on 1000 sampled queries against the decode
+   strategy;
+4. kernel: K1 against its plain PyTorch version on the same operands at
    the glove100 shape (400,000 rows, D=100, PQ 8x256, 1024 queries), for
    1 and 2 winners per block, centered and uncentered, 4 winners
-   uncentered, and once with int16 codes (K=512); median ms of 10 timed
-   runs after 3 warm-ups;
-4. main path: build a flat PQ index of a seeded 400,000 x 100 low-rank
-   corpus on the card, answer 4 batches of 1024 top-10 queries through
-   the ``auto`` strategy (which must pick the fused kernel), and measure
-   recall@1/@10 on 1000 sampled queries against the decode strategy;
-5. dense kernel: K2 and K3 against their plain versions on the same
-   operands at the fasttext shape (a seeded 2,000,000 x 300 low-rank
-   corpus, Dp 304 / 320, 1024 queries drawn from it), and K2 once at the
-   glove100 cache width (400,000 x 104, Dp 112); K2 within
-   ``2^-14 * max(|v|, ||x||^2 + ||q||^2)`` with >= 99.5 % equal ids, K3
-   bit for bit;
-6. exact path: ``build_exact_index`` of that corpus on the card; 4
-   batches of 1024 top-10 queries through ``auto`` (which must pick the
-   kernel route, K2), then with ``operand="int8"`` (K3) and with
-   ``scan_strategy="xla"``; recall@1/@10 of each on 1000 sampled queries;
-7. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
+   uncentered, and once with int16 codes (K=512); at a 768-d shape
+   (400,000 rows, PQ 96x256: row blocks streamed, not held decoded); then
+   at the edge shapes (:data:`K1_EDGE_CASES`: 1, 7, 129 and 1000 queries,
+   1-4 winners centered and uncentered, depth 100, K=512 and K=1024 int16
+   codes, NaN rows, IVF padding rows, depths 304 to 1000). Ids >= 99.5 % equal, values within
+   ``2^-14 * max(|v|, 1)``, every id mismatch a near-tie, NaN winners in
+   the same places and rows, and with padding rows exactly ``min(W, real
+   rows)`` valid winners a block, all of them real rows;
+5. exact path: ``build_exact_index`` of a seeded 2,000,000 x 300
+   low-rank corpus on the card; 4 batches of 1024 top-10 queries through
+   ``auto`` (which must pick the kernel route, K2), then with
+   ``operand="int8"`` (K3) and with ``scan_strategy="xla"``; recall@1/@10
+   of each on 1000 sampled queries;
+6. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
    pick ``cached``; 4 batches through K2; recall against decode;
+7. dense kernel: K2 and K3 against their plain versions on the same
+   operands at the fasttext shape (that corpus, Dp 304 / 320, 1024
+   queries drawn from it), K2 at the glove100 cache width (400,000 x 104,
+   Dp 112), and K2 at the edge shapes (:data:`K2_EDGE_CASES`: ragged row
+   counts, 1-1000 queries, NaN rows, an operand too deep for a resident
+   query tile); K2 within ``2^-14 * max(|v|, ||x||^2 + ||q||^2)`` with
+   >= 99.5 % equal ids, K3 bit for bit;
 8. IVF path (ivf1m): ``build_ivf_index`` of a seeded 1,000,000 x 96
    low-rank corpus (intrinsic 24, 4096 clusters) on the card, PQ 12x256,
-   the default 1000 partitions and probe limit 50; K1 at 4 winners
-   against its plain version on the index's own partition-padded
-   operands (no padding row may win); 4 batches of 1024 top-10 queries
-   through ``auto`` (which must pick ``pallas``, K1), through 2 winners
-   with and without rescore 4, and through the masked scan; ``auto`` must
-   go sublinear for 1 and 8 queries and match the masked scan's
-   distances; recall@1/@10 of each route on 1000 sampled queries
-   (recall@10 >= 0.97x masked at 4 winners, >= 0.95x at 2 + rescore 4).
+   the default 1000 partitions and probe limit 50; 4 batches of 1024
+   top-10 queries through ``auto`` (which must pick ``pallas``, K1),
+   through 2 winners with and without rescore 4, and through the masked
+   scan; ``auto`` must go sublinear for 1 and 8 queries and match the
+   masked scan's distances; recall@1/@10 of each route on 10,000 sampled
+   queries (recall@10 >= 0.97x masked at 4 winners, >= 0.95x at 2 +
+   rescore 4); then K1 at 4 winners against its plain version on the
+   index's own partition-padded operands (no padding row may win).
 
-Then a line with each kernel's launches on the paths, error and times,
-the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+Every kernel case line carries its median ms of 10 CUDA-event timings
+after 3 warm-ups, its plain version's, ``bound_ms`` (the least time of
+the same work on an H100: bytes over the memory rate, the contraction
+over the tensor cores' peak, the selection over the CUDA cores' f32
+rate, whichever is largest, named in ``bound_resource``), ``library_ms``
+(one bare ``torch.matmul`` / ``torch._int_mm`` of the same operands:
+the contraction only, without the selection, writing the whole score
+matrix the kernels never materialise; for K1 on the operand decoded
+beforehand) and ``launches_per_batch`` (launches per 1024-query batch
+on the path that runs that shape). Each path is driven with the launch
+counts set to 0 just before it and read just after; the comparisons of
+kernels with their plain versions run after the paths and count for
+none of them. Each path also reports its device time per batch by
+kernel (``torch.profiler`` over its 4 batches after a warm-up).
+
+Then a line with each kernel's launches on the paths, error, times and
+bound, the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -55,6 +79,51 @@ import json
 import subprocess
 import sys
 import time
+
+# Published dense peaks of one H100 SXM at its 700 W limit: bf16 and int8
+# tensor cores, f32 outside them (FLOP/s, OP/s), and the HBM3 rate (B/s).
+PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+_INVALID_MIN = 1.0e38  # a block winner at/above this is padding
+
+# K1 edge shapes: (rows, D, m, K, queries, winners, centered, extra);
+# extra "nan" puts NaN norm lanes on every 300th row, "sentinel" gives
+# block b only its first (37 b) % 129 rows and the IVF padding value
+# 2e38 on the others. The last seven are deep: m*dsub 304 (glove300's
+# width, 5 chunks) and 688 (11 chunks, two ring stages: the deepest row
+# block held decoded) are held decoded; 768, 1000 and 900 (codebooks in
+# shared memory), 800 (K = 1024) and 720 (dsub 1, 720 code rows) are
+# streamed, gathering 8, 4, 2, 8 and 1 lanes a load.
+K1_EDGE_CASES = (
+    (8192, 24, 4, 16, 1, 1, True, None),
+    (8192, 24, 4, 16, 7, 2, False, None),
+    (8192, 24, 4, 16, 129, 4, True, None),
+    (16384, 100, 12, 256, 129, 3, True, None),
+    (9216, 60, 6, 256, 300, 1, True, None),
+    (9216, 60, 6, 256, 7, 3, False, None),
+    (16384, 100, 8, 512, 1000, 4, False, None),
+    (16384, 96, 12, 1024, 100, 2, True, None),
+    (16384, 96, 12, 256, 200, 4, False, "nan"),
+    (16384, 96, 12, 256, 1000, 4, False, "sentinel"),
+    (16384, 300, 19, 256, 129, 2, True, None),
+    (8192, 688, 8, 256, 200, 2, False, None),
+    (16384, 768, 96, 256, 129, 4, False, "sentinel"),
+    (8192, 1000, 250, 16, 7, 1, False, None),
+    (4096, 800, 100, 1024, 33, 3, True, None),
+    (4096, 720, 720, 16, 130, 1, True, None),
+    (4096, 900, 90, 64, 65, 2, False, None),
+)
+# K2 edge shapes: (rows, D, queries, NaN rows); D = 1022 is too deep for
+# a resident query tile and streams the query chunks beside the rows.
+K2_EDGE_CASES = (
+    (8192, 30, 24, False),
+    (9000, 102, 200, True),
+    (40001, 300, 130, False),
+    (1000, 110, 1, False),
+    (5000, 300, 7, True),
+    (3000, 1022, 129, False),
+    (70000, 100, 1000, False),
+)
 
 
 def _emit(obj) -> None:
@@ -104,6 +173,388 @@ def low_rank_corpus(seed: int, n: int, d: int, intrinsic: int = 32,
     return (x + noise * rng.standard_normal((n, d), dtype=np.float32)).astype(np.float32)
 
 
+# ---- bounds -----------------------------------------------------------------
+
+
+def bound(bytes_moved: float, mma_ops: float, mma_type: str, select_ops: float) -> dict:
+    """Least time of a kernel's work on an H100: the largest of its bytes
+    (each input read once, the output written once) over the memory rate,
+    its contraction over the tensor cores' peak for ``mma_type`` and its
+    selection over the CUDA cores' f32 rate, each counted from the shapes
+    of this run's inputs."""
+    parts = {
+        "HBM bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+        f"tensor cores ({mma_type})": mma_ops / PEAK[mma_type] * 1e3,
+        "CUDA cores (selection)": select_ops / PEAK["f32"] * 1e3,
+    }
+    resource = max(parts, key=parts.get)
+    return dict(
+        bound_ms=parts[resource],
+        bound_by="bytes" if resource == "HBM bytes" else "operations",
+        bound_resource=resource, bound_parts_ms=parts,
+    )
+
+
+def _select_ops(pairs: int, winners: int) -> int:
+    """CUDA-core operations of the lane-packed selection: per (row, query)
+    pair a pack and a min per winner, and a compare and a select per
+    extra winner."""
+    return pairs * (3 * winners - 1)
+
+
+def k1_bound(operands, winners: int) -> dict:
+    """K1: the codes, norm lanes, queries and codebooks in, the packed
+    winners out; ``2 * depth`` bf16 operations per (row, query) pair."""
+    codes_t, norms_hl, q_op, cb = operands
+    m, n_cols = codes_t.shape
+    _, _, dsub = cb.shape
+    q_n = q_op.shape[0]
+    moved = sum(t.numel() * t.element_size() for t in operands)
+    moved += q_n * (n_cols // 128) * winners * 4
+    pairs = n_cols * q_n
+    return bound(moved, 2 * pairs * (m * dsub + 4), "bf16", _select_ops(pairs, winners))
+
+
+def dense_bound(data, q_op) -> dict:
+    """K2 (bf16) / K3 (int8): rows and queries in, ``[Q, ceil(N/128)]``
+    winners out; ``2 * Dp`` operations per (row, query) pair."""
+    n, dp = data.shape
+    q_n = q_op.shape[0]
+    moved = (data.numel() + q_op.numel()) * data.element_size() + q_n * -(-n // 128) * 4
+    kind = "int8" if data.element_size() == 1 else "bf16"
+    return bound(moved, 2 * n * q_n * dp, kind, _select_ops(n * q_n, 1))
+
+
+# ---- comparisons ----------------------------------------------------------
+
+
+def compare_packed(got, ref, scale=None) -> dict:
+    """Lane-packed block winners of a kernel against its plain version:
+    ids >= 99.5 % equal; every value within ``2^-14 * max(|v|, S)`` (S = 1,
+    or ``max(scale, 1)`` per winner), so each id mismatch is a near-tie;
+    NaN winners in the same places and on the same rows. How many values
+    miss ``2^-14 * max(|v|, 1)`` is reported as ``outside_value_tol``."""
+    import torch
+
+    bk, bp = got.view(torch.int32), ref.view(torch.int32)
+    vk, vp = (bk & ~127).view(torch.float32), (bp & ~127).view(torch.float32)
+    ik, ip = bk & 127, bp & 127
+    nan_k, nan_p = torch.isnan(vk), torch.isnan(vp)
+    floor = torch.ones_like(vp) if scale is None else torch.clamp(scale, min=1.0)
+    tol = 2.0 ** -14 * torch.maximum(vp.abs(), floor)
+    err = (vk - vp).abs()
+    num = ~nan_p
+    mism = (ik != ip) & num
+    nan_same = bool(torch.equal(nan_k, nan_p)) and bool(torch.equal(ik[nan_p], ip[nan_p]))
+    real = num & (vp.abs() < _INVALID_MIN)
+    case = dict(
+        id_equal=float((ik == ip).float().mean()),
+        values_ok=bool((err[num] <= tol[num]).all()),
+        ties_ok=bool((err[mism] <= tol[mism]).all()),
+        nan_winners=int(nan_p.sum()), nan_same=nan_same,
+        max_abs_err=float(err[real].max()) if bool(real.any()) else 0.0,
+        outside_value_tol=int(
+            (err[num] > 2.0 ** -14 * torch.clamp(vp[num].abs(), min=1.0)).sum()
+        ),
+        values=err.numel(),
+    )
+    case["ok"] = (
+        case["id_equal"] >= 0.995 and case["values_ok"] and case["ties_ok"] and nan_same
+    )
+    return case
+
+
+def winner_columns(n_cols: int, winners: int, nblk: int, device):
+    """(block, rank) of each of K1's output columns: rank-major inside each
+    row tile of ``nblk`` blocks."""
+    import torch
+
+    cols = torch.arange(n_cols, device=device)
+    wn = winners * nblk
+    return (cols // wn) * nblk + (cols % wn) % nblk, (cols % wn) // nblk
+
+
+def winners_valid(packed, real, winners: int, nblk: int) -> bool:
+    """Block b yields exactly ``min(W, real[b])`` winners below the padding
+    value, and each is one of its real rows, the first ``real[b]``."""
+    import torch
+
+    block, rank = winner_columns(packed.shape[1], winners, nblk, packed.device)
+    bits = packed.view(torch.int32)
+    valid = (bits & ~127).view(torch.float32) < _INVALID_MIN
+    if not torch.equal(valid, (rank < real[block])[None, :].expand_as(valid)):
+        return False
+    rows = (bits & 127).long()
+    return bool((rows < real[block][None, :])[valid].all())
+
+
+# ---- operands ---------------------------------------------------------------
+
+
+def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, dev):
+    """Seeded random K1 operands as the scan builds them: ``(operands, nblk,
+    real rows per block or None)``; ``extra`` as :data:`K1_EDGE_CASES`."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.ops.pq import subspace_bounds
+
+    bounds = subspace_bounds(d, m)
+    dsub = max(w for _, w in bounds)
+    cb = torch.randn((m, k_codes, dsub), generator=gen, device=dev)
+    for s, (_, w) in enumerate(bounds):
+        cb[s, :, w:] = 0.0
+    cb = cb.to(torch.bfloat16).to(torch.float32)
+    codes = torch.randint(0, k_codes, (n, m), generator=gen, device=dev)
+    norms = (cb[torch.arange(m, device=dev)[None], codes] ** 2).sum((1, 2))
+    if extra == "sentinel":
+        keep = (37 * torch.arange(n // 128, device=dev)) % 129
+        pad = torch.arange(128, device=dev)[None, :] >= keep[:, None]
+        norms = torch.where(pad.reshape(-1), torch.full_like(norms, 2e38), norms)
+    queries = torch.randn((q_n, d), generator=gen, device=dev)
+    ops = adc.prepare_scan_operands(
+        queries, cb, adc.pack_codes_t(codes, k_codes), norms, bounds=bounds,
+        tile_rows=0, num_rows=n, winners=winners, center_scores=centered,
+    )
+    norms_hl = adc._split_hi_lo(ops["norms"], ops["center"])
+    if extra == "nan":
+        norms_hl[0, 3::300] = float("nan")
+    operands = (
+        ops["codes_t"], norms_hl, ops["q_pad"][:q_n].to(torch.bfloat16),
+        cb.to(torch.bfloat16).contiguous(),
+    )
+    real = None
+    if extra == "sentinel":
+        real = (ops["norms"] < _INVALID_MIN).view(-1, 128).sum(1)
+    return operands, ops["t"] // 128, real
+
+
+def dense_queries(q, dp: int):
+    """K2's query operand: ``-2q``, zero pad, and two ones facing the
+    rows' hi/lo norm lanes."""
+    import torch
+
+    n, d = q.shape
+    return torch.cat(
+        [-2.0 * q, torch.zeros((n, dp - d - 2), device=q.device),
+         torch.ones((n, 2), device=q.device)], dim=1,
+    ).to(torch.bfloat16)
+
+
+def dense_scale(data, q_op, ref):
+    """``||x||^2 + ||q||^2`` of each plain winner row and query: the scale
+    of K2's f32 partial sums (the score ``||x||^2 - 2<x, q>`` cancels
+    toward 0, two summation orders differ by a fraction of the summands)."""
+    import torch
+
+    ip = ref.view(torch.int32) & 127
+    rows = torch.clamp(
+        torch.arange(ref.shape[1], device=ref.device)[None, :] * 128 + ip,
+        max=data.shape[0] - 1,
+    ).long()
+    x_norm = data[:, -2].float() + data[:, -1].float()  # hi + lo lanes
+    q_norm = (q_op[:, :-2].float() ** 2).sum(1) / 4.0  # lanes hold -2q
+    return x_norm[rows] + q_norm[:, None]
+
+
+def k2_operands(gen, n, d, q_n, nan, *, dev):
+    """Seeded random K2 operands ``(rows, queries)``; NaN in a data lane of
+    every 257th row when ``nan``."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import dense
+
+    x = torch.randn((n, d), generator=gen, device=dev)
+    q = torch.randn((q_n, d), generator=gen, device=dev)
+    data = dense.prepare_data(x)
+    if nan:
+        data[::257, 3] = float("nan")
+    return data, dense_queries(q, data.shape[1])
+
+
+def k1_decoded(operands):
+    """K1's row operand decoded once, ``[N', q width]`` bf16 (codewords,
+    hi/lo norm lanes, two ones, zero pad): what a bare matmul against the
+    queries contracts."""
+    import torch
+
+    codes_t, norms_hl, q_op, cb = operands
+    m, n_cols = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    c = codes_t.to(torch.int32) + (128 if codes_t.dtype == torch.int8 else 0)
+    valid = (c >= 0) & (c < k_codes)
+    sub = torch.arange(m, device=c.device)[:, None]
+    dec = cb[sub, torch.where(valid, c, 0).long()] * valid[..., None]
+    dev = c.device
+    return torch.cat([
+        dec.permute(1, 0, 2).reshape(n_cols, m * dsub), norms_hl.T,
+        torch.ones((n_cols, 2), dtype=torch.bfloat16, device=dev),
+        torch.zeros((n_cols, q_op.shape[1] - m * dsub - 4), dtype=torch.bfloat16, device=dev),
+    ], dim=1).contiguous()
+
+
+# ---- kernel cases -----------------------------------------------------------
+
+
+def _k1_case(label, operands, winners, nblk, real, launches_per_batch) -> dict:
+    """One K1 case on the card: kernel against plain, times, bound and the
+    contraction-only matmul."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+
+    got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
+    torch.cuda.synchronize()
+    ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
+    codes_t, _, q_op, cb = operands
+    m, n_cols = codes_t.shape
+    case = dict(
+        case=label, winners=winners, shape=[q_op.shape[0], n_cols, m * cb.shape[2]],
+        k_codes=cb.shape[1], code_dtype=str(codes_t.dtype).replace("torch.", ""),
+        **compare_packed(got, ref),
+    )
+    if real is not None:
+        case["winners_valid"] = winners_valid(got, real, winners, nblk) and winners_valid(
+            ref, real, winners, nblk
+        )
+        case["ok"] = case["ok"] and case["winners_valid"]
+    del got, ref
+    dec = k1_decoded(operands)
+    case.update(
+        ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
+        plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
+        library_ms=_cuda_ms(lambda: torch.matmul(q_op, dec.T)),
+        library_call="torch.matmul(queries, decoded rows^T), contraction only",
+        launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
+    )
+    return case
+
+
+def phase_kernel(seed: int, launches_per_batch: float) -> dict:
+    """K1 against its plain version at the glove100 shape, then at the
+    edge shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = []
+    glove = [(400_000, 100, 8, k_codes, 1024, w, c, None) for k_codes, w, c in (
+        (256, 1, True), (256, 1, False), (256, 2, True), (256, 2, False),
+        (512, 1, True), (256, 4, False),
+    )]
+    # a 768-d corpus at PQ 96x256: a row block too deep to hold decoded
+    deep = (400_000, 768, 96, 256, 1024, 1, True, None)
+    for label, spec in (
+        [("glove100", s) for s in glove] + [("deep768", deep)]
+        + [("edge", s) for s in K1_EDGE_CASES]
+    ):
+        operands, nblk, real = k1_operands(gen, *spec, dev="cuda")
+        case = _k1_case(
+            label, operands, spec[5], nblk, real,
+            launches_per_batch if label == "glove100" else None,
+        )
+        case.update(centered=spec[6], extra=spec[7])
+        _emit({"phase": "kernel", **case})
+        if not case["ok"]:
+            raise AssertionError(f"K1 disagrees with its plain version: {case}")
+        cases.append(case)
+    return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch) -> dict:
+    """One kernel against its plain version on the same operands: K3
+    (``exact``) bit for bit; K2 by :func:`compare_packed` with the summand
+    scale of :func:`dense_scale`."""
+    import torch
+
+    got = block_scan(data, q_op)
+    torch.cuda.synchronize()
+    ref = plain(data, q_op)
+    if exact:
+        err = (got.to(torch.int64) - ref.to(torch.int64)).abs()
+        case = dict(
+            id_equal=float(((got & 127) == (ref & 127)).float().mean()),
+            max_abs_err=float(err.max()), ok=bool(torch.equal(got, ref)),
+        )
+    else:
+        case = compare_packed(got, ref, dense_scale(data, q_op, ref))
+    del got, ref
+    library = torch._int_mm if exact else torch.matmul
+    case = dict(
+        kernel=name, shape=[q_op.shape[0], data.shape[0], data.shape[1]],
+        dtype=str(data.dtype).replace("torch.", ""), **case,
+        ms=_cuda_ms(lambda: block_scan(data, q_op)),
+        plain_ms=_cuda_ms(lambda: plain(data, q_op)),
+        library_ms=_cuda_ms(lambda: library(q_op, data.T)),
+        library_call=f"torch.{library.__name__}(queries, rows^T), contraction only",
+        launches_per_batch=launches_per_batch, **dense_bound(data, q_op),
+    )
+    _emit({"phase": "dense_kernel", **case})
+    if not case["ok"]:
+        raise AssertionError(f"{name} disagrees with its plain version: {case}")
+    return case
+
+
+def phase_dense_kernel(seed: int, x, glove, lpb: dict) -> dict:
+    """K2 and K3 against their plain versions at the fasttext shape, K2 at
+    the glove100 cache width (the cached strategy's operand) and at the
+    edge shapes."""
+    import numpy as np
+    import torch
+
+    from gulon_tpu_torch.models.flat import _augment_cache
+    from gulon_tpu_torch.ops import scan as scan_ops
+    from gulon_tpu_torch.ops.cuda import dense
+
+    rng = np.random.default_rng(seed + 3)
+    q_n = 1024
+    xd = torch.from_numpy(x).to("cuda")
+    q = xd[torch.from_numpy(rng.choice(len(x), q_n, replace=False)).to("cuda")]
+
+    data = dense.prepare_data(xd)
+    k2 = _dense_case(
+        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, data,
+        dense_queries(q, data.shape[1]), False, lpb["exact_bf16"],
+    )
+    del data
+    d8, meta, _ = dense.prepare_data_i8(xd)
+    qi = torch.clamp(torch.round(-q / (meta.scale * meta.gain)), -127, 127)
+    q8 = torch.cat(
+        [qi, torch.zeros((q_n, meta.dp - meta.d - 2), device="cuda"),
+         torch.full((q_n, 1), 127.0, device="cuda"),
+         torch.ones((q_n, 1), device="cuda")], dim=1,
+    ).to(torch.int8)
+    k3 = _dense_case(
+        "K3", dense.dense_block_scan_i8, dense._dense_block_scan_plain_i8, d8,
+        q8, True, lpb["exact_int8"],
+    )
+    del d8, xd
+
+    index, gx = glove["index"], glove["x"]
+    pq = index.pq
+    cache = scan_ops.decode_tile(pq.codebooks, index.codes).to(torch.bfloat16)
+    aug = _augment_cache(cache, index.recon_norms)
+    gq = torch.from_numpy(gx[rng.choice(len(gx), q_n, replace=False)]).to("cuda")
+    k2_cache = _dense_case(
+        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, aug,
+        dense_queries(scan_ops._q_pad(gq, pq.bounds, pq.pad_width), aug.shape[1]),
+        False, lpb["cached"],
+    )
+    del cache, aug
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    edge = []
+    for n, d, nq, nan in K2_EDGE_CASES:
+        data, q_op = k2_operands(gen, n, d, nq, nan, dev="cuda")
+        edge.append(_dense_case(
+            "K2", dense.dense_block_scan, dense._dense_block_scan_plain, data,
+            q_op, False, None,
+        ))
+    max_err = max(c["max_abs_err"] for c in [k2, k2_cache] + edge)
+    return dict(k2=k2, k3=k3, k2_cache=k2_cache, k2_max_abs_err=max_err)
+
+
+# ---- paths ------------------------------------------------------------------
+
+
 def _serve(index, x, rows, k):
     """(host ms ending in a synchronize, dists, ids) of one query batch."""
     import torch
@@ -130,68 +581,29 @@ def _serve_checked(index, x, rows, k) -> float:
     return ms
 
 
-def phase_kernel(seed: int) -> dict:
-    """K1 against its plain version at the glove100 shape."""
-    import numpy as np
+def _profile(index, x, batches, k) -> dict:
+    """Device ms per batch by kernel over the given batches
+    (``torch.profiler``): the sum over device kernels and copies, and the
+    eight largest."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from gulon_tpu_torch.ops.cuda import adc
-    from gulon_tpu_torch.ops.pq import subspace_bounds
-
-    dev = "cuda"
-    n, d, m, q_n = 400_000, 100, 8, 1024
-    bounds = subspace_bounds(d, m)
-    dsub = max(w for _, w in bounds)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cases = []
-    for k_codes, winners, centered in (
-        (256, 1, True), (256, 1, False), (256, 2, True), (256, 2, False),
-        (512, 1, True), (256, 4, False),
-    ):
-        cb = torch.randn((m, k_codes, dsub), generator=gen, device=dev)
-        for s, (_, w) in enumerate(bounds):
-            cb[s, :, w:] = 0.0
-        cb = cb.to(torch.bfloat16).to(torch.float32)
-        codes = torch.randint(0, k_codes, (n, m), generator=gen, device=dev)
-        norms = (cb[torch.arange(m, device=dev)[None], codes] ** 2).sum((1, 2))
-        queries = torch.randn((q_n, d), generator=gen, device=dev)
-        codes_t = adc.pack_codes_t(codes, k_codes)
-        ops = adc.prepare_scan_operands(
-            queries, cb, codes_t, norms, bounds=bounds, tile_rows=0,
-            num_rows=n, winners=winners, center_scores=centered,
-        )
-        operands = (
-            ops["codes_t"],
-            adc._split_hi_lo(ops["norms"], ops["center"]),
-            ops["q_pad"][:q_n].to(torch.bfloat16),
-            cb.to(torch.bfloat16).contiguous(),
-        )
-        nblk = ops["t"] // 128
-        packed_k = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
+    _serve(index, x, batches[0], k)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for rows in batches:
+            index.query_arrays(k, x[rows])
         torch.cuda.synchronize()
-        packed_p = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
-        base = torch.zeros(packed_k.shape[1], dtype=torch.int32, device=dev)
-        v_k, i_k = adc.unpack_block_winners(packed_k, base)
-        v_p, i_p = adc.unpack_block_winners(packed_p, base)
-        tol = 2.0 ** -14 * torch.clamp(v_p.abs(), min=1.0)
-        err = (v_k - v_p).abs()
-        id_equal = float((i_k == i_p).float().mean())
-        vals_ok = bool((err <= tol).all())
-        # an id mismatch must be a near-tie: both winners' values within tol
-        ties_ok = bool((err[i_k != i_p] <= tol[i_k != i_p]).all())
-        case = dict(
-            k_codes=k_codes, winners=winners, centered=centered,
-            code_dtype=str(ops["codes_t"].dtype).replace("torch.", ""),
-            shape=[q_n, n, m * dsub], id_equal=id_equal,
-            max_abs_err=float(err.max()), values_ok=vals_ok, ties_ok=ties_ok,
-            ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
-            plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
-        )
-        _emit({"phase": "kernel", **case})
-        if id_equal < 0.995 or not vals_ok or not ties_ok:
-            raise AssertionError(f"K1 disagrees with its plain version: {case}")
-        cases.append(case)
-    return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        times[e.key[:90]] = times.get(e.key[:90], 0.0) + us / 1e3 / len(batches)
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms_per_batch=sum(times.values()), top=top)
 
 
 def phase_main_path(seed: int):
@@ -228,10 +640,13 @@ def phase_main_path(seed: int):
 
     decode = dataclasses.replace(index, scan_strategy="decode")
     fused_ms, decode_ms = [], []
-    for b in range(4):
-        rows = rng.choice(n, batch, replace=False)
+    batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
+    for rows in batches:
         fused_ms.append(_serve_checked(index, x, rows, k))
+        before = adc.adc_scan_kernel_launches
         decode_ms.append(_serve(decode, x, rows, k)[0])
+        if adc.adc_scan_kernel_launches != before:
+            raise AssertionError("the decode strategy launched K1")
     launches_serve = adc.adc_scan_kernel_launches
 
     truth = gt.sample_ground_truth(
@@ -246,7 +661,8 @@ def phase_main_path(seed: int):
         strategy=strategy, winners=index.resolved_pallas_winners(),
         rerank=index.resolved_rerank_factor(),
         fused_ms_per_batch=fused_ms, decode_ms_per_batch=decode_ms,
-        launches_serve=launches_serve, launches=launches,
+        launches_serve=launches_serve, launches_per_batch=launches_serve / len(batches),
+        launches=launches,
         recall_fused={1: rec_fused[1].mean, 10: rec_fused[10].mean},
         recall_decode={1: rec_decode[1].mean, 10: rec_decode[10].mean},
         recall10_ratio=ratio,
@@ -256,115 +672,8 @@ def phase_main_path(seed: int):
         raise AssertionError(f"K1 launched {launches_serve} times for 4 batches")
     if ratio < 0.97:
         raise AssertionError(f"fused/decode recall@10 ratio {ratio:.4f} < 0.97")
+    _emit({"phase": "profile", "path": "flat auto (K1)", **_profile(index, x, batches, k)})
     return out, dict(index=index, x=x, keys=keys, truth=truth, rec_decode=rec_decode)
-
-
-def _dense_case(name, block_scan, plain, data, q_op, exact) -> dict:
-    """One kernel against its plain version on the same operands: K3
-    (``exact``) bit for bit; K2 with >= 99.5 % equal block-winner ids and
-    every value, and both values of every id mismatch, within
-    ``2^-14 * max(|v|, S)``. ``S = ||x||^2 + ||q||^2`` of the winner row
-    and the query bounds the f32 partial sums: two summation orders of
-    the same exact bf16 products differ by a fraction of the summands, not
-    of a score that cancels to near 0. How many values miss the tighter
-    ``2^-14 * max(|v|, 1)`` is reported as ``outside_value_tol``."""
-    import torch
-
-    got = block_scan(data, q_op)
-    torch.cuda.synchronize()
-    ref = plain(data, q_op)
-    shape = [q_op.shape[0], data.shape[0], data.shape[1]]
-    if exact:
-        err = (got.to(torch.int64) - ref.to(torch.int64)).abs()
-        ok = bool(torch.equal(got, ref))
-        case = dict(id_equal=float(((got & 127) == (ref & 127)).float().mean()))
-    else:
-        bk, bp = got.view(torch.int32), ref.view(torch.int32)
-        vk, vp = (bk & ~127).view(torch.float32), (bp & ~127).view(torch.float32)
-        ik, ip = bk & 127, bp & 127
-        rows = torch.clamp(
-            torch.arange(bp.shape[1], device=bp.device)[None, :] * 128 + ip,
-            max=data.shape[0] - 1,
-        ).long()
-        x_norm = data[:, -2].float() + data[:, -1].float()  # hi + lo lanes
-        q_norm = (q_op[:, :-2].float() ** 2).sum(1) / 4.0  # lanes hold -2q
-        scale = torch.clamp(x_norm[rows] + q_norm[:, None], min=1.0)
-        tol = 2.0 ** -14 * torch.maximum(vp.abs(), scale)
-        err = (vk - vp).abs()
-        id_equal = float((ik == ip).float().mean())
-        vals_ok = bool((err <= tol).all())
-        ties_ok = bool((err[ik != ip] <= tol[ik != ip]).all())
-        ok = id_equal >= 0.995 and vals_ok and ties_ok
-        outside = err > 2.0 ** -14 * torch.clamp(vp.abs(), min=1.0)
-        case = dict(
-            id_equal=id_equal, values_ok=vals_ok, ties_ok=ties_ok,
-            max_err_over_scale=float((err / scale).max()),
-            outside_value_tol=int(outside.sum()), values=err.numel(),
-        )
-    case = dict(
-        kernel=name, shape=shape, dtype=str(data.dtype).replace("torch.", ""),
-        **case, max_abs_err=float(err.max()), ok=ok,
-        ms=_cuda_ms(lambda: block_scan(data, q_op)),
-        plain_ms=_cuda_ms(lambda: plain(data, q_op)),
-    )
-    _emit({"phase": "dense_kernel", **case})
-    if not ok:
-        raise AssertionError(f"{name} disagrees with its plain version: {case}")
-    return case
-
-
-def phase_dense_kernel(seed: int, x, glove) -> dict:
-    """K2 and K3 against their plain versions at the fasttext shape, and
-    K2 at the glove100 cache width (the cached strategy's operand)."""
-    import numpy as np
-    import torch
-
-    from gulon_tpu_torch.models.flat import _augment_cache
-    from gulon_tpu_torch.ops import scan as scan_ops
-    from gulon_tpu_torch.ops.cuda import dense
-
-    rng = np.random.default_rng(seed + 3)
-    q_n = 1024
-    xd = torch.from_numpy(x).to("cuda")
-    q = xd[torch.from_numpy(rng.choice(len(x), q_n, replace=False)).to("cuda")]
-
-    def q_aug(q, dp):
-        d = q.shape[1]
-        return torch.cat(
-            [-2.0 * q, torch.zeros((len(q), dp - d - 2), device=q.device),
-             torch.ones((len(q), 2), device=q.device)], dim=1,
-        ).to(torch.bfloat16)
-
-    data = dense.prepare_data(xd)
-    k2 = _dense_case(
-        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, data,
-        q_aug(q, data.shape[1]), exact=False,
-    )
-    del data
-    d8, meta, _ = dense.prepare_data_i8(xd)
-    qi = torch.clamp(torch.round(-q / (meta.scale * meta.gain)), -127, 127)
-    q8 = torch.cat(
-        [qi, torch.zeros((q_n, meta.dp - meta.d - 2), device="cuda"),
-         torch.full((q_n, 1), 127.0, device="cuda"),
-         torch.ones((q_n, 1), device="cuda")], dim=1,
-    ).to(torch.int8)
-    k3 = _dense_case(
-        "K3", dense.dense_block_scan_i8, dense._dense_block_scan_plain_i8, d8,
-        q8, exact=True,
-    )
-    del d8, xd
-
-    index, gx = glove["index"], glove["x"]
-    pq = index.pq
-    cache = scan_ops.decode_tile(pq.codebooks, index.codes).to(torch.bfloat16)
-    aug = _augment_cache(cache, index.recon_norms)
-    gq = torch.from_numpy(gx[rng.choice(len(gx), q_n, replace=False)]).to("cuda")
-    k2_cache = _dense_case(
-        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, aug,
-        q_aug(scan_ops._q_pad(gq, pq.bounds, pq.pad_width), aug.shape[1]),
-        exact=False,
-    )
-    return dict(k2=k2, k3=k3, k2_cache=k2_cache)
 
 
 def phase_exact_path(seed: int, x) -> dict:
@@ -407,6 +716,7 @@ def phase_exact_path(seed: int, x) -> dict:
         rec = gt.recall_of(idx, truth, x, keys)
         out[name] = dict(
             ms_per_batch=ms, launches_k2_k3=list(served),
+            launches_per_batch=[s / len(batches) for s in served],
             recall={1: rec[1].mean, 10: rec[10].mean},
         )
     out["resolved_operand_int8"] = routes["int8"].resolved_operand
@@ -422,8 +732,13 @@ def phase_exact_path(seed: int, x) -> dict:
         raise AssertionError("the int8 route fell back to the bf16 operand")
     if out["bf16"]["launches_k2_k3"][0] < 4 or out["int8"]["launches_k2_k3"][1] < 4:
         raise AssertionError(f"K2/K3 launched too rarely for 4 batches: {out}")
+    if out["xla"]["launches_k2_k3"] != [0, 0]:
+        raise AssertionError("the xla route launched a kernel")
     if out["recall10_ratio"]["bf16"] < 0.99 or out["recall10_ratio"]["int8"] < 0.98:
         raise AssertionError(f"exact-path recall@10 ratios {out['recall10_ratio']}")
+    for name in ("bf16", "int8"):
+        _emit({"phase": "profile", "path": f"exact {name}",
+               **_profile(routes[name], x, batches, k)})
     return out
 
 
@@ -451,10 +766,13 @@ def phase_cached_path(glove) -> dict:
         raise AssertionError(f"auto resolved to {strategy!r}, not 'cached'")
     pallas = dataclasses.replace(index, scan_strategy="pallas")
     cached_ms, pallas_ms = [], []
-    for _ in range(4):
-        rows = rng.choice(len(x), batch, replace=False)
+    batches = [rng.choice(len(x), batch, replace=False) for _ in range(4)]
+    for rows in batches:
         cached_ms.append(_serve_checked(index, x, rows, k))
+        before = dense.dense_scan_kernel_launches
         pallas_ms.append(_serve(pallas, x, rows, k)[0])
+        if dense.dense_scan_kernel_launches != before:
+            raise AssertionError("the pallas strategy launched K2")
     launches_serve = dense.dense_scan_kernel_launches
     rec = gt.recall_of(index, glove["truth"], x, keys)
     rec_decode = glove["rec_decode"]
@@ -462,7 +780,8 @@ def phase_cached_path(glove) -> dict:
         n=len(x), cache_s=cache_s, strategy=strategy,
         cache_dtype=cache_dtype,
         cached_ms_per_batch=cached_ms, pallas_ms_per_batch=pallas_ms,
-        launches_serve=launches_serve, launches=dense.dense_scan_kernel_launches,
+        launches_serve=launches_serve, launches_per_batch=launches_serve / len(batches),
+        launches=dense.dense_scan_kernel_launches,
         recall_cached={1: rec[1].mean, 10: rec[10].mean},
         recall_decode={1: rec_decode[1].mean, 10: rec_decode[10].mean},
         recall10_ratio=rec[10].mean / max(rec_decode[10].mean, 1e-12),
@@ -472,10 +791,12 @@ def phase_cached_path(glove) -> dict:
         raise AssertionError(f"K2 launched {launches_serve} times for 4 cached batches")
     if out["recall10_ratio"] < 0.97:
         raise AssertionError(f"cached/decode recall@10 ratio {out['recall10_ratio']:.4f} < 0.97")
+    _emit({"phase": "profile", "path": "glove100 cached (K2)",
+           **_profile(index, x, batches, k)})
     return out
 
 
-def _ivf_kernel_check(index, q) -> dict:
+def _ivf_kernel_check(index, q, launches_per_batch) -> dict:
     """K1 at 4 winners, uncentered, against its plain version on the
     index's own partition-padded operands. Values within ``2^-14 *
     max(|v|, S)``, ``S = |rc| + 2 ||q|| ||r^||`` the scale of the winner
@@ -546,8 +867,15 @@ def _ivf_kernel_check(index, q) -> dict:
         outside_value_tol=int((err > 2.0 ** -14 * torch.clamp(vp.abs(), min=1.0)).sum()),
         values=err.numel(),
         max_abs_err=float(torch.where(vp < adc._INVALID_MIN, err, 0.0).max()),
+    )
+    del got, ref, vk, ik, vp, ip, err, tol, scale, rows, codes_pal
+    dec = k1_decoded(operands)
+    case.update(
         ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
         plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
+        library_ms=_cuda_ms(lambda: torch.matmul(operands[2], dec.T)),
+        library_call="torch.matmul(queries, decoded rows^T), contraction only",
+        launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
     _emit({"phase": "ivf_kernel", **case})
     ok = (
@@ -560,9 +888,9 @@ def _ivf_kernel_check(index, q) -> dict:
 
 
 def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
-    """ivf1m at full size: build -> K1 check on the index's operands ->
-    serve through auto (pallas), W=2 + rescore 4, masked, and sublinear
-    small batches -> recall of each route."""
+    """ivf1m at full size: build -> serve through auto (pallas), W=2 +
+    rescore 4, masked, and sublinear small batches -> recall of each
+    route -> K1 check on the index's operands."""
     import numpy as np
     import torch
 
@@ -575,6 +903,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
     rng = np.random.default_rng(seed + 5)
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
 
+    adc.adc_scan_kernel_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = gt.build_ivf_index(
@@ -594,11 +923,6 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t0
 
-    kernel = _ivf_kernel_check(
-        index, torch.from_numpy(x[batches[0]]).to(device)
-    )
-
-    adc.adc_scan_kernel_launches = 0
     strategy = index.resolve_strategy(batch, k)
     if strategy != "pallas":
         raise AssertionError(f"auto resolved to {strategy!r}, not 'pallas'")
@@ -623,6 +947,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
             ms_per_batch=[_serve_checked(idx, x, rows, k) for rows in batches],
             launches=adc.adc_scan_kernel_launches - before,
         )
+        out[name]["launches_per_batch"] = out[name]["launches"] / len(batches)
     launches_serve = adc.adc_scan_kernel_launches
 
     # small batches go sublinear and return the masked scan's distances
@@ -646,7 +971,11 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
         small[nq] = dict(strategy=resolved, ms=ms, max_rel_gap_to_masked=gaps)
     out["small_batches"] = small
 
-    truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10), device=device)
+    # 10,000 self-queries: the coarse k-means is not bit-reproducible on
+    # the card, so each run's index differs a little, and over 1,000
+    # queries the two-winner ratio spreads by about +-0.005 between
+    # builds; over 10,000 by about +-0.0015
+    truth = gt.sample_ground_truth(keys, x, num_samples=10_000, ks=(1, 10), device=device)
     recall = {}
     for name, idx in routes.items():
         rec = gt.recall_of(idx, truth, x, keys)
@@ -675,7 +1004,23 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
     ratio = out["recall10_ratio"]
     if ratio["pallas_w4"] < 0.97 or ratio["pallas_w2_rescore4"] < 0.95:
         raise AssertionError(f"IVF recall@10 ratios {ratio}")
+    _emit({"phase": "profile", "path": "ivf1m pallas W=4 (K1)",
+           **_profile(index, x, batches, k)})
+
+    kernel = _ivf_kernel_check(
+        index, torch.from_numpy(x[batches[0]]).to(device),
+        out["pallas_w4"]["launches_per_batch"],
+    )
     return dict(out, kernel=kernel)
+
+
+def _kernel_entry(name, source, replaces, launches, max_abs_err, case, **extra) -> dict:
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_resource", "library_ms",
+            "library_call", "launches_per_batch")
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        max_abs_err=max_abs_err, **{k: case[k] for k in keys}, **extra,
+    )
 
 
 def main(argv=None) -> int:
@@ -713,44 +1058,47 @@ def main(argv=None) -> int:
             }),
         })
 
-    k1 = phase_kernel(args.seed)
     main_path, glove = phase_main_path(args.seed)
     if main_path["launches"] == 0:
         raise AssertionError("the main path never launched K1")
+    k1 = phase_kernel(args.seed, main_path["launches_per_batch"])
     x2m = low_rank_corpus(args.seed, 2_000_000, 300)
-    dense_k = phase_dense_kernel(args.seed, x2m, glove)
     exact = phase_exact_path(args.seed, x2m)
     cached = phase_cached_path(glove)
+    lpb = {
+        "exact_bf16": exact["bf16"]["launches_per_batch"][0],
+        "exact_int8": exact["int8"]["launches_per_batch"][1],
+        "cached": cached["launches_per_batch"],
+    }
+    dense_k = phase_dense_kernel(args.seed, x2m, glove, lpb)
     del glove, x2m
     ivf = phase_ivf_path(args.seed)
     k2, k3 = dense_k["k2"], dense_k["k3"]
     _emit({"kernels": [
-        {
-            "name": "adc_scan", "route": "cuda",
-            "source": "gulon_tpu_torch/csrc/adc_scan.cu",
-            "replaces": "gulon_tpu/ops/pallas/adc.py:276",
-            "launches": main_path["launches"] + ivf["launches"],
-            "launches_by_path": {"flat": main_path["launches"], "ivf": ivf["launches"]},
-            "max_abs_err": max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"]),
-            "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-            "ivf_w4_ms": ivf["kernel"]["ms"], "ivf_w4_plain_ms": ivf["kernel"]["plain_ms"],
-        },
-        {
-            "name": "dense_scan_bf16", "route": "cuda",
-            "source": "gulon_tpu_torch/csrc/dense_scan.cu",
-            "replaces": "gulon_tpu/ops/pallas/dense.py:89",
-            "launches": exact["launches_k2"] + cached["launches"],
-            "max_abs_err": max(k2["max_abs_err"], dense_k["k2_cache"]["max_abs_err"]),
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        },
-        {
-            "name": "dense_scan_i8", "route": "cuda",
-            "source": "gulon_tpu_torch/csrc/dense_scan.cu",
-            "replaces": "gulon_tpu/ops/pallas/dense.py:419",
-            "launches": exact["launches_k3"],
-            "max_abs_err": k3["max_abs_err"],
-            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        },
+        _kernel_entry(
+            "adc_scan", "gulon_tpu_torch/csrc/adc_scan.cu",
+            "gulon_tpu/ops/pallas/adc.py:276",
+            main_path["launches"] + ivf["launches"],
+            max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"]), k1,
+            launches_by_path={"flat": main_path["launches"], "ivf": ivf["launches"]},
+            ivf_w4={k: ivf["kernel"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
+                "launches_per_batch")},
+        ),
+        _kernel_entry(
+            "dense_scan_bf16", "gulon_tpu_torch/csrc/dense_scan.cu",
+            "gulon_tpu/ops/pallas/dense.py:89",
+            exact["launches_k2"] + cached["launches"], dense_k["k2_max_abs_err"], k2,
+            launches_by_path={"exact": exact["launches_k2"], "cached": cached["launches"]},
+            cache_400k={k: dense_k["k2_cache"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
+                "launches_per_batch")},
+        ),
+        _kernel_entry(
+            "dense_scan_i8", "gulon_tpu_torch/csrc/dense_scan.cu",
+            "gulon_tpu/ops/pallas/dense.py:419",
+            exact["launches_k3"], k3["max_abs_err"], k3,
+        ),
     ]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {

@@ -3,12 +3,13 @@
 The same product-quantization ANN engine, written for an NVIDIA Hopper
 GPU: plain tensor code in PyTorch, and the scan kernels written by hand
 in CUDA C++ (``csrc/adc_scan.cu``, ``csrc/dense_scan.cu``, built with
-``nvcc`` at first use). The JAX package beside it is the reference the port is tested
-against; this package imports ``torch`` and never ``jax``. Its modules
-mirror ``gulon_tpu``'s layout (``ops/``, ``ops/cuda/`` for
-``ops/pallas/``, ``models/``, ``utils/``), and it reuses ``gulon_tpu``'s
-numpy-only host modules (``Index``/``Result``, key indices, ``Metric``,
-``SummaryStats``).
+``nvcc`` at first use). The JAX package beside it is the reference the
+port is tested against; this package imports ``torch`` and never
+``jax``. Its modules mirror ``gulon_tpu``'s layout (``ops/``, ``ops/cuda/`` for
+``ops/pallas/``, ``models/``, ``utils/``). It imports nothing of
+``gulon_tpu``: the host-side numpy modules it needs (``Index``/``Result``,
+key indices, ``Metric``, the update helpers, ``SummaryStats``,
+``WordVectors``) are its own copies.
 
 Ported so far: the flat main path (build a flat PQ index, answer batched
 top-k queries through the fused scan, measure recall), the flat
@@ -20,15 +21,15 @@ tuning).
 __version__ = "0.1.0"
 
 _EXPORTS = {
-    "SummaryStats": "gulon_tpu.ops.stats",
+    "SummaryStats": "gulon_tpu_torch.ops.stats",
     "KMeansConfig": "gulon_tpu_torch.ops.kmeans",
     "fit_kmeans": "gulon_tpu_torch.ops.kmeans",
     "PQConfig": "gulon_tpu_torch.ops.pq",
     "ProductQuantizer": "gulon_tpu_torch.ops.pq",
     "train_product_quantizer": "gulon_tpu_torch.ops.pq",
-    "Metric": "gulon_tpu.models.metric",
-    "Index": "gulon_tpu.models.index",
-    "Result": "gulon_tpu.models.index",
+    "Metric": "gulon_tpu_torch.models.metric",
+    "Index": "gulon_tpu_torch.models.index",
+    "Result": "gulon_tpu_torch.models.index",
     "FlatIndex": "gulon_tpu_torch.models.flat",
     "build_flat_index": "gulon_tpu_torch.models.build",
     "ExactIndex": "gulon_tpu_torch.models.exact",

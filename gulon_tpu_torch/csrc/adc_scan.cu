@@ -5,7 +5,7 @@
 // (helpers _decode_columns and _block_select). The contract is the TPU
 // kernel's, the layout is not: the TPU decodes with a transposed one-hot
 // matmul because it has no fast vector gather; here each thread block
-// gathers its codewords straight from the (L1-resident) bf16 codebooks.
+// gathers its codewords from codebooks held in shared memory.
 //
 // Contract, per corpus row n and query q:
 //   score[n, q] = sum_d f32(dec_bf16[n, d]) * f32(q_bf16[q, d])   (f32 sum)
@@ -25,24 +25,46 @@
 //
 // What bounds it on an H100: each (row, query) pair costs depth
 // multiply-adds against m code bytes per row shared by the whole batch.
-// At the glove100 shape (m*dsub = 104, batch 1024) that is ~2*108*1024
-// flop per 8 code bytes, far above the ~295 flop/byte ridge: the scan is
-// compute-bound, so the contraction runs on the bf16 tensor cores
-// (mma.sync m16n8k16, f32 accumulation). Every operand is exactly bf16
-// (codewords are bf16-snapped, norms are hi/lo bf16 pairs, queries are
-// the bf16 operand), so the tensor cores compute the contract's sum. What
-// is left is the decode gather and the selection; a first version ran
-// the same contraction as f32 FMAs on the CUDA cores at 4.4 ms a batch.
+// At the glove100 shape (depth 108, batch 1024) that is ~2*108*1024 flop
+// per 8 code bytes, far above the ~295 flop/byte ridge, so the tensor
+// cores set the floor (0.09 ms a batch at 400,000 rows). Two things sit
+// above it: decoding the codes into bf16 rows, and the selection, which
+// runs on the CUDA cores (per query and row: a lane pack and a min, and
+// per extra winner a compare, a select and another min). At 4 winners on
+// the ivf1m layout (1.06M rows, depth 100) that is 11 operations a pair,
+// 0.18 ms at the 67 TFLOP/s f32 rate against 0.22 ms for the contraction
+// on the tensor cores: nearly a second floor, and it cannot overlap the
+// contraction of the same accumulators.
 //
-// Block: 256 threads (8 warps) own 128 rows x 128 queries; warp w holds
-// rows 32*(w%4) .. +31 and queries 64*(w/4) .. +63 as 2 x 8 mma tiles of
-// f32 accumulators in registers. The contraction walks depth in chunks
-// of 32: each chunk's codewords are gathered into shared memory as bf16
-// [row][depth] and the queries' chunk as bf16 [query][depth] (rows padded
-// to 40 elements, so fragment loads hit 32 distinct banks). Selection:
-// a register min over each thread's 4 rows of a query, 3 xor-shuffles
-// across the warp's 32 rows, and a 4-way shared-memory step across the
-// warps that share the query.
+// Design. The mma.sync version decoded every 128-row block once per
+// 128-query tile (8 times at Q = 1024), element by element from L1. Here
+// a persistent grid (one block per SM) walks contiguous ranges of row
+// blocks and decodes each block exactly once:
+// - the codebooks are staged in shared memory once per block of threads
+//   (K <= 256: 49-53 KB at the glove100 and ivf1m shapes; K = 512 at
+//   dsub 13: 106 KB); codebooks that do not fit beside the tiles are
+//   gathered from global memory (L1) instead, still once per row block;
+// - a row block's codes are read once (coalesced) and decoded 8 lanes at
+//   a time into a bf16 [128][depth padded to 64] tile, stored 16 bytes at
+//   a time in the 128-byte-swizzled layout that wgmma reads (zero lanes
+//   pad depth to a multiple of 16 inside the kernel);
+// - one producer warp streams the queries past the decoded block by TMA
+//   ([128][64] bf16 chunks, 128-byte swizzle, an mbarrier ring); the
+//   query operand (~230 KB at Q = 1024) stays in L2;
+// - two consumer warpgroups run wgmma m64n128k16 (64 queries each on M,
+//   the block's 128 rows on N, f32 accumulators in registers) and select
+//   straight off the accumulators (see hopper.cuh).
+// A row block too deep to sit decoded in shared memory beside two ring
+// stages (depth above ~700, or many code rows) takes the streamed
+// instantiation of the same kernel: the consumers decode one [128][64]
+// chunk at a time, straight from the codes in global memory, into a ring
+// of three decoded chunks and contract it at once, re-decoding the block
+// for every query tile (8 times at Q = 1024) as the mma.sync version did.
+// One barrier a chunk: the slot a chunk is decoded into was last read by
+// the chunk three before, which every warpgroup waited for before the
+// previous chunk's barrier; the decode of one chunk overlaps the wgmma of
+// the one before. The codebook gathers bound this mode (each warp load
+// touches up to 32 lines), so it gathers up to 8 lanes a load.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see gulon_tpu_torch/ops/cuda/_build.py).
@@ -50,243 +72,416 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kRows = 128;     // one selection block
-constexpr int kQueries = 128;  // query tile of one thread block
-constexpr int kThreads = 256;
-constexpr int kDepth = 32;     // contraction chunk staged in shared memory
-constexpr int kStride = kDepth + 8;  // bf16 elements per shared-memory row
-constexpr float kBig = 3.0e38f;
+constexpr int kConsumers = 256;              // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;    // + one producer warp
+constexpr int kMaxStages = 6;
+constexpr int kDecSlots = 3;  // decoded chunks of the streamed mode
 constexpr uint16_t kOneBf16 = 0x3F80;
+// decode-table kinds of the columns past the codewords
+constexpr int kNormHi = -1, kNormLo = -2, kOne = -3, kZero = -4;
 
-template <typename CodeT>
-__device__ __forceinline__ int load_code(const CodeT* p) {
-  return static_cast<int>(__ldg(p));
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+
+// Shared-memory offsets from the 1024-byte-aligned base: the decoded row
+// block (nch [128][64] chunks; kDecSlots when streamed), the query ring,
+// the ring's barriers, the codebooks (when held there), and, when the
+// block is held decoded, its codes and norms and the column table.
+struct Layout {
+  int ring, bars, cb, codes, norms, tab, total;
+};
+
+__host__ __device__ inline Layout layout(int nch, int nst, int m, int cb_bytes,
+                                         int streamed) {
+  Layout L;
+  L.ring = (streamed ? kDecSlots : nch) * hopper::kChunkBytes;
+  L.bars = L.ring + nst * hopper::kChunkBytes;
+  L.cb = round16(L.bars + 2 * nst * 8);
+  L.codes = L.cb + round16(cb_bytes);
+  L.norms = L.codes + (streamed ? 0 : round16(m * hopper::kRows * 2));
+  L.tab = L.norms + (streamed ? 0 : 2 * hopper::kRows * 2);
+  L.total = L.tab + (streamed ? 0 : nch * hopper::kChunk * 8);
+  return L;
 }
 
-// K <= 256 codes are stored offset-encoded as int8 (code - 128)
-template <>
-__device__ __forceinline__ int load_code<int8_t>(const int8_t* p) {
-  return static_cast<int>(__ldg(p)) + 128;
+// code of element idx of the [m, n_cols] code operand, -1 outside [0, K)
+__device__ __forceinline__ int load_code(const void* codes, int code_bytes, int64_t idx,
+                                         int k_codes) {
+  int code;
+  if (code_bytes == 1)  // K <= 256: offset-encoded int8 (code - 128)
+    code = static_cast<int>(__ldg(static_cast<const int8_t*>(codes) + idx)) + 128;
+  else if (code_bytes == 2)
+    code = __ldg(static_cast<const int16_t*>(codes) + idx);
+  else
+    code = __ldg(static_cast<const int32_t*>(codes) + idx);
+  return (code >= 0 && code < k_codes) ? code : -1;
 }
 
-// jnp.min semantics: a NaN operand wins
-__device__ __forceinline__ float min_keep_nan(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
+// Streamed mode: chunk c (columns 64c .. 64c + 63) of the row block at
+// row0, decoded from the codes and norms in global memory into the
+// swizzled [128][64] tile dst. Thread t decodes four 16-byte groups of
+// row t % 128. Codewords are gathered VW lanes a load (VW = 8, 4, 2 or
+// 1, the largest dividing dsub): the gathers' L1 wavefronts, not their
+// bytes, set the decode's cost. All code loads are issued before the
+// codebook loads that depend on them, so a chunk costs two memory round
+// trips. Code is the code operand's element type.
+template <int VW> struct LanesOf;
+template <> struct LanesOf<8> { using T = uint4; };
+template <> struct LanesOf<4> { using T = uint2; };
+template <> struct LanesOf<2> { using T = uint32_t; };
+template <> struct LanesOf<1> { using T = uint16_t; };
 
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D += A(16x16 bf16, row-major) * B(16x8 bf16, col-major), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename CodeT, int W>
-__global__ void __launch_bounds__(kThreads, 2) adc_scan_kernel(
-    const CodeT* __restrict__ codes,     // [m, n_cols]
-    const uint16_t* __restrict__ norms,  // [2, n_cols] bf16 hi/lo
-    const uint16_t* __restrict__ q,      // [num_q, q_stride] bf16
-    const uint16_t* __restrict__ cb,     // [m, k_codes, dsub] bf16
-    float* __restrict__ out,             // [num_q, n_win]
-    int n_cols, int num_q, int q_stride, int depth, int m, int k_codes,
-    int dsub, int nblk, int n_win) {
-  __shared__ __align__(16) uint16_t dec_s[kRows][kStride];
-  __shared__ __align__(16) uint16_t q_s[kQueries][kStride];
-  __shared__ int seg_s[kDepth];  // subspace, or -1/-2 norm hi/lo, -3/-4 ones, -5 past the end
-  __shared__ int off_s[kDepth];  // codebook offset of (subspace, dim)
-  __shared__ float red_s[4][kQueries];
-  __shared__ float fin_s[kQueries];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wr = warp & 3;   // 32-row slice of the block
-  const int wc = warp >> 2;  // 64-query half of the tile
-  const int g = lane >> 2;   // mma fragment group
-  const int tig = lane & 3;  // thread in group
-  const int blk = blockIdx.x;
-  const int64_t row0 = static_cast<int64_t>(blk) * kRows;
-  const int q0 = blockIdx.y * kQueries;
+template <typename Code, int VW>
+__device__ __forceinline__ void decode_chunk(
+    uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
+    const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
+  using namespace hopper;
+  using Lanes = typename LanesOf<VW>::T;
+  constexpr int kGroups = 8 * kRows / kConsumers;  // 16-byte groups a thread
+  constexpr int kPer = 8 / VW;                     // gathers a group
+  constexpr int kOffset = sizeof(Code) == 1 ? 128 : 0;  // int8 holds code - 128
   const int md = m * dsub;
-
-  float acc[2][8][4];
+  const int r = tid & 127;
+  const int64_t row = row0 + r;
+  const int g0 = tid >> 7;  // group i of this thread is 2 i + g0
+  int code[kGroups * kPer];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < kGroups; ++i) {
+    const int col = min(c * kChunk + 8 * (2 * i + g0), md - 1);
+    int sub = col / dsub, off = col - sub * dsub;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-
-  for (int c0 = 0; c0 < depth; c0 += kDepth) {
-    if (tid < kDepth) {
-      const int d = c0 + tid;
-      int seg = -5, off = 0;
-      if (d < md) {
-        seg = d / dsub;
-        off = seg * k_codes * dsub + (d - seg * dsub);
-      } else if (d < depth) {
-        seg = -1 - (d - md);
-      }
-      seg_s[tid] = seg;
-      off_s[tid] = off;
-    }
-    __syncthreads();
-    // gather the chunk: dec_s[r][dl] = bf16 value of depth row c0+dl, row r
-    for (int e = tid; e < kDepth * kRows; e += kThreads) {
-      const int dl = e / kRows;
-      const int r = e % kRows;
-      const int seg = seg_s[dl];
-      uint16_t v = 0;
-      if (seg >= 0) {
-        const int code = load_code(codes + static_cast<int64_t>(seg) * n_cols + row0 + r);
-        if (static_cast<unsigned>(code) < static_cast<unsigned>(k_codes))
-          v = __ldg(cb + off_s[dl] + code * dsub);
-      } else if (seg >= -2) {
-        v = __ldg(norms + static_cast<int64_t>(-1 - seg) * n_cols + row0 + r);
-      } else if (seg >= -4) {
-        v = kOneBf16;
-      }
-      dec_s[r][dl] = v;
-    }
-    for (int e = tid; e < kDepth * kQueries; e += kThreads) {
-      const int qq = e / kDepth;
-      const int dl = e % kDepth;
-      const int d = c0 + dl;
-      const int qi = q0 + qq;
-      q_s[qq][dl] = (d < depth && qi < num_q)
-                        ? __ldg(q + static_cast<int64_t>(qi) * q_stride + d)
-                        : static_cast<uint16_t>(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kDepth; ks += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wr * 32 + mt * 16 + g;
-        a[mt][0] = ld_pair(&dec_s[r][ks + tig * 2]);
-        a[mt][1] = ld_pair(&dec_s[r + 8][ks + tig * 2]);
-        a[mt][2] = ld_pair(&dec_s[r][ks + 8 + tig * 2]);
-        a[mt][3] = ld_pair(&dec_s[r + 8][ks + 8 + tig * 2]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = wc * 64 + nt * 8 + g;
-        const uint32_t b0 = ld_pair(&q_s[n][ks + tig * 2]);
-        const uint32_t b1 = ld_pair(&q_s[n][ks + 8 + tig * 2]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+    for (int t = 0; t < kPer; ++t) {
+      code[kPer * i + t] = __ldg(codes + static_cast<int64_t>(min(sub, m - 1)) * n_cols + row);
+      if ((off += VW) >= dsub) {
+        off -= dsub;
+        ++sub;
       }
     }
-    __syncthreads();
   }
-
-  // lane-pack the row-in-block into the 7 low mantissa bits; accumulator
-  // c of tile (mt, nt) is row 32*wr + 16*mt + g + 8*(c/2), query
-  // 64*wc + 8*nt + 2*tig + c%2
+  union {
+    Lanes v;
+    uint16_t h[VW];
+  } x[kGroups * kPer];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < kGroups; ++i) {
+    const int col = c * kChunk + 8 * (2 * i + g0);
+    const int start = min(col, md - 1);
+    int sub = start / dsub, off = start - sub * dsub;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = wr * 32 + mt * 16 + g + ((c & 2) ? 8 : 0);
-        acc[mt][nt][c] = __int_as_float((__float_as_int(acc[mt][nt][c]) & ~127) | row);
+    for (int t = 0; t < kPer; ++t) {
+      const int k = code[kPer * i + t] + kOffset;
+      const bool ok = col + VW * t < md && k >= 0 && k < k_codes;
+      const Lanes v = *reinterpret_cast<const Lanes*>(cb + (ok ? (sub * k_codes + k) * dsub + off : 0));
+      x[kPer * i + t].v = ok ? v : Lanes{};
+      if ((off += VW) >= dsub) {
+        off -= dsub;
+        ++sub;
       }
-
-  const int col0 = (blk / nblk) * W * nblk + (blk % nblk);
+    }
+  }
+  const bool has_norms = (md >> 6) == c || ((md + 1) >> 6) == c;
+  const uint32_t n_hi = has_norms ? __ldg(norms + row) : 0u;
+  const uint32_t n_lo = has_norms ? __ldg(norms + n_cols + row) : 0u;
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
+  for (int i = 0; i < kGroups; ++i) {
+    const int g = 2 * i + g0;
+    uint32_t w[4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int p = 0; p < 4; ++p) {
+      uint32_t v[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v = min_keep_nan(min_keep_nan(acc[0][nt][h], acc[0][nt][h + 2]),
-                               min_keep_nan(acc[1][nt][h], acc[1][nt][h + 2]));
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1)
-          v = min_keep_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
-        if (g == 0) red_s[wr][wc * 64 + nt * 8 + tig * 2 + h] = v;
+        const int lane = 2 * p + h;
+        const int col = c * kChunk + 8 * g + lane;
+        v[h] = col < md       ? x[kPer * i + lane / VW].h[lane % VW]
+               : col == md     ? n_hi
+               : col == md + 1 ? n_lo
+               : col < md + 4  ? kOneBf16
+                               : 0u;
       }
-    __syncthreads();
-    if (tid < kQueries) {
-      const float v = min_keep_nan(min_keep_nan(red_s[0][tid], red_s[1][tid]),
-                                   min_keep_nan(red_s[2][tid], red_s[3][tid]));
-      fin_s[tid] = v;
-      const int qi = q0 + tid;
-      if (qi < num_q) out[static_cast<int64_t>(qi) * n_win + col0 + w * nblk] = v;
+      w[p] = v[0] | (v[1] << 16);
     }
-    __syncthreads();
-    if (w + 1 < W) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float v = fin_s[wc * 64 + nt * 8 + tig * 2 + (c & 1)];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            if (acc[mt][nt][c] == v) acc[mt][nt][c] = kBig;
-        }
-    }
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((g ^ (r & 7)) << 4)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-template <typename CodeT>
-cudaError_t launch(const void* codes, const void* norms, const void* q,
-                   const void* cb, void* out, int n_cols, int num_q,
-                   int q_stride, int depth, int m, int k_codes, int dsub,
-                   int winners, int nblk, cudaStream_t stream) {
-  const dim3 grid(n_cols / kRows, (num_q + kQueries - 1) / kQueries);
-  const int n_win = (n_cols / kRows) * winners;
-  const CodeT* c = static_cast<const CodeT*>(codes);
-  const uint16_t* nr = static_cast<const uint16_t*>(norms);
-  const uint16_t* qq = static_cast<const uint16_t*>(q);
-  const uint16_t* b = static_cast<const uint16_t*>(cb);
-  float* o = static_cast<float*>(out);
-#define GULON_ADC_LAUNCH(WW)                                                 \
-  adc_scan_kernel<CodeT, WW><<<grid, kThreads, 0, stream>>>(               \
-      c, nr, qq, b, o, n_cols, num_q, q_stride, depth, m, k_codes, dsub,   \
-      nblk, n_win)
-  switch (winners) {
-    case 1: GULON_ADC_LAUNCH(1); break;
-    case 2: GULON_ADC_LAUNCH(2); break;
-    case 3: GULON_ADC_LAUNCH(3); break;
-    case 4: GULON_ADC_LAUNCH(4); break;
-    default: return cudaErrorInvalidValue;
+template <typename Code>
+__device__ __forceinline__ void decode_chunk(
+    uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
+    const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
+  if (dsub % 8 == 0)
+    decode_chunk<Code, 8>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+  else if (dsub % 4 == 0)
+    decode_chunk<Code, 4>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+  else if (dsub % 2 == 0)
+    decode_chunk<Code, 2>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+  else
+    decode_chunk<Code, 1>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+}
+
+// Block held decoded: all nch chunks of the row block from its codes and
+// norms in shared memory, one 16-byte group (8 lanes) of one row a step,
+// lanes on consecutive rows; swizzled stores are bank-conflict free.
+__device__ __forceinline__ void decode_block(
+    uint8_t* dec, int nch, const int2* tab, const int16_t* codes_s, const uint16_t* norms_s,
+    const uint16_t* cb, const uint16_t* cb_s, int cb_smem, int dsub, int tid) {
+  using namespace hopper;
+  for (int task = tid; task < nch * 8 * kRows; task += kConsumers) {
+    const int g = task >> 7;
+    const int r = task & 127;
+    uint32_t w[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int2 t = tab[8 * g + 2 * p + h];
+        uint32_t x = 0;
+        if (t.x >= 0) {
+          const int code = codes_s[t.y + r];
+          if (code >= 0) {
+            const int i = t.x + code * dsub;
+            x = cb_smem ? cb_s[i] : __ldg(cb + i);
+          }
+        } else if (t.x == kNormHi) {
+          x = norms_s[r];
+        } else if (t.x == kNormLo) {
+          x = norms_s[kRows + r];
+        } else if (t.x == kOne) {
+          x = kOneBf16;
+        }
+        v[h] = x;
+      }
+      w[p] = v[0] | (v[1] << 16);
+    }
+    *reinterpret_cast<uint4*>(dec + (g >> 3) * kChunkBytes + r * 128 +
+                              (((g & 7) ^ (r & 7)) << 4)) = make_uint4(w[0], w[1], w[2], w[3]);
   }
-#undef GULON_ADC_LAUNCH
-  return cudaGetLastError();
+}
+
+template <bool kStreamed>
+__global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // queries [num_q][depth] bf16
+    const void* __restrict__ codes,            // [m, n_cols] of code_bytes each
+    int code_bytes,
+    const uint16_t* __restrict__ norms,        // [2, n_cols] bf16 hi/lo
+    const uint16_t* __restrict__ cb,           // [m, k_codes, dsub] bf16
+    float* __restrict__ out,                   // [num_q, n_blocks * winners]
+    int n_cols, int num_q, int depth, int m, int k_codes, int dsub,
+    int winners, int nblk, int nch, int nst, int cb_smem) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int cb_len = m * k_codes * dsub;
+  const Layout L = layout(nch, nst, m, cb_smem ? cb_len * 2 : 0, kStreamed);
+  uint8_t* dec = smem;
+  uint8_t* ring = smem + L.ring;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + nst;
+  uint16_t* cb_s = reinterpret_cast<uint16_t*>(smem + L.cb);
+  int16_t* codes_s = reinterpret_cast<int16_t*>(smem + L.codes);
+  uint16_t* norms_s = reinterpret_cast<uint16_t*>(smem + L.norms);
+  int2* tab = reinterpret_cast<int2*>(smem + L.tab);
+
+  const int n_blocks = n_cols / kRows;
+  const int b0 = static_cast<int>(static_cast<int64_t>(n_blocks) * blockIdx.x / gridDim.x);
+  const int b1 = static_cast<int>(static_cast<int64_t>(n_blocks) * (blockIdx.x + 1) / gridDim.x);
+  if (b0 >= b1) return;
+  const int n_qt = (num_q + kRows - 1) / kRows;
+  const int md = m * dsub;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == kConsumers / 128) {  // producer warp: the query chunks, block after block
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int blk = b0; blk < b1; ++blk)
+        for (int qt = 0; qt < n_qt; ++qt)
+          for (int c = 0; c < nch; ++c, ++it) {
+            const int st = it % nst;
+            mbar_wait(&empty[st], ((it / nst) & 1) ^ 1);
+            mbar_expect_tx(&full[st], kChunkBytes);
+            tma_load_2d(ring + st * kChunkBytes, &qmap, &full[st], c * kChunk, qt * kRows);
+          }
+    }
+    return;
+  }
+
+  // consumers, once per thread block: the codebooks and, for blocks held
+  // decoded, the column table (column -> codebook offset and code row, or
+  // the kind of extra lane)
+  if (cb_smem) {
+    const int n16 = cb_len / 8;
+    for (int i = tid; i < n16; i += kConsumers)
+      reinterpret_cast<uint4*>(cb_s)[i] = __ldg(reinterpret_cast<const uint4*>(cb) + i);
+    for (int i = n16 * 8 + tid; i < cb_len; i += kConsumers) cb_s[i] = __ldg(cb + i);
+  }
+  for (int col = tid; !kStreamed && col < nch * kChunk; col += kConsumers) {
+    int2 e = make_int2(kZero, 0);
+    if (col < md) {
+      const int s = col / dsub;
+      e = make_int2(s * k_codes * dsub + (col - s * dsub), s * kRows);
+    } else if (col == md) {
+      e.x = kNormHi;
+    } else if (col == md + 1) {
+      e.x = kNormLo;
+    } else if (col < md + 4) {
+      e.x = kOne;
+    }
+    tab[col] = e;
+  }
+
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int n_win = n_blocks * winners;
+  float acc[64];
+  int it = 0;
+  int dk = 0;  // chunks decoded in the streamed mode
+  for (int blk = b0; blk < b1; ++blk) {
+    const int64_t row0 = static_cast<int64_t>(blk) * kRows;
+    if (!kStreamed) {
+      bar_sync(1, kConsumers);  // every wgmma read of the last block is done
+      for (int e = tid; e < m * kRows; e += kConsumers) {
+        const int64_t idx = static_cast<int64_t>(e >> 7) * n_cols + row0 + (e & 127);
+        codes_s[e] = static_cast<int16_t>(load_code(codes, code_bytes, idx, k_codes));
+      }
+      norms_s[tid] = __ldg(norms + static_cast<int64_t>(tid >> 7) * n_cols + row0 + (tid & 127));
+      bar_sync(1, kConsumers);
+      decode_block(dec, nch, tab, codes_s, norms_s, cb, cb_s, cb_smem, dsub, tid);
+      fence_proxy_async();
+      bar_sync(1, kConsumers);
+    }
+
+    const int col0 = (blk / nblk) * winners * nblk + (blk % nblk);
+    for (int qt = 0; qt < n_qt; ++qt) {
+      // chunk c's wgmma group is issued before chunk c-1's stage is freed;
+      // chunk 0 overwrites the accumulators. Streamed, chunk c is first
+      // decoded into the slot that chunk c-3 read.
+      auto mma_chunk = [&](int c) {
+        uint8_t* b = dec + c * kChunkBytes;
+        if (kStreamed) {
+          b = dec + (dk++ % kDecSlots) * kChunkBytes;
+          const uint16_t* src = cb_smem ? cb_s : cb;
+          if (code_bytes == 1)
+            decode_chunk(b, c, row0, static_cast<const int8_t*>(codes), norms, src, n_cols, m,
+                         k_codes, dsub, tid);
+          else if (code_bytes == 2)
+            decode_chunk(b, c, row0, static_cast<const int16_t*>(codes), norms, src, n_cols, m,
+                         k_codes, dsub, tid);
+          else
+            decode_chunk(b, c, row0, static_cast<const int32_t*>(codes), norms, src, n_cols, m,
+                         k_codes, dsub, tid);
+          fence_proxy_async();
+          bar_sync(1, kConsumers);
+        }
+        const int st = it % nst;
+        mbar_wait(&full[st], (it / nst) & 1);
+        const uint64_t desc_a = sw128_desc(ring + st * kChunkBytes + wg * 64 * 128);
+        const uint64_t desc_b = sw128_desc(b);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // lanes past depth are zero in both operands
+          wgmma_m64n128k16(acc, desc_a + 2 * kk, desc_b + 2 * kk, (c | kk) != 0);
+        wgmma_commit();
+        ++it;
+        return st;
+      };
+      int prev = mma_chunk(0);
+      for (int c = 1; c < nch; ++c) {
+        const int st = mma_chunk(c);
+        wgmma_wait<1>();
+        release(&empty[prev], lane);
+        prev = st;
+      }
+      wgmma_wait<0>();
+      release(&empty[prev], lane);
+      fence_regs(acc);
+
+      pack_rows(acc, lane);
+      const int q = qt * kRows + wg * 64 + warp * 16 + (lane >> 2);
+      for (int w = 0; w < winners; ++w) {
+        const float v0 = block_min<0>(acc, lane);
+        const float v1 = block_min<1>(acc, lane);
+        const int64_t col = col0 + w * nblk;
+        if ((lane & 3) == 0 && q < num_q) out[static_cast<int64_t>(q) * n_win + col] = v0;
+        if ((lane & 3) == 1 && q + 8 < num_q)
+          out[static_cast<int64_t>(q + 8) * n_win + col] = v1;
+        if (w + 1 < winners) mask_winner(acc, v0, v1);
+      }
+    }
+  }
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. Returns a cudaError_t (0 = launched).
-// Shapes are checked by the Python wrapper; this re-checks what would
-// make the launch read or write out of bounds.
+// Shapes and alignment are checked by the Python wrapper; this re-checks
+// what would make the launch read or write out of bounds. Any depth runs:
+// the row block is held decoded when it fits beside two ring stages, and
+// streamed otherwise.
 extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
                               const void* norms, const void* q,
                               const void* cb, void* out, int n_cols,
                               int num_q, int q_stride, int depth, int m,
                               int k_codes, int dsub, int winners, int nblk,
                               void* stream) {
+  using namespace hopper;
+  const int64_t cb_len64 = static_cast<int64_t>(m) * k_codes * dsub;
   if (n_cols <= 0 || n_cols % kRows != 0 || num_q <= 0 || nblk <= 0 ||
-      (n_cols / kRows) % nblk != 0 || depth != m * dsub + 4 ||
-      q_stride < depth)
+      (n_cols / kRows) % nblk != 0 || m <= 0 || dsub <= 0 || depth != m * dsub + 4 ||
+      q_stride < depth || q_stride % 8 != 0 || winners < 1 || winners > 4 ||
+      k_codes < 1 || k_codes > 32767 || cb_len64 > 0x7FFFFFFF ||
+      (code_bytes != 1 && code_bytes != 2 && code_bytes != 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (code_bytes) {
-    case 1: return static_cast<int>(launch<int8_t>(codes, norms, q, cb, out, n_cols, num_q, q_stride, depth, m, k_codes, dsub, winners, nblk, s));
-    case 2: return static_cast<int>(launch<int16_t>(codes, norms, q, cb, out, n_cols, num_q, q_stride, depth, m, k_codes, dsub, winners, nblk, s));
-    case 4: return static_cast<int>(launch<int32_t>(codes, norms, q, cb, out, n_cols, num_q, q_stride, depth, m, k_codes, dsub, winners, nblk, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int nch = (depth + kChunk - 1) / kChunk;
+  // the first plan that fits: held decoded before streamed, codebooks in
+  // shared memory before global, then the most ring stages
+  int nst = 0, cb_smem = 0, streamed = 0, smem = 0;
+  for (int plan = 0; plan < 4 && nst == 0; ++plan) {
+    const int held = !(plan & 1);
+    if (held && cb_len64 * 2 > kSmemLimit) continue;
+    const int cb_bytes = held ? static_cast<int>(cb_len64 * 2) : 0;
+    for (int s = kMaxStages; s >= 2; --s) {
+      const int total = 1024 + layout(nch, s, m, cb_bytes, plan >> 1).total;
+      if (total <= kSmemLimit) {
+        nst = s;
+        cb_smem = held;
+        streamed = plan >> 1;
+        smem = total;
+        break;
+      }
+    }
   }
+  if (nst == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = num_sms();
+  if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
+  const int grid = std::min(n_cols / kRows, sms);
+  CUtensorMap qmap;
+  if (!bf16_map(&qmap, q, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = streamed ? adc_scan_kernel<true> : adc_scan_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, codes, code_bytes, static_cast<const uint16_t*>(norms),
+      static_cast<const uint16_t*>(cb), static_cast<float*>(out), n_cols, num_q,
+      depth, m, k_codes, dsub, winners, nblk, nch, nst, cb_smem);
+  return static_cast<int>(cudaGetLastError());
 }

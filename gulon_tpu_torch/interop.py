@@ -10,8 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gulon_tpu.models.keyindex import GroupedKeyIndex, SortedKeyIndex
-from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.models.keyindex import GroupedKeyIndex, SortedKeyIndex
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.models.exact import ExactIndex
 from gulon_tpu_torch.models.flat import FlatIndex
 from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, LimitVectors

@@ -19,12 +19,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from gulon_tpu.models.keyindex import GroupedKeyIndex, SortedKeyIndex
-from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.models.keyindex import GroupedKeyIndex, SortedKeyIndex
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.models.flat import FlatIndex
 from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, Strategy
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, fit_kmeans
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
+from gulon_tpu_torch.utils.word2vec import WordVectors
 
 _DEFAULT_ENCODE_CHUNK = 1 << 20
 
@@ -206,13 +207,12 @@ def build_ivf_index(
     """Sublinear build (``BuildIndex.scala:70-82``).
 
     Coarse k-means, PQ training, encoding and the row constants run on
-    ``device``; the grouping is ``gulon_tpu.utils.word2vec``'s numpy
-    ``WordVectors.grouped``. ``max_partition_size`` splits oversized
-    partitions into capacity-bounded children. The coarse init draws from
+    ``device``; the grouping is the host-side numpy
+    ``WordVectors.grouped`` (``utils/word2vec.py``).
+    ``max_partition_size`` splits oversized partitions into
+    capacity-bounded children. The coarse init draws from
     ``torch.Generator``, not ``jax.random``, so a build matches the JAX
     package's by recall, not id for id."""
-    from gulon_tpu.utils.word2vec import WordVectors
-
     if opq_iters > 0:
         raise NotImplementedError(
             "OPQ rotations (opq_iters > 0) come with slice 4 of the PyTorch port"

@@ -30,9 +30,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from gulon_tpu.models.index import Index, Result
-from gulon_tpu.models.keyindex import SortedKeyIndex
-from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.models.index import Index, Result
+from gulon_tpu_torch.models.keyindex import SortedKeyIndex
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
 from gulon_tpu_torch.ops.cuda.dense import dense_scan_fused, prepare_data
 from gulon_tpu_torch.ops.distance import normalize_rows

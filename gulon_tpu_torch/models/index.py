@@ -1,0 +1,114 @@
+"""Public index API: ``Index`` base + ``Result``.
+
+Counterpart of the reference's sealed ``Index`` trait (``Index.scala:11-46``)
+and ``Index.Result`` (``Index.scala:56-94``): results are parallel arrays of
+(key, squared distance) sorted ascending; ``query_by_word`` queries with the
+*approximate reconstruction* of the word's vector, exactly like
+``Index.scala:44-46``.
+
+The batch-first API is the primary surface — ``query`` is a batch of one.
+A copy of ``gulon_tpu/models/index.py`` (host-side numpy), so the port
+stands alone.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Result:
+    """Nearest neighbours of one query, closest first."""
+
+    keys: np.ndarray  # [k] object (str)
+    distances: np.ndarray  # [k] f32, squared L2
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def __iter__(self):
+        return zip(self.keys, self.distances)
+
+    def __getitem__(self, i):
+        return self.keys[i], float(self.distances[i])
+
+
+class Index(abc.ABC):
+    """An approximate nearest-neighbour index over keyed vectors."""
+
+    @property
+    @abc.abstractmethod
+    def dimension(self) -> int:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def size(self) -> int:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def key_index(self):
+        ...
+
+    @abc.abstractmethod
+    def batch_query(self, k: int, vectors) -> List[Result]:
+        """Approximate k nearest neighbours for each row of ``vectors``."""
+
+    def query_arrays(self, k: int, vectors):
+        """Serving fast path: ([Q, k] squared distances, [Q, k] row ids)
+        as device arrays — no per-query Result assembly on the host.
+        Resolve ids to keys with ``index.key_index.keys[ids]``.
+        """
+        raise NotImplementedError
+
+    def query(self, k: int, vector) -> Result:
+        vec = np.asarray(vector, np.float32).reshape(1, -1)
+        return self.batch_query(k, vec)[0]
+
+    @abc.abstractmethod
+    def lookup(self, word: str) -> Optional[np.ndarray]:
+        """Approximate (reconstructed) vector of ``word``."""
+
+    def query_by_word(self, k: int, word: str) -> Optional[Result]:
+        vec = self.lookup(word)
+        if vec is None:
+            return None
+        return self.query(k, vec)
+
+    def warmup(self, k: int = 10, batch_sizes: Sequence[int] = (1, 1024)):
+        """Run the query path once for the given (batch, k) shapes, so
+        first-call costs (kernel builds, lazily built operands) land at
+        startup rather than on the first request.
+        """
+        for b in batch_sizes:
+            q = np.zeros((b, self.dimension), np.float32)
+            self.batch_query(k, q)
+
+    def _make_results(
+        self, dists: np.ndarray, ids: np.ndarray
+    ) -> List[Result]:
+        """Build host Results from device (distance, row-id) arrays."""
+        dists = np.asarray(dists)
+        ids = np.asarray(ids)
+        keys = np.asarray(self.key_index.keys, dtype=object)
+        # One vectorized gather for the whole batch (per-query fancy
+        # indexing costs ~0.3 ms/query on a 1-core host at batch 1024)
+        valid = (ids >= 0) & np.isfinite(dists)  # [Q, k]
+        keys_all = keys[np.where(valid, ids, 0)]  # [Q, k] object
+        out = []
+        for q in range(dists.shape[0]):
+            # Drop padding / unprobed slots (id -1 or +inf distance); the
+            # reference heap likewise only ever holds scanned candidates.
+            v = valid[q]
+            if v.all():
+                out.append(Result(keys=keys_all[q], distances=dists[q]))
+            else:
+                out.append(
+                    Result(keys=keys_all[q][v], distances=dists[q][v])
+                )
+        return out

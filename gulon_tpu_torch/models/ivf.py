@@ -45,9 +45,9 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from gulon_tpu.models.index import Index, Result
-from gulon_tpu.models.keyindex import GroupedKeyIndex
-from gulon_tpu.models.metric import Metric
+from gulon_tpu_torch.models.index import Index, Result
+from gulon_tpu_torch.models.keyindex import GroupedKeyIndex
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
 from gulon_tpu_torch.ops.distance import normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer

@@ -1,8 +1,8 @@
 """Build the CUDA sources of ``gulon_tpu_torch/csrc`` at first use.
 
-Each source compiles on its own with ``nvcc`` into a shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). Libraries land in ``gulon_tpu_torch/_build/``,
+Each source compiles on its own with ``nvcc`` (the shared ``csrc/*.cuh``
+headers included) into a shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries land in ``gulon_tpu_torch/_build/``,
 named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one is reused. :func:`build` compiles several
 sources in parallel. Nothing here runs at import.
@@ -52,8 +52,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (hash of source + flags)."""
+    """Where ``csrc/<name>.cu`` builds to (hash of the source, the shared
+    ``csrc/*.cuh`` headers and the flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

@@ -1,11 +1,11 @@
 """Fused ADC scan: the counterpart of ``gulon_tpu/ops/pallas/adc.py``.
 
 Kernel K1 (``csrc/adc_scan.cu``) replaces the TPU kernel
-``_adc_fused_kernel``: per 128-row block of the corpus and per query it
-decodes the PQ codes, scores them against the query in f32 and keeps the
-block's lane-packed minimum. This module holds everything around it,
-with the JAX package's names and semantics so that the two compare one
-for one:
+``_adc_fused_kernel``: per 128-row block of the corpus it decodes the PQ
+codes once, scores every query against them on the tensor cores (wgmma,
+f32 accumulation) and keeps each query's lane-packed block minimum. This
+module holds everything around it, with the JAX package's names and
+semantics so that the two compare one for one:
 
 - tile geometry (``padded_depth``, ``_pick_tiles``, ``block_layout``);
   the row tile only fixes the winner-column order now, which keeps the
@@ -26,8 +26,10 @@ Selection keeps one winner (1-4 with ``winners``) per 128-row block,
 exactly like the TPU kernel: losing a true top-k member needs two of
 them in one block, so callers keep ``N >= 256*k``. Limits: K <= 1024,
 k <= 128, N >= 256*k; ``FlatIndex`` falls back to the decode scan
-outside them. ``center_scores`` is an explicit argument (centered for
-the flat scan, uncentered for block-scan callers).
+outside them. Any depth runs on the card: a row block too deep to sit
+decoded in shared memory is decoded chunk by chunk for each query tile.
+``center_scores`` is an explicit argument (centered for the flat scan,
+uncentered for block-scan callers).
 """
 
 from __future__ import annotations
@@ -330,6 +332,9 @@ def fused_block_scan(
     codes_t, norms_hl, q_op, cb = (
         t.contiguous() for t in (codes_t, norms_hl, q_op, cb)
     )
+    if q_op.data_ptr() % 16 or cb.data_ptr() % 16 or q_op.shape[1] % 8:
+        # TMA reads the queries, 16-byte loads the codebooks
+        raise ValueError("queries and codebooks must be 16-byte aligned rows")
     lib = _kernel()
     with torch.cuda.device(codes_t.device):
         out = torch.empty(

@@ -19,8 +19,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gulon_tpu.models.index import Index
-from gulon_tpu.ops.stats import SummaryStats
+from gulon_tpu_torch.models.index import Index
+from gulon_tpu_torch.ops.stats import SummaryStats
 from gulon_tpu_torch.ops.scan import exact_scan
 
 # ``Tests.scala:53``

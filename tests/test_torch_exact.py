@@ -18,8 +18,9 @@ import jax.numpy as jnp
 
 from generators import planted_clusters, random_keys
 from gulon_tpu.models import exact as jexact
-from gulon_tpu.models.metric import Metric
+from gulon_tpu.models.metric import Metric as JaxMetric
 from gulon_tpu.ops.pallas import dense as jdense
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch import interop
 from gulon_tpu_torch.models.exact import ExactIndex, build_exact_index
 
@@ -64,7 +65,7 @@ def test_exact_matches_numpy_bruteforce(data):
 def test_exact_cosine_and_lookup(data):
     keys, x = data
     index = build_exact_index(keys, x, metric=Metric.COSINE)
-    ref = jexact.build_exact_index(keys, x, metric=Metric.COSINE)
+    ref = jexact.build_exact_index(keys, x, metric=JaxMetric.COSINE)
     w = keys[3]
     vec = index.lookup(w)
     np.testing.assert_allclose(np.linalg.norm(vec), 1.0, rtol=1e-5)
@@ -81,7 +82,7 @@ def test_npz_round_trip_and_cross_load(data, tmp_path, writer):
     """A file saved by either package loads and serves in both."""
     keys, x = data
     port = build_exact_index(keys, x, metric=Metric.COSINE)
-    ref = jexact.build_exact_index(keys, x, metric=Metric.COSINE)
+    ref = jexact.build_exact_index(keys, x, metric=JaxMetric.COSINE)
     path = tmp_path / "exact.npz"
     (ref if writer == "jax" else port).save(path)
     loaded_t = ExactIndex.load(path)
@@ -180,7 +181,7 @@ def test_auto_policy(big):
 def test_add_remove_match_jax(data):
     keys, x = data
     port = build_exact_index(keys[:1000], x[:1000], metric=Metric.COSINE)
-    ref = jexact.build_exact_index(keys[:1000], x[:1000], metric=Metric.COSINE)
+    ref = jexact.build_exact_index(keys[:1000], x[:1000], metric=JaxMetric.COSINE)
     new_keys, new_x = keys[1000:1010], x[1000:1010] * 2.0
     port2, ref2 = port.add(new_keys, new_x), ref.add(new_keys, new_x)
     assert port2.size == 1010 and list(port2.key_index.keys) == list(ref2.key_index.keys)

@@ -23,11 +23,12 @@ import jax.numpy as jnp
 
 from gulon_tpu.models import flat as jflat
 from gulon_tpu.models.build import build_flat_index as jax_build
-from gulon_tpu.models.metric import Metric
+from gulon_tpu.models.metric import Metric as JaxMetric
 from gulon_tpu.ops.pq import PQConfig as JaxPQConfig
 from gulon_tpu.utils import eval as jeval
 from gulon_tpu.ops import scan as jscan
 from gulon_tpu.ops.pallas import dense as jdense
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch import interop
 from gulon_tpu_torch.models import flat as tflat
 from gulon_tpu_torch.models.build import build_flat_index
@@ -120,7 +121,7 @@ def test_query_lookup_and_batch_results(data, jax_index):
 
 def test_cosine_metric(data):
     x, keys, _ = data
-    jx = jax_build(keys[:3000], x[:3000], metric=Metric.COSINE,
+    jx = jax_build(keys[:3000], x[:3000], metric=JaxMetric.COSINE,
                    pq_config=JaxPQConfig(**PQ))
     port = interop.from_reference(jx)
     assert port.metric is Metric.COSINE

@@ -25,10 +25,11 @@ import jax.numpy as jnp
 from gulon_tpu.models import build as jbuild_mod
 from gulon_tpu.models import ivf as jivf
 from gulon_tpu.models.build import build_ivf_index as jax_build
-from gulon_tpu.models.metric import Metric
+from gulon_tpu.models.metric import Metric as JaxMetric
 from gulon_tpu.ops import scan as jscan
 from gulon_tpu.ops.pq import PQConfig as JaxPQConfig
 from gulon_tpu.utils import eval as jeval
+from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch import interop
 from gulon_tpu_torch.models import build as tbuild_mod
 from gulon_tpu_torch.models import ivf as tivf
@@ -415,7 +416,7 @@ def test_query_lookup_and_batch_results(data, jax_index):
 def test_cosine_index_matches_jax(data):
     x, keys, q = data
     jx = jax_build(
-        keys[:3000], x[:3000] * 3.0, metric=Metric.COSINE,
+        keys[:3000], x[:3000] * 3.0, metric=JaxMetric.COSINE,
         pq_config=JaxPQConfig(**PQ), num_partitions=8,
         strategy=jivf.LimitGroups(3), coarse_max_iters=6,
     )

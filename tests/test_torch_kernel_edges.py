@@ -1,0 +1,170 @@
+"""Kernels K1 (fused ADC block scan) and K2 (bf16 dense block scan) at
+their edge shapes: 1, 7, 129 and 1000 queries, ragged row counts, depth
+100 (not a multiple of 16), 1-4 winners centered and uncentered, K = 512
+and K = 1024 int16 codes, NaN rows, IVF padding rows, and K1 at depths
+from 304 to 1000, held decoded and streamed (the cases of
+``chip_smoke.py``).
+
+On a CUDA card each kernel is held against its plain PyTorch version on
+the same seeded operands (tests marked ``cuda``; they skip without a
+card). On the CPU the same operands go through the wrappers, which take
+the plain versions, and the shape helpers, comparisons and bounds that
+``chip_smoke.py`` reports are checked."""
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from gulon_tpu_torch.ops.cuda import adc, dense
+
+
+def _k1_id(case):
+    n, d, m, k_codes, q_n, w, centered, extra = case
+    return f"n{n}-d{d}-m{m}-K{k_codes}-q{q_n}-w{w}-{'c' if centered else 'u'}-{extra}"
+
+
+def _k2_id(case):
+    n, d, q_n, nan = case
+    return f"n{n}-d{d}-q{q_n}{'-nan' if nan else ''}"
+
+
+def _k1(case, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return cs.k1_operands(gen, *case, dev=dev)
+
+
+def _k2(case, dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return cs.k2_operands(gen, *case, dev=dev)
+
+
+@pytest.mark.parametrize("case", cs.K1_EDGE_CASES, ids=_k1_id)
+def test_k1_edge_plain_on_cpu(case):
+    """The wrapper takes the plain version on CPU tensors; its winners have
+    the kernel's output shape, NaN rows win their blocks, padding rows
+    never win, and the comparison catches a value off by 2^-10."""
+    n, d, m, k_codes, q_n, winners, centered, extra = case
+    operands, nblk, real = _k1(case, "cpu")
+    assert operands[0].dtype == (torch.int8 if k_codes <= 256 else torch.int16)
+    codes_t, _, q_op, cb = operands
+    assert q_op.shape[1] % 8 == 0 and q_op.shape[1] >= codes_t.shape[0] * cb.shape[2] + 4
+    before = adc.adc_scan_kernel_launches
+    got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
+    assert adc.adc_scan_kernel_launches == before
+    assert got.shape == (q_n, operands[0].shape[1] // 128 * winners)
+    assert cs.compare_packed(got, got)["ok"]
+    vals = (got.view(torch.int32) & ~127).view(torch.float32)
+    if extra == "nan":
+        assert int(torch.isnan(vals).sum()) > 0
+    if extra == "sentinel":
+        assert int(real.min()) == 0 and int(real.max()) == 128
+        assert cs.winners_valid(got, real, winners, nblk)
+        assert not cs.winners_valid(got, torch.clamp(real - 1, min=0), winners, nblk)
+    off = got.clone()
+    r, c = (int(i) for i in torch.nonzero(vals.abs() < 1e30)[0])
+    off[r, c] = vals[r, c] + 2.0 ** -10 * max(abs(float(vals[r, c])), 1.0)
+    assert not cs.compare_packed(off, got)["values_ok"]
+
+
+@pytest.mark.parametrize("case", cs.K2_EDGE_CASES, ids=_k2_id)
+def test_k2_edge_plain_on_cpu(case):
+    """The wrapper takes the plain version on CPU tensors; rows past the
+    ragged end never win, NaN rows win their blocks."""
+    n, d, q_n, nan = case
+    data, q_op = _k2(case, "cpu")
+    assert data.shape[1] % 8 == 0 and q_op.shape == (q_n, data.shape[1])
+    before = dense.dense_scan_kernel_launches
+    got = dense.dense_block_scan(data, q_op)
+    assert dense.dense_scan_kernel_launches == before
+    assert got.shape == (q_n, -(-n // 128))
+    ids = got.view(torch.int32) & 127
+    vals = (got.view(torch.int32) & ~127).view(torch.float32)
+    if n % 128:  # (a NaN winner's row bits are torch.amin's on the CPU)
+        assert bool((ids[:, -1] < n % 128)[~torch.isnan(vals[:, -1])].all())
+    assert bool(torch.isnan(vals).any()) == nan
+    scale = cs.dense_scale(data, q_op, got)
+    assert scale.shape == got.shape
+    assert cs.compare_packed(got, got, scale)["ok"]
+
+
+def test_winner_columns_invert_the_kernel_layout():
+    nblk, winners, n_tiles = 4, 3, 2
+    n_cols = n_tiles * nblk * winners
+    block, rank = cs.winner_columns(n_cols, winners, nblk, "cpu")
+    blocks = torch.arange(n_tiles * nblk)
+    for w in range(winners):
+        cols = adc._winner_columns(blocks, w, winners, nblk)
+        assert torch.equal(block[cols], blocks)
+        assert bool((rank[cols] == w).all())
+
+
+def test_bounds_from_shapes():
+    """The bounds at the path shapes (1024 queries), from meta tensors."""
+    meta = dict(device="meta")
+    k2 = cs.dense_bound(
+        torch.empty((2_000_000, 304), dtype=torch.bfloat16, **meta),
+        torch.empty((1024, 304), dtype=torch.bfloat16, **meta),
+    )
+    assert k2["bound_by"] == "operations" and k2["bound_resource"] == "tensor cores (bf16)"
+    assert k2["bound_ms"] == pytest.approx(1.259, rel=1e-3)
+    k3 = cs.dense_bound(
+        torch.empty((2_000_000, 320), dtype=torch.int8, **meta),
+        torch.empty((1024, 320), dtype=torch.int8, **meta),
+    )
+    assert k3["bound_resource"] == "tensor cores (int8)"
+    assert k3["bound_ms"] == pytest.approx(0.662, rel=1e-3)
+
+    def k1(n, m, dsub, winners):
+        return cs.k1_bound((
+            torch.empty((m, n), dtype=torch.int8, **meta),
+            torch.empty((2, n), dtype=torch.bfloat16, **meta),
+            torch.empty((1024, adc.padded_depth(m, dsub)), dtype=torch.bfloat16, **meta),
+            torch.empty((m, 256, dsub), dtype=torch.bfloat16, **meta),
+        ), winners)
+
+    glove = k1(400_000, 8, 13, 1)
+    assert glove["bound_resource"] == "tensor cores (bf16)"
+    assert glove["bound_ms"] == pytest.approx(0.0895, rel=1e-2)
+    ivf = k1(1_057_152, 12, 8, 4)
+    assert ivf["bound_ms"] == pytest.approx(0.219, rel=1e-2)
+    # 11 selection operations a pair at 4 winners: below the tensor cores
+    assert ivf["bound_parts_ms"]["CUDA cores (selection)"] == pytest.approx(
+        1_057_152 * 1024 * 11 / 67e12 * 1e3
+    )
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels K1 and K2 run only on the card")
+    return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cs.K1_EDGE_CASES, ids=_k1_id)
+def test_k1_edge_on_the_card(cuda_device, case):
+    winners = case[5]
+    operands, nblk, real = _k1(case, cuda_device)
+    before = adc.adc_scan_kernel_launches
+    got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
+    torch.cuda.synchronize()
+    assert adc.adc_scan_kernel_launches == before + 1
+    ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
+    result = cs.compare_packed(got, ref)
+    assert result["ok"], result
+    if real is not None:
+        assert cs.winners_valid(got, real, winners, nblk)
+        assert cs.winners_valid(ref, real, winners, nblk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cs.K2_EDGE_CASES, ids=_k2_id)
+def test_k2_edge_on_the_card(cuda_device, case):
+    data, q_op = _k2(case, cuda_device)
+    before = dense.dense_scan_kernel_launches
+    got = dense.dense_block_scan(data, q_op)
+    torch.cuda.synchronize()
+    assert dense.dense_scan_kernel_launches == before + 1
+    ref = dense._dense_block_scan_plain(data, q_op)
+    result = cs.compare_packed(got, ref, cs.dense_scale(data, q_op, ref))
+    assert result["ok"], result

@@ -1,7 +1,7 @@
-"""The port stands without JAX: a fresh interpreter imports
-``gulon_tpu_torch``, builds, queries (fused, cached, exact and IVF paths) and
-measures recall on the CPU, and never loads ``jax``. The port's sources
-name no jax import at all."""
+"""The port stands alone: a fresh interpreter imports ``gulon_tpu_torch``,
+builds, queries (fused, cached, exact and IVF paths) and measures recall on
+the CPU, and never loads ``jax`` or any module of the JAX package
+``gulon_tpu``. The port's sources (and ``chip_smoke.py``) import neither."""
 
 import pathlib
 import re
@@ -56,6 +56,8 @@ ivf.enable_cache()
 assert ivf.query_arrays(10, x[:16])[1].shape == (16, 10)
 assert gt.tune_probe_limit(ivf, x, keys, target_recall=0.1, num_samples=32).met
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+ref = sorted(m for m in sys.modules if m == "gulon_tpu" or m.startswith("gulon_tpu."))
+assert ref == [], ref
 print("ok")
 """
 
@@ -69,9 +71,19 @@ def test_port_runs_without_importing_jax():
     assert proc.stdout.strip() == "ok"
 
 
-def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+def _sources():
     sources = list((ROOT / "gulon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(sources) > 10
-    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    return sources
+
+
+def test_port_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_port_sources_import_no_jax_package():
+    pattern = re.compile(r"^\s*(from|import)\s+gulon_tpu(\.|\s|$)", re.M)
+    offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
     assert offenders == []
