@@ -37,10 +37,13 @@ phases); any failure raises and the script exits non-zero:
 7. dense kernel: K2 and K3 against their plain versions on the same
    operands at the fasttext shape (that corpus, Dp 304 / 320, 1024
    queries drawn from it), K2 at the glove100 cache width (400,000 x 104,
-   Dp 112), and K2 at the edge shapes (:data:`K2_EDGE_CASES`: ragged row
+   Dp 112), K2 at the edge shapes (:data:`K2_EDGE_CASES`: ragged row
    counts, 1-1000 queries, NaN rows, an operand too deep for a resident
-   query tile); K2 within ``2^-14 * max(|v|, ||x||^2 + ||q||^2)`` with
-   >= 99.5 % equal ids, K3 bit for bit;
+   query tile) and K3 at its edge shapes (:data:`K3_EDGE_CASES`: ragged
+   row counts down to n < 128, 1-1000 queries, Dp 32 to 1600 with every
+   ragged last chunk, a 128-query tile, streamed query chunks, all-+-127
+   lanes, a last block won by a padding row); K2 within ``2^-14 *
+   max(|v|, ||x||^2 + ||q||^2)`` with >= 99.5 % equal ids, K3 bit for bit;
 8. IVF path (ivf1m): ``build_ivf_index`` of a seeded 1,000,000 x 96
    low-rank corpus (intrinsic 24, 4096 clusters) on the card, PQ 12x256,
    the default 1000 partitions and probe limit 50; 4 batches of 1024
@@ -60,12 +63,14 @@ rate, whichever is largest, named in ``bound_resource``), ``library_ms``
 (one bare ``torch.matmul`` / ``torch._int_mm`` of the same operands:
 the contraction only, without the selection, writing the whole score
 matrix the kernels never materialise; for K1 on the operand decoded
-beforehand) and ``launches_per_batch`` (launches per 1024-query batch
-on the path that runs that shape). Each path is driven with the launch
-counts set to 0 just before it and read just after; the comparisons of
-kernels with their plain versions run after the paths and count for
-none of them. Each path also reports its device time per batch by
-kernel (``torch.profiler`` over its 4 batches after a warm-up).
+beforehand; null where ``torch._int_mm`` refuses the shape: 16 queries
+or fewer, a row count not a multiple of 8) and ``launches_per_batch``
+(launches per 1024-query batch on the path that runs that shape). Each
+path is driven with the launch counts set to 0 just before it and read
+just after; the comparisons of kernels with their plain versions run
+after the paths and count for none of them. Each path also reports its
+device time per batch by kernel (``torch.profiler`` over its 4 batches
+after a warm-up).
 
 Then a line with each kernel's launches on the paths, error, times and
 bound, the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
@@ -123,6 +128,27 @@ K2_EDGE_CASES = (
     (5000, 300, 7, True),
     (3000, 1022, 129, False),
     (70000, 100, 1000, False),
+)
+# K3 edge shapes: (rows, Dp, queries, lanes). Dp picks the instantiation:
+# 32 / 96 / 352 a ragged last chunk of 1 / 3 / 3 k-steps, 256 none, 320
+# (the fasttext depth) 2; 1024 and 1120 drop to a 128-query tile (1120
+# ragged); 1600 streams the query chunks. Lanes: None uniform in
+# [-127, 127]; "pm127" every lane +-127, and row r of the corpus the
+# negation of query r, so that query scores -127^2 Dp there, the int32
+# extreme of the depth; "wild" the last block's real rows all score above
+# 16255, so a padding row wins it (the JAX padding rule).
+K3_EDGE_CASES = (
+    (8192, 32, 24, None),
+    (1000, 320, 1, None),
+    (100, 320, 7, None),
+    (40001, 352, 129, None),
+    (20000, 96, 1000, None),
+    (20000, 256, 300, None),
+    (9000, 320, 1000, "pm127"),
+    (5000, 320, 200, "wild"),
+    (3000, 1024, 129, None),
+    (2000, 1120, 33, None),
+    (3000, 1600, 130, None),
 )
 
 
@@ -372,6 +398,29 @@ def k2_operands(gen, n, d, q_n, nan, *, dev):
     return data, dense_queries(q, data.shape[1])
 
 
+def k3_operands(gen, n, dp, q_n, lanes, *, dev):
+    """Seeded random K3 operands ``(rows, queries)``, int8 ``[*, dp]``,
+    with lanes as :data:`K3_EDGE_CASES` describes; in the "wild" case the
+    queries' lanes are positive and the last block's real rows all 127,
+    so those rows score at least 127 Dp."""
+    import torch
+
+    def draw(rows, low=-127):
+        if lanes == "pm127":
+            bits = torch.randint(0, 2, (rows, dp), generator=gen, device=dev)
+            return (bits * 254 - 127).to(torch.int8)
+        return torch.randint(low, 128, (rows, dp), generator=gen, device=dev).to(torch.int8)
+
+    data = draw(n)
+    q_op = draw(q_n, low=1 if lanes == "wild" else -127)
+    if lanes == "wild":
+        data[(n - 1) // 128 * 128:] = 127
+    if lanes == "pm127":
+        m = min(n, q_n)
+        data[:m] = -q_op[:m]
+    return data, q_op
+
+
 def k1_decoded(operands):
     """K1's row operand decoded once, ``[N', q width]`` bf16 (codewords,
     hi/lo norm lanes, two ones, zero pad): what a bare matmul against the
@@ -460,7 +509,26 @@ def phase_kernel(seed: int, launches_per_batch: float) -> dict:
     return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
-def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch) -> dict:
+def _int_mm_refuses(q_n: int, n: int, dp: int) -> bool:
+    """The shapes ``torch._int_mm(queries, rows^T)`` refuses by rule: more
+    than 16 rows in its first operand and 8-multiples elsewhere."""
+    return q_n <= 16 or n % 8 != 0 or dp % 8 != 0
+
+
+def _library_ms(fn, refused_by_rule: bool = False):
+    """Median ms of ``fn`` (:func:`_cuda_ms`), or None where the library
+    refuses the shape by rule; any other failure of the call raises."""
+    try:
+        fn()
+    except RuntimeError:
+        if refused_by_rule:
+            return None
+        raise
+    return _cuda_ms(fn)
+
+
+def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch,
+                label=None) -> dict:
     """One kernel against its plain version on the same operands: K3
     (``exact``) bit for bit; K2 by :func:`compare_packed` with the summand
     scale of :func:`dense_scale`."""
@@ -480,11 +548,14 @@ def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch) 
     del got, ref
     library = torch._int_mm if exact else torch.matmul
     case = dict(
-        kernel=name, shape=[q_op.shape[0], data.shape[0], data.shape[1]],
+        kernel=name, case=label, shape=[q_op.shape[0], data.shape[0], data.shape[1]],
         dtype=str(data.dtype).replace("torch.", ""), **case,
         ms=_cuda_ms(lambda: block_scan(data, q_op)),
         plain_ms=_cuda_ms(lambda: plain(data, q_op)),
-        library_ms=_cuda_ms(lambda: library(q_op, data.T)),
+        library_ms=_library_ms(
+            lambda: library(q_op, data.T),
+            exact and _int_mm_refuses(q_op.shape[0], *data.shape),
+        ),
         library_call=f"torch.{library.__name__}(queries, rows^T), contraction only",
         launches_per_batch=launches_per_batch, **dense_bound(data, q_op),
     )
@@ -496,8 +567,8 @@ def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch) 
 
 def phase_dense_kernel(seed: int, x, glove, lpb: dict) -> dict:
     """K2 and K3 against their plain versions at the fasttext shape, K2 at
-    the glove100 cache width (the cached strategy's operand) and at the
-    edge shapes."""
+    the glove100 cache width (the cached strategy's operand), and each at
+    its edge shapes."""
     import numpy as np
     import torch
 
@@ -546,10 +617,19 @@ def phase_dense_kernel(seed: int, x, glove, lpb: dict) -> dict:
         data, q_op = k2_operands(gen, n, d, nq, nan, dev="cuda")
         edge.append(_dense_case(
             "K2", dense.dense_block_scan, dense._dense_block_scan_plain, data,
-            q_op, False, None,
+            q_op, False, None, label="edge",
+        ))
+    k3_edge = []
+    for n, dp, nq, lanes in K3_EDGE_CASES:
+        data, q_op = k3_operands(gen, n, dp, nq, lanes, dev="cuda")
+        k3_edge.append(_dense_case(
+            "K3", dense.dense_block_scan_i8, dense._dense_block_scan_plain_i8, data,
+            q_op, True, None, label=f"edge {lanes or 'uniform'}",
         ))
     max_err = max(c["max_abs_err"] for c in [k2, k2_cache] + edge)
-    return dict(k2=k2, k3=k3, k2_cache=k2_cache, k2_max_abs_err=max_err)
+    k3_err = max(c["max_abs_err"] for c in [k3] + k3_edge)
+    return dict(k2=k2, k3=k3, k2_cache=k2_cache, k2_max_abs_err=max_err,
+                k3_max_abs_err=k3_err)
 
 
 # ---- paths ------------------------------------------------------------------
@@ -1097,7 +1177,7 @@ def main(argv=None) -> int:
         _kernel_entry(
             "dense_scan_i8", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:419",
-            exact["launches_k3"], k3["max_abs_err"], k3,
+            exact["launches_k3"], dense_k["k3_max_abs_err"], k3,
         ),
     ]})
     print(smi, flush=True)

@@ -473,7 +473,7 @@ extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
   if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   const int grid = std::min(n_cols / kRows, sms);
   CUtensorMap qmap;
-  if (!bf16_map(&qmap, q, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
+  if (!sw128_map(&qmap, q, 2, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = streamed ? adc_scan_kernel<true> : adc_scan_kernel<false>;
   cudaError_t err =

@@ -1,18 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the scan kernels K1
-// (adc_scan.cu) and K2 (dense_scan.cu): mbarriers, 2-D TMA loads, the
+// (adc_scan.cu), K2 and K3 (dense_scan.cu): mbarriers, 2-D TMA loads, the
 // 128-byte-swizzled shared-memory layout that both TMA and wgmma use,
-// the bf16 wgmma m64n128k16 with f32 accumulators, and the per-block
-// selection read straight off the wgmma accumulator layout.
+// the bf16 wgmma m64n128k16 with f32 accumulators and the s8 wgmma
+// m64n128k32 with s32 accumulators, and the per-block selection read
+// straight off the wgmma accumulator layout (f32 and s32 alike).
 //
-// Tiles. Operands are bf16 and K-major: a [rows][64] chunk is 128 bytes a
-// row, stored with the 128-byte swizzle (16-byte group g of row r at
-// group g ^ (r % 8)), 1024-byte aligned. Both scans put the queries on
-// the wgmma M side (64 per warpgroup) and one 128-row selection block of
-// the corpus on the N side, so a thread's accumulator d[4j + 2i + h] is
-// query 16 * warp + lane / 4 + 8 i and corpus row 8 j + 2 (lane % 4) + h
-// of the block: the block minimum of a query is a min over the thread's
-// 32 values and two xor-shuffles across its lane quad, with no shared
-// memory and no cross-warp step.
+// Tiles. Operands are K-major with 128 bytes a row per chunk: a [rows][64]
+// bf16 chunk or a [rows][128] int8 chunk, stored with the 128-byte
+// swizzle (16-byte group g of row r at group g ^ (r % 8)), 1024-byte
+// aligned. A wgmma k-step is 32 bytes of a row in both types. The scans
+// put the queries on the wgmma M side (64 per warpgroup) and one 128-row
+// selection block of the corpus on the N side, so a thread's accumulator
+// d[4j + 2i + h] is query 16 * warp + lane / 4 + 8 i and corpus row
+// 8 j + 2 (lane % 4) + h of the block: the block minimum of a query is a
+// min over the thread's 32 values and two xor-shuffles across its lane
+// quad, with no shared memory and no cross-warp step.
 
 #pragma once
 
@@ -24,7 +26,7 @@ namespace hopper {
 
 constexpr int kRows = 128;               // one selection block (wgmma N)
 constexpr int kChunk = 64;               // bf16 lanes of a 128-byte row
-constexpr int kChunkBytes = kRows * 128;  // one [128][64] bf16 chunk
+constexpr int kChunkBytes = kRows * 128;  // one [128 rows][128 bytes] chunk
 constexpr int kSmemLimit = 232448;       // dynamic shared memory of a block
 constexpr float kBig = 3.0e38f;          // a masked winner (the plain twin's _BIG)
 
@@ -121,16 +123,20 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// named barrier over the first `threads` threads of the block
+// named barrier of `threads` threads: wait at it, or arrive without waiting
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a K-major 128-byte-swizzled tile:
 // 8-row groups 1024 bytes apart (SBO), swizzle mode 1. Advance along K
-// by 16 bf16 (32 bytes) by adding 2 to the descriptor.
+// by one k-step (32 bytes: 16 bf16 or 32 int8) by adding 2 to the
+// descriptor.
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   const uint64_t addr = smem_u32(tile);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
@@ -151,6 +157,10 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] . B[128 x 16]^T, bf16 operands from shared memory, f32
@@ -181,6 +191,36 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (+)= A[64 x 32] . B[128 x 32]^T, s8 operands from shared memory (both
+// K-major, the only layout the integer form takes), s32 accumulators;
+// scale_d == 0 overwrites d. The integer form has no scale or transpose
+// immediates.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+        "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+        "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),
+        "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ---- selection ------------------------------------------------------------
 
 // block row of accumulator register 4j + 2i + h: 8j + 2(lane % 4) + h
@@ -196,6 +236,12 @@ __device__ __forceinline__ void pack_rows(float (&d)[64], int lane) {
     for (int c = 0; c < 4; ++c)
       d[4 * j + c] = __int_as_float((__float_as_int(d[4 * j + c]) & ~127) |
                                     acc_row(j, c & 1, lane));
+}
+__device__ __forceinline__ void pack_rows(int (&d)[64], int lane) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[4 * j + c] = (d[4 * j + c] & ~127) | acc_row(j, c & 1, lane);
 }
 
 // minimum that returns the canonical NaN if either operand is NaN
@@ -245,6 +291,21 @@ __device__ __forceinline__ float block_min(const float (&d)[64], int lane) {
   return v;
 }
 
+// The same over packed integer scores: a plain min, no NaN to carry.
+template <int I>
+__device__ __forceinline__ int block_min(const int (&d)[64], int lane) {
+  int t[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) t[j] = min(d[4 * j + 2 * I], d[4 * j + 2 * I + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = min(t[j], t[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = min(t[j], t[j + 4]);
+  int v = min(min(t[0], t[2]), min(t[1], t[3]));
+  v = min(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return min(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
 // mask the winner of each query half to kBig before the next pass
 __device__ __forceinline__ void mask_winner(float (&d)[64], float v0, float v1) {
 #pragma unroll
@@ -284,18 +345,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major bf16 matrix [dim1][dim0] (row stride
-// `stride_bytes`), read in boxes of [box1][64] with the 128-byte swizzle.
-// Reads past dim0 or dim1 fill zeros.
-inline bool bf16_map(CUtensorMap* map, const void* base, uint64_t dim0,
-                     uint64_t dim1, uint64_t stride_bytes, uint32_t box1) {
+// Tensor map of a row-major bf16 (elem_bytes 2) or int8 (elem_bytes 1)
+// matrix [dim1][dim0] (row stride `stride_bytes`), read in boxes of
+// [box1][128 bytes] (64 bf16 or 128 int8 lanes) with the 128-byte
+// swizzle. Reads past dim0 or dim1 fill zeros.
+inline bool sw128_map(CUtensorMap* map, const void* base, int elem_bytes, uint64_t dim0,
+                      uint64_t dim1, uint64_t stride_bytes, uint32_t box1) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || (elem_bytes != 1 && elem_bytes != 2)) return false;
   const cuuint64_t dims[2] = {dim0, dim1};
   const cuuint64_t strides[1] = {stride_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk), box1};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes), box1};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  return fn(map, type, 2, const_cast<void*>(base), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -17,6 +17,7 @@ from gulon_tpu_torch.models.flat import FlatIndex
 from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, LimitVectors
 from gulon_tpu_torch.ops.cuda.dense import DenseI8Meta
 from gulon_tpu_torch.ops.pq import ProductQuantizer, code_dtype
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 # serving knobs copied from a reference index, so both compute alike
 _KNOBS = (
@@ -42,7 +43,7 @@ def flat_index_from_numpy(
     recon_norms,
     metric: Metric = Metric.L2,
     *,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> FlatIndex:
     """A ``FlatIndex`` over given arrays: ``keys`` globally sorted,
     ``codebooks [m, K, dsub]`` f32, ``codes [N, m]``, ``recon_norms [N]``."""
@@ -88,7 +89,7 @@ def ivf_index_from_numpy(
     metric: Metric = Metric.L2,
     strategy=None,
     *,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> IVFIndex:
     """An ``IVFIndex`` over given arrays in grouped row order: ``keys``
     sorted within each group, ``group_offsets`` the internal group
@@ -146,7 +147,7 @@ def _ivf_from_reference(ref, device) -> IVFIndex:
 
 
 def exact_index_from_numpy(
-    keys, vectors, metric: Metric = Metric.L2, *, device="cpu"
+    keys, vectors, metric: Metric = Metric.L2, *, device=DEFAULT_DEVICE
 ) -> ExactIndex:
     """An ``ExactIndex`` over given arrays: ``keys`` globally sorted,
     ``vectors [N, D]`` in key order (already normalized for Cosine)."""
@@ -177,7 +178,7 @@ def _exact_from_reference(ref, device, prepared_i8) -> ExactIndex:
     return index
 
 
-def from_reference(jax_index, *, device="cpu", prepared_i8=None):
+def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     """The port's ``FlatIndex``, ``ExactIndex`` or ``IVFIndex`` over a
     ``gulon_tpu`` index's arrays and serving knobs. An exact index is
     recognised by having ``vectors`` and no ``pq``; ``prepared_i8=(data_i8,

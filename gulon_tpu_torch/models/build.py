@@ -1,5 +1,5 @@
-"""Index builders (counterparts of ``gulon_tpu/models/build.py``), on an
-explicit ``device``:
+"""Index builders (counterparts of ``gulon_tpu/models/build.py``), on
+``device``, the CUDA card unless the caller names another:
 
 - linear (``BuildIndex.scala:84-93``): sort keys -> train PQ -> chunked
   encode -> reconstruction norms -> ``FlatIndex``;
@@ -25,6 +25,7 @@ from gulon_tpu_torch.models.flat import FlatIndex
 from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, Strategy
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, fit_kmeans
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 from gulon_tpu_torch.utils.word2vec import WordVectors
 
 _DEFAULT_ENCODE_CHUNK = 1 << 20
@@ -58,7 +59,7 @@ def build_flat_index(
     opq_iters: int = 0,
     report_fn=None,
     mesh=None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> FlatIndex:
     """Linear build: sort -> PQ train -> encode (``BuildIndex.scala:84-93``).
 
@@ -202,7 +203,7 @@ def build_ivf_index(
     opq_iters: int = 0,
     report_fn=None,
     mesh=None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> IVFIndex:
     """Sublinear build (``BuildIndex.scala:70-82``).
 

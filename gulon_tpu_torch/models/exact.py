@@ -31,6 +31,7 @@ from gulon_tpu_torch.models.keyindex import SortedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
 from gulon_tpu_torch.ops.distance import normalize_rows, sq_norms
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 @dataclasses.dataclass
@@ -209,7 +210,7 @@ class ExactIndex(Index):
             )
 
     @staticmethod
-    def load(path, *, device="cpu") -> "ExactIndex":
+    def load(path, *, device=DEFAULT_DEVICE) -> "ExactIndex":
         with np.load(path, allow_pickle=False) as z:
             keys = z["keys"].astype(object)
             vectors = torch.from_numpy(z["vectors"].astype(np.float32)).to(device)
@@ -218,7 +219,7 @@ class ExactIndex(Index):
 
 
 def build_exact_index(
-    keys, vectors, metric: Metric = Metric.L2, *, device="cpu"
+    keys, vectors, metric: Metric = Metric.L2, *, device=DEFAULT_DEVICE
 ) -> ExactIndex:
     """Sort keys (stable) and place the raw vectors on ``device``; Cosine
     normalizes the rows on the host first."""

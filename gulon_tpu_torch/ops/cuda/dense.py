@@ -259,7 +259,7 @@ def _kernel():
 def _launch(name: str, data, q_op, out_dtype) -> torch.Tensor:
     data, q_op = data.contiguous(), q_op.contiguous()
     for t in (data, q_op):
-        if t.data_ptr() % 16:  # the kernel copies 16-byte segments
+        if t.data_ptr() % 16:  # a TMA tensor map needs a 16-byte-aligned base
             raise ValueError("operands must be 16-byte aligned")
     n, dp = data.shape
     num_q = q_op.shape[0]

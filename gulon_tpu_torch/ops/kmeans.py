@@ -25,6 +25,7 @@ import torch
 
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 class KMeansConfig(NamedTuple):
@@ -102,13 +103,16 @@ def fit_kmeans(
     config: KMeansConfig,
     report_fn=None,
     *,
+    device=None,
     init_indices: Optional[torch.Tensor] = None,
 ) -> KMeansResult:
     """Train k-means. ``x`` is ``[n, d]`` or stacked ``[m, n, d]``.
 
     ``init_indices`` (``[m, k]`` ints) overrides the seeded draw of
     initial rows; the parity tests pass the JAX package's draw through
-    it. Training runs on the device of ``x`` (the CPU for numpy input).
+    it. Host (numpy) input trains on ``device`` (default: the CUDA card,
+    with no CPU fallback); tensor input stays on its device (or moves to
+    ``device`` when given).
     """
     if report_fn is not None:
         raise NotImplementedError(
@@ -123,7 +127,10 @@ def fit_kmeans(
         raise ValueError(
             f"unknown init {config.init!r} (expected 'sample' or 'kmeans++')"
         )
-    x = torch.as_tensor(x, dtype=torch.float32)
+    if isinstance(x, torch.Tensor):
+        x = x.to(dtype=torch.float32, device=device or x.device)
+    else:
+        x = torch.as_tensor(x, dtype=torch.float32, device=device or DEFAULT_DEVICE)
     squeeze = x.ndim == 2
     if squeeze:
         x = x[None]

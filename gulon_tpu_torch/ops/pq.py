@@ -26,6 +26,7 @@ import torch
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, _assign_blocked, fit_kmeans
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
 def subspace_bounds(dimension: int, num_quantizers: int) -> Tuple[Tuple[int, int], ...]:
@@ -227,7 +228,8 @@ def train_product_quantizer(
 
     Host (numpy) input is subsampled on the host with the same numpy
     draw as the JAX package (``gulon_tpu/ops/pq.py:318-321``), then moved
-    to ``device`` (default CPU); tensor input stays on its device and is
+    to ``device`` (default: the CUDA card, with no CPU fallback); tensor
+    input stays on its device (or moves to ``device`` when given) and is
     subsampled with a ``torch.Generator`` seeded by ``config.seed``.
     ``init_indices`` is passed on to :func:`fit_kmeans`.
     """
@@ -259,7 +261,7 @@ def train_product_quantizer(
             train_x = x[np.sort(idx)]
     train_x = torch.as_tensor(
         train_x, dtype=torch.float32,
-        device=x.device if on_device else (device or "cpu"),
+        device=x.device if on_device else (device or DEFAULT_DEVICE),
     )
 
     xs = split_subspaces(train_x, bounds, pad_width)

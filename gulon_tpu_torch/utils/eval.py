@@ -4,10 +4,10 @@ reference ``Tests.scala``).
 Ground truth samples queries from the indexed vectors themselves
 (``Tests.scala:76-87``) and records, per k, the exact k-th-nearest
 distance (``Tests.scala:89-97``), here through the port's ``exact_scan``
-at full f32 on an explicit ``device``. Recall@k counts a returned
-neighbour iff its exact distance to the query is within
-``(sqrt(true_kth_dist_sq) * (1 + eps))^2`` (``Tests.scala:22-40``), which
-is robust to ties and duplicate vectors.
+at full f32 on ``device`` (the CUDA card unless the caller names
+another). Recall@k counts a returned neighbour iff its exact distance to
+the query is within ``(sqrt(true_kth_dist_sq) * (1 + eps))^2``
+(``Tests.scala:22-40``), which is robust to ties and duplicate vectors.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from gulon_tpu_torch.models.index import Index
 from gulon_tpu_torch.ops.stats import SummaryStats
 from gulon_tpu_torch.ops.scan import exact_scan
+from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 # ``Tests.scala:53``
 DEFAULT_KS: Tuple[int, ...] = (1, 2, 3, 5, 10, 25, 50, 100, 500, 1000)
@@ -66,7 +67,7 @@ def ground_truth_for_queries(
     normalize: bool = False,
     query_keys: Optional[Sequence[str]] = None,
     *,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> GroundTruth:
     """Ground truth for an explicit query set (``Tests.scala:100-107``).
 
@@ -115,7 +116,7 @@ def sample_ground_truth(
     ks: Sequence[int] = DEFAULT_KS,
     normalize: bool = False,
     *,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> GroundTruth:
     """Ground truth from self-queries (``Tests.sample``): ``num_samples``
     rows drawn without replacement with numpy's ``default_rng(seed)``,

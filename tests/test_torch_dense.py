@@ -202,6 +202,50 @@ def test_dense_block_scan_plain_i8_matches_pallas(n, tile):
     np.testing.assert_array_equal(pt.numpy(), pj)
 
 
+def _wild_tail_operands(n=1000, d=62):
+    """int8 rows uniform in [-127, 127] except the last, partly filled
+    block, whose real rows are all 127; queries of positive lanes. Every
+    real row of that block scores above the padding rows' 16255."""
+    rng = np.random.default_rng(5)
+    dp = tdense.padded_dim_i8(d)
+    data8 = rng.integers(-127, 128, (n, dp)).astype(np.int8)
+    data8[(n - 1) // 128 * 128 :] = 127
+    qi = rng.integers(1, 128, (Q, d)).astype(np.float32)
+    meta = dict(scale=1.0, nmean=0.0, d=d, dp=dp, gain=1)  # query lanes round(-q) = qi
+    return data8, -qi, meta
+
+
+@pytest.mark.parametrize("rescore", [0, 4])
+def test_mixed_tail_block_matches_pallas_i8(rescore):
+    """The int8 padding rule on a wild last block: a padding row (16255)
+    wins it in both packages' block winners, bit for bit, and its winner
+    is dropped (id >= n) by both epilogues, which then agree."""
+    n = 1000
+    data8, q, meta = _wild_tail_operands(n)
+    dp = meta["dp"]
+    q_aug = np.concatenate(
+        [-q, np.zeros((Q, dp - meta["d"] - 2)), np.full((Q, 1), 127.0), np.ones((Q, 1))], axis=1
+    ).astype(np.int8)
+    pj = _jax_packed(
+        jdense._dense_kernel_i8, jnp.asarray(data8), jnp.asarray(q_aug), 1024, jnp.int32,
+        [(dp - 2, jnp.int8(127)), (dp - 1, jnp.int8(126))],
+    )
+    pt = tdense._dense_block_scan_plain_i8(_t(data8), _t(q_aug))
+    np.testing.assert_array_equal(pt.numpy(), pj)
+    assert np.all((pj[:, -1] & 127) >= n % 128)  # a padding row won
+    norms = np.zeros(n, np.float32)
+    dj, ij = jdense.dense_scan_pallas_i8(
+        jnp.asarray(q), jnp.asarray(data8), jdense.DenseI8Meta(**meta), jnp.asarray(norms),
+        k=2, interpret=True, rescore=rescore,
+    )
+    dt, it = tdense.dense_scan_fused_i8(
+        _t(q), _t(data8), tdense.DenseI8Meta(**meta), _t(norms), k=2, rescore=rescore,
+    )
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+    assert np.all(it.numpy() < (n - 1) // 128 * 128)  # nothing from the wild block
+
+
 RESCORE = {"raw": dict(rescore=0), "operand": dict(rescore=4), "rows": dict(rescore=4, rows=True)}
 
 

@@ -34,13 +34,13 @@ def setup():
         pq_config=PQConfig(num_clusters=32, num_quantizers=4, max_iters=8),
     )
     jx = dataclasses.replace(jx, scan_strategy="decode", precision="highest")
-    return x, keys, jx, interop.from_reference(jx)
+    return x, keys, jx, interop.from_reference(jx, device="cpu")
 
 
 def test_sample_ground_truth_matches(setup):
     x, keys, _, _ = setup
     gj = jeval.sample_ground_truth(keys, x, num_samples=100, seed=4, ks=KS)
-    gt = teval.sample_ground_truth(keys, x, num_samples=100, seed=4, ks=KS)
+    gt = teval.sample_ground_truth(keys, x, num_samples=100, seed=4, ks=KS, device="cpu")
     np.testing.assert_array_equal(gt.queries, gj.queries)
     np.testing.assert_array_equal(gt.query_keys, gj.query_keys)
     assert gt.ks == gj.ks == KS
@@ -69,11 +69,11 @@ def test_ground_truth_for_queries_cosine_and_epsilon(setup):
     rng = np.random.default_rng(5)
     q = rng.normal(size=(20, 16)).astype(np.float32)
     gj = jeval.ground_truth_for_queries(q, x, ks=(1, 10, 5000), normalize=True)
-    gt = teval.ground_truth_for_queries(q, x, ks=(1, 10, 5000), normalize=True)
+    gt = teval.ground_truth_for_queries(q, x, ks=(1, 10, 5000), normalize=True, device="cpu")
     assert gt.ks == gj.ks == (1, 10)  # k above the corpus size dropped
     for k in gt.ks:
         np.testing.assert_allclose(gt.kth_distances[k], gj.kth_distances[k], rtol=1e-5)
-    truth = teval.ground_truth_for_queries(q, x, ks=(10,))
+    truth = teval.ground_truth_for_queries(q, x, ks=(10,), device="cpu")
     progress = []
     r0 = teval.recall_of(port, truth, x, keys)[10].mean
     r1 = teval.recall_of(port, truth, x, keys, epsilon=0.5,
@@ -81,7 +81,7 @@ def test_ground_truth_for_queries_cosine_and_epsilon(setup):
     assert r1 >= r0
     assert progress[-1].completed == progress[-1].total == 20
     with pytest.raises(ValueError):
-        teval.ground_truth_for_queries(q, x[:3], ks=(10,))
+        teval.ground_truth_for_queries(q, x[:3], ks=(10,), device="cpu")
     with pytest.raises(ValueError):  # index from another corpus
         teval.recall_of(port, truth, x, np.array(["a"] * len(x), dtype=object))
 

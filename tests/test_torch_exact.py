@@ -49,7 +49,7 @@ def big():
 
 def test_exact_matches_numpy_bruteforce(data):
     keys, x = data
-    index = build_exact_index(keys, x)
+    index = build_exact_index(keys, x, device="cpu")
     index.precision = "highest"
     index.topk_impl = "exact"
     q = x[:5] + 0.01
@@ -64,7 +64,7 @@ def test_exact_matches_numpy_bruteforce(data):
 
 def test_exact_cosine_and_lookup(data):
     keys, x = data
-    index = build_exact_index(keys, x, metric=Metric.COSINE)
+    index = build_exact_index(keys, x, metric=Metric.COSINE, device="cpu")
     ref = jexact.build_exact_index(keys, x, metric=JaxMetric.COSINE)
     w = keys[3]
     vec = index.lookup(w)
@@ -81,11 +81,11 @@ def test_exact_cosine_and_lookup(data):
 def test_npz_round_trip_and_cross_load(data, tmp_path, writer):
     """A file saved by either package loads and serves in both."""
     keys, x = data
-    port = build_exact_index(keys, x, metric=Metric.COSINE)
+    port = build_exact_index(keys, x, metric=Metric.COSINE, device="cpu")
     ref = jexact.build_exact_index(keys, x, metric=JaxMetric.COSINE)
     path = tmp_path / "exact.npz"
     (ref if writer == "jax" else port).save(path)
-    loaded_t = ExactIndex.load(path)
+    loaded_t = ExactIndex.load(path, device="cpu")
     loaded_j = jexact.ExactIndex.load(path)
     assert loaded_t.metric is Metric.COSINE and loaded_t.vectors.dtype == torch.float32
     q = x[:4]
@@ -110,7 +110,7 @@ def test_kernel_route_matches_jax(big, operand, exact_rescore):
     if operand == "int8":
         d8, meta, _ = jdense.prepare_data_i8(ref.vectors)
         prepared = (np.asarray(d8), meta)
-    port = interop.from_reference(ref, prepared_i8=prepared)
+    port = interop.from_reference(ref, prepared_i8=prepared, device="cpu")
     assert (port.operand, port.exact_rescore, port.scan_strategy) == (
         operand, exact_rescore, "pallas")
     assert port.resolved_operand == operand
@@ -125,7 +125,7 @@ def test_int8_operand_matches_bf16_under_exact_rescore(big):
     """The port's own int8 operand finds the bf16 operand's neighbours,
     and both rescore from the same f32 rows (``test_exact.py:102``)."""
     keys, x, q = big
-    idx = build_exact_index(keys, x)
+    idx = build_exact_index(keys, x, device="cpu")
     d_bf, i_bf = dataclasses.replace(idx, scan_strategy="pallas").query_arrays(10, q)
     i8 = dataclasses.replace(idx, scan_strategy="pallas", operand="int8")
     d_i8, i_i8 = i8.query_arrays(10, q)
@@ -147,7 +147,7 @@ def test_wild_norm_corpus_serves_int8_request_from_bf16():
     x[:, 0] = np.linspace(0.0, 1e-3, 4096)
     x[0] = 1.0
     keys = np.array([f"w{i:06d}" for i in range(4096)], dtype=object)
-    idx = build_exact_index(keys, x)
+    idx = build_exact_index(keys, x, device="cpu")
     i8 = dataclasses.replace(idx, scan_strategy="pallas", operand="int8")
     assert i8.resolved_operand == "bf16"
     d8, ids8 = i8.query_arrays(5, x[100:104])
@@ -161,7 +161,7 @@ def test_exact_rescore_requires_rescore_factor():
     x = rng.normal(size=(4096, 16)).astype(np.float32)
     keys = np.array([f"w{i:06d}" for i in range(4096)], dtype=object)
     bad = dataclasses.replace(
-        build_exact_index(keys, x), scan_strategy="pallas", rescore_factor=0,
+        build_exact_index(keys, x, device="cpu"), scan_strategy="pallas", rescore_factor=0,
         exact_rescore=True,
     )
     with pytest.raises(ValueError, match="rescore_factor"):
@@ -172,7 +172,7 @@ def test_exact_rescore_requires_rescore_factor():
 
 def test_auto_policy(big):
     keys, x, _ = big
-    idx = build_exact_index(keys, x)
+    idx = build_exact_index(keys, x, device="cpu")
     assert idx.resolve_strategy(10) == "xla"  # vectors on the CPU
     idx.scan_strategy = "pallas"
     assert idx.resolve_strategy(10) == "pallas"
@@ -180,7 +180,7 @@ def test_auto_policy(big):
 
 def test_add_remove_match_jax(data):
     keys, x = data
-    port = build_exact_index(keys[:1000], x[:1000], metric=Metric.COSINE)
+    port = build_exact_index(keys[:1000], x[:1000], metric=Metric.COSINE, device="cpu")
     ref = jexact.build_exact_index(keys[:1000], x[:1000], metric=JaxMetric.COSINE)
     new_keys, new_x = keys[1000:1010], x[1000:1010] * 2.0
     port2, ref2 = port.add(new_keys, new_x), ref.add(new_keys, new_x)
@@ -202,7 +202,7 @@ def test_from_reference_same_ids(data):
     keys, x = data
     ref = jexact.build_exact_index(keys, x)
     ref.precision, ref.tile_rows = "highest", 512
-    port = interop.from_reference(ref)
+    port = interop.from_reference(ref, device="cpu")
     assert isinstance(port, ExactIndex)
     assert (port.precision, port.tile_rows, port.rescore_factor) == ("highest", 512, 4)
     q = x[:12] + 0.02
@@ -211,4 +211,4 @@ def test_from_reference_same_ids(data):
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
-        interop.exact_index_from_numpy(keys[:3], x[:4])
+        interop.exact_index_from_numpy(keys[:3], x[:4], device="cpu")

@@ -73,7 +73,7 @@ def test_from_reference_matches_jax_per_strategy(data, jax_index, strategy, rera
     jx = dataclasses.replace(
         jax_index, scan_strategy=strategy, rerank_factor=rerank
     )
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert isinstance(port, FlatIndex) and port.size == jax_index.size
     assert port.scan_strategy == strategy and port.rerank_factor == rerank
     q = truth.queries[:16]
@@ -89,7 +89,7 @@ def test_port_build_recall_ratio(data):
     of recall@10 well under the 1 % the ratio allows."""
     x, keys, _ = data
     cfg = dict(num_clusters=64, num_quantizers=12, max_iters=15)
-    port = build_flat_index(keys, x, pq_config=PQConfig(**cfg))
+    port = build_flat_index(keys, x, pq_config=PQConfig(**cfg), device="cpu")
     assert port.codes.shape == (6000, 12) and port.codes.dtype == torch.uint8
     assert list(port.key_index.keys) == sorted(keys)
     jx = jax_build(keys, x, pq_config=JaxPQConfig(**cfg))
@@ -102,7 +102,7 @@ def test_port_build_recall_ratio(data):
 
 def test_query_lookup_and_batch_results(data, jax_index):
     x, keys, _ = data
-    port = interop.from_reference(jax_index)
+    port = interop.from_reference(jax_index, device="cpu")
     res = port.query(5, x[11])
     ref = jax_index.query(5, x[11])
     assert list(res.keys) == list(ref.keys)
@@ -123,7 +123,7 @@ def test_cosine_metric(data):
     x, keys, _ = data
     jx = jax_build(keys[:3000], x[:3000], metric=JaxMetric.COSINE,
                    pq_config=JaxPQConfig(**PQ))
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.metric is Metric.COSINE
     q = x[:8] * 3.0  # scale must not matter
     for strategy in ("decode", "pallas"):
@@ -136,7 +136,7 @@ def test_cosine_metric(data):
 
 def test_auto_policy_and_kernel_fallback(data, jax_index):
     x, _, _ = data
-    port = interop.from_reference(jax_index)
+    port = interop.from_reference(jax_index, device="cpu")
     port.scan_strategy = "auto"
     assert port.resolve_strategy(3, 10) == "lut"
     assert port.resolve_strategy(64, 10) == "decode"  # codes on the CPU
@@ -149,7 +149,7 @@ def test_auto_policy_and_kernel_fallback(data, jax_index):
     np.testing.assert_array_equal(dp.numpy(), dd.numpy())
     small = interop.flat_index_from_numpy(
         port.key_index.keys[:100], port.pq.codebooks.numpy(), port.pq.bounds,
-        32, port.codes[:100].numpy(), port.recon_norms[:100].numpy(),
+        32, port.codes[:100].numpy(), port.recon_norms[:100].numpy(), device="cpu",
     )
     small.scan_strategy = "pallas"
     _, ids = small.query_arrays(5, x[:4])  # n < 256*k: decode instead
@@ -157,7 +157,7 @@ def test_auto_policy_and_kernel_fallback(data, jax_index):
 
 
 def test_auto_knobs_match_jax(data, jax_index):
-    port = interop.from_reference(jax_index)
+    port = interop.from_reference(jax_index, device="cpu")
     assert port._code_duplication() == pytest.approx(jax_index._code_duplication())
     assert port.resolved_rerank_factor() == jax_index.resolved_rerank_factor()
     assert port.resolved_pallas_winners() == jax_index.resolved_pallas_winners()
@@ -165,12 +165,16 @@ def test_auto_knobs_match_jax(data, jax_index):
 
 def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
-    port = interop.from_reference(jax_index)
+    port = interop.from_reference(jax_index, device="cpu")
     for call in (
         port.pack_memory,
         lambda: port.add(["zz"], x[:1]), lambda: port.remove([keys[0]]),
-        lambda: build_flat_index(keys[:500], x[:500], pq_config=PQConfig(**PQ), opq_iters=2),
-        lambda: build_flat_index(keys[:500], x[:500], pq_config=PQConfig(**PQ), mesh=object()),
+        lambda: build_flat_index(
+            keys[:500], x[:500], pq_config=PQConfig(**PQ), opq_iters=2, device="cpu"
+        ),
+        lambda: build_flat_index(
+            keys[:500], x[:500], pq_config=PQConfig(**PQ), mesh=object(), device="cpu"
+        ),
     ):
         with pytest.raises(NotImplementedError):
             call()
@@ -206,7 +210,7 @@ def test_cached_strategy_policy_and_from_reference(data, jax_index):
     x, _, truth = data
     jx = dataclasses.replace(jax_index, rerank_factor=4)
     jx.enable_cache()  # f32 on the CPU
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.decoded_cache is not None and port.decoded_cache.dtype == torch.float32
     np.testing.assert_array_equal(port.decoded_cache.numpy(), np.asarray(jx.decoded_cache))
     assert port.resolve_strategy(64, 10) == "cached"
@@ -216,7 +220,7 @@ def test_cached_strategy_policy_and_from_reference(data, jax_index):
     dt, it = port.query_arrays(10, q)
     assert np.mean(it.numpy() == np.asarray(ij)) >= 0.99
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
-    plain = interop.from_reference(jax_index)
+    plain = interop.from_reference(jax_index, device="cpu")
     assert plain.decoded_cache is None and plain.resolve_strategy(64, 10) == "decode"
     plain.enable_cache()
     assert plain.resolve_strategy(64, 10) == "cached"
@@ -233,7 +237,7 @@ def test_cached_kernel_route_matches_jax():
     keys = np.array([f"w{i:06d}" for i in range(n)], dtype=object)
     jx = jax_build(keys, x, pq_config=JaxPQConfig(num_clusters=64, num_quantizers=4, max_iters=6))
     jx.enable_cache(dtype=jnp.bfloat16)
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.decoded_cache.dtype == torch.bfloat16
     q_pad = jx._q_pad(jnp.asarray(x[:16] + 0.01))
     aug_j = jflat._augment_cache(jx.decoded_cache, jx.recon_norms)

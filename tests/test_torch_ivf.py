@@ -101,7 +101,7 @@ def _probed(index_centroids, q, strategy, sizes):
 
 def test_centroid_code_dot_and_row_const(jax_index):
     jx = jax_index
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     args = (np.asarray(jx.codes), np.asarray(jx.centroids), np.asarray(jx.group_ids))
     ref = jx.pq.centroid_code_dot(*args, chunk_rows=3000)
     got = port.pq.centroid_code_dot(*args, chunk_rows=3000)
@@ -230,7 +230,7 @@ def test_strategy_matches_jax(data, jax_index, kind, strategy, winners, rescore,
     )
     if cache:
         jx.enable_cache()
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert isinstance(port, IVFIndex)
     assert (port.recon_cache is not None) == cache
     assert port.resolve_strategy(len(q), 10) == strategy
@@ -253,7 +253,7 @@ def test_bucketed_chunked_selection_matches_one_shot(data, jax_index, monkeypatc
     entries; small chunks and the per-chunk selection change no result."""
     _, _, q = data
     port = interop.from_reference(
-        _jax_variant(jax_index, scan_strategy="bucketed", precision="highest")
+        _jax_variant(jax_index, scan_strategy="bucketed", precision="highest"), device="cpu"
     )
     if cache:
         port.enable_cache()
@@ -270,7 +270,7 @@ def test_pallas_without_rescore_is_block_granular(data, jax_index):
     exact ones; rescore turns them into the masked scan's exact f32
     distances."""
     _, _, q = data
-    port = interop.from_reference(_jax_variant(jax_index, precision="highest"))
+    port = interop.from_reference(_jax_variant(jax_index, precision="highest"), device="cpu")
     port.scan_strategy = "masked"
     dm, _ = port.query_arrays(10, q)
     port.scan_strategy = "pallas"
@@ -283,12 +283,12 @@ def test_pallas_without_rescore_is_block_granular(data, jax_index):
 
 def test_resolve_auto_matches_jax(data, jax_index):
     jx = _jax_variant(jax_index)
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.scan_strategy == jx.scan_strategy == "auto"
     for strategy in (jivf.LimitGroups(1), jivf.LimitGroups(4), jivf.LimitVectors(300),
                      jivf.LimitVectors(2000)):
         jx.strategy = strategy
-        port.strategy = interop.from_reference(jx).strategy
+        port.strategy = interop.from_reference(jx, device="cpu").strategy
         for num_q in (1, 4, 8, 32, 33, 256, 1024):
             for k in (1, 10, 200):
                 assert port._resolve_auto(num_q, k) == jx._resolve_auto(num_q, k)
@@ -310,7 +310,9 @@ def test_build_ivf_invariants_and_recall():
     keys = random_keys(rng, 6000)
     cfg = dict(num_clusters=64, num_quantizers=8, max_iters=10)
     kw = dict(num_partitions=12, coarse_max_iters=10)
-    port = build_ivf_index(keys, x, pq_config=PQConfig(**cfg), strategy=LimitGroups(4), **kw)
+    port = build_ivf_index(
+        keys, x, pq_config=PQConfig(**cfg), strategy=LimitGroups(4), device="cpu", **kw
+    )
     jx = jax_build(keys, x, pq_config=JaxPQConfig(**cfg), strategy=jivf.LimitGroups(4), **kw)
     assert port.num_partitions == len(port.key_index.group_offsets) + 1
     assert (port.partition_sizes() > 0).all()
@@ -359,25 +361,25 @@ def test_build_max_partition_size_and_cosine():
     pq = PQConfig(num_clusters=16, num_quantizers=4, max_iters=6)
     index = build_ivf_index(
         keys, x, pq_config=pq, num_partitions=4, strategy=LimitGroups(3),
-        coarse_max_iters=6, max_partition_size=150,
+        coarse_max_iters=6, max_partition_size=150, device="cpu",
     )
     assert index.partition_sizes().max() <= 150
     res = index.query_by_word(5, keys[3])
     assert keys[3] in set(res.keys)
     cos = build_ivf_index(
         keys, x * 7.0, metric=Metric.COSINE, pq_config=pq, num_partitions=4,
-        strategy=LimitGroups(4), coarse_max_iters=6,
+        strategy=LimitGroups(4), coarse_max_iters=6, device="cpu",
     )
     assert cos.metric is Metric.COSINE
     assert keys[0] in set(cos.query(3, x[0] * 0.5).keys)  # scale-free
     with pytest.raises(ValueError):
-        build_ivf_index(keys, x, pq_config=pq, num_partitions=4, max_partition_size=0)
+        build_ivf_index(keys, x, pq_config=pq, num_partitions=4, max_partition_size=0, device="cpu")
 
 
 def test_enable_cache_matches_jax(jax_index):
     jx = _jax_variant(jax_index)
     jx.enable_cache()  # f32 on the CPU
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.recon_cache.dtype == torch.float32
     np.testing.assert_array_equal(port.recon_cache.numpy(), np.asarray(jx.recon_cache))
     np.testing.assert_allclose(
@@ -385,7 +387,7 @@ def test_enable_cache_matches_jax(jax_index):
     )
     jb = _jax_variant(jax_index)
     jb.enable_cache(dtype=jnp.bfloat16)
-    pb = interop.from_reference(jb)
+    pb = interop.from_reference(jb, device="cpu")
     assert pb.recon_cache.dtype == torch.bfloat16
     np.testing.assert_array_equal(
         pb.recon_cache.to(torch.float32).numpy(),
@@ -396,7 +398,7 @@ def test_enable_cache_matches_jax(jax_index):
 def test_query_lookup_and_batch_results(data, jax_index):
     x, keys, q = data
     jx = _jax_variant(jax_index, precision="highest")
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.strategy == LimitGroups(4) and port.num_partitions == 16
     word = jx.key_index.keys[321]
     np.testing.assert_allclose(port.lookup(word), jx.lookup(word), rtol=1e-6, atol=1e-6)
@@ -421,7 +423,7 @@ def test_cosine_index_matches_jax(data):
         strategy=jivf.LimitGroups(3), coarse_max_iters=6,
     )
     jx.precision = "highest"
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     assert port.metric is Metric.COSINE
     for strategy in ("masked", "pallas", "gathered"):
         jx.scan_strategy = port.scan_strategy = strategy
@@ -436,7 +438,7 @@ def test_pallas_falls_back_below_the_envelope(data, jax_index):
     as the JAX package's does; k wider than a small corpus pads."""
     x, keys, q = data
     jx = _jax_variant(jax_index)
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     sizes = port.partition_sizes()
     small = interop.ivf_index_from_numpy(
         port.key_index.keys[: sizes[0] + sizes[1]], [int(sizes[0])],
@@ -444,7 +446,7 @@ def test_pallas_falls_back_below_the_envelope(data, jax_index):
         port.codes[: sizes[0] + sizes[1]].numpy(),
         port.row_const[: sizes[0] + sizes[1]].numpy(),
         port.group_ids[: sizes[0] + sizes[1]].numpy(),
-        port.centroids[:2].numpy(),
+        port.centroids[:2].numpy(), device="cpu",
     )
     assert small.size < 1024 and small.strategy == LimitGroups(5)
     small.scan_strategy = "pallas"
@@ -459,15 +461,19 @@ def test_pallas_falls_back_below_the_envelope(data, jax_index):
 
 def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
-    port = interop.from_reference(jax_index)
+    port = interop.from_reference(jax_index, device="cpu")
     pq = PQConfig(num_clusters=8, num_quantizers=4, max_iters=2)
     for call in (
         lambda: port.add(["zz"], x[:1]),
         lambda: port.remove([keys[0]]),
-        lambda: build_ivf_index(keys[:500], x[:500], pq_config=pq, num_partitions=2, opq_iters=2),
-        lambda: build_ivf_index(keys[:500], x[:500], pq_config=pq, num_partitions=2, mesh=object()),
+        lambda: build_ivf_index(
+            keys[:500], x[:500], pq_config=pq, num_partitions=2, opq_iters=2, device="cpu"
+        ),
+        lambda: build_ivf_index(
+            keys[:500], x[:500], pq_config=pq, num_partitions=2, mesh=object(), device="cpu"
+        ),
         lambda: interop.from_reference(
-            dataclasses.replace(jax_index, rotation=jnp.eye(D, dtype=jnp.float32))
+            dataclasses.replace(jax_index, rotation=jnp.eye(D, dtype=jnp.float32)), device="cpu"
         ),
     ):
         with pytest.raises(NotImplementedError):
@@ -476,7 +482,7 @@ def test_deferred_paths_raise(data, jax_index):
 
 def test_cpu_index_never_counts_a_kernel_launch(data, jax_index):
     _, _, q = data
-    port = interop.from_reference(_jax_variant(jax_index, scan_strategy="pallas"))
+    port = interop.from_reference(_jax_variant(jax_index, scan_strategy="pallas"), device="cpu")
     before = tadc.adc_scan_kernel_launches
     port.query_arrays(10, q)
     assert tadc.adc_scan_kernel_launches == before

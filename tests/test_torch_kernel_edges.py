@@ -1,9 +1,11 @@
-"""Kernels K1 (fused ADC block scan) and K2 (bf16 dense block scan) at
-their edge shapes: 1, 7, 129 and 1000 queries, ragged row counts, depth
-100 (not a multiple of 16), 1-4 winners centered and uncentered, K = 512
-and K = 1024 int16 codes, NaN rows, IVF padding rows, and K1 at depths
-from 304 to 1000, held decoded and streamed (the cases of
-``chip_smoke.py``).
+"""Kernels K1 (fused ADC block scan), K2 (bf16 dense block scan) and K3
+(int8 dense block scan) at their edge shapes: 1, 7, 129 and 1000
+queries, ragged row counts, depth 100 (not a multiple of 16), 1-4
+winners centered and uncentered, K = 512 and K = 1024 int16 codes, NaN
+rows, IVF padding rows, K1 at depths from 304 to 1000, held decoded and
+streamed, and K3 at Dp 32 to 1600 (every ragged last chunk, a 128-query
+tile, streamed query chunks), all-+-127 lanes and a last block won by a
+padding row (the cases of ``chip_smoke.py``).
 
 On a CUDA card each kernel is held against its plain PyTorch version on
 the same seeded operands (tests marked ``cuda``; they skip without a
@@ -28,6 +30,11 @@ def _k2_id(case):
     return f"n{n}-d{d}-q{q_n}{'-nan' if nan else ''}"
 
 
+def _k3_id(case):
+    n, dp, q_n, lanes = case
+    return f"n{n}-dp{dp}-q{q_n}-{lanes or 'uniform'}"
+
+
 def _k1(case, dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     return cs.k1_operands(gen, *case, dev=dev)
@@ -36,6 +43,11 @@ def _k1(case, dev):
 def _k2(case, dev):
     gen = torch.Generator(device=dev).manual_seed(11)
     return cs.k2_operands(gen, *case, dev=dev)
+
+
+def _k3(case, dev):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    return cs.k3_operands(gen, *case, dev=dev)
 
 
 @pytest.mark.parametrize("case", cs.K1_EDGE_CASES, ids=_k1_id)
@@ -87,6 +99,43 @@ def test_k2_edge_plain_on_cpu(case):
     assert cs.compare_packed(got, got, scale)["ok"]
 
 
+def _block_winners_int64(data, q_op, start):
+    """Packed winners of the 128-row block at ``start`` from an int64
+    product, rows past the end scoring 16255 (the JAX padding rule)."""
+    s = data[start : start + 128].long() @ q_op.long().T  # [r, Q]
+    s = torch.cat([s, torch.full((128 - s.shape[0], s.shape[1]), 127 * 127 + 126)])
+    return ((s & ~127) | torch.arange(128)[:, None]).amin(0).int()
+
+
+@pytest.mark.parametrize("case", cs.K3_EDGE_CASES, ids=_k3_id)
+def test_k3_edge_plain_on_cpu(case):
+    """The wrapper takes the plain version on CPU tensors: ``[Q,
+    ceil(n/128)]`` int32 winners; the first and the last block equal an
+    int64 product under the tail rule, so the +-127 extremes are exact; in
+    the wild case a padding row wins the last block."""
+    n, dp, q_n, lanes = case
+    data, q_op = _k3(case, "cpu")
+    assert data.dtype == q_op.dtype == torch.int8 and q_op.shape == (q_n, dp)
+    before = dense.dense_scan_i8_kernel_launches
+    got = dense.dense_block_scan_i8(data, q_op)
+    assert dense.dense_scan_i8_kernel_launches == before
+    assert got.shape == (q_n, -(-n // 128)) and got.dtype == torch.int32
+    last = (n - 1) // 128 * 128
+    assert torch.equal(got[:, 0], _block_winners_int64(data, q_op, 0))
+    assert torch.equal(got[:, -1], _block_winners_int64(data, q_op, last))
+    if lanes == "pm127":  # query r meets its negation in row r
+        floor = (-127 * 127 * dp) & ~127
+        rows = torch.arange(min(n, q_n))
+        assert bool((got[rows, rows // 128] == floor | rows % 128).all())
+        assert int(got.min()) >= floor
+    winner_rows = got[:, -1] & 127
+    if lanes == "wild":  # every real row of the last block scores >= 127 Dp
+        assert bool((winner_rows >= n - last).all())
+        assert bool((got[:, -1] & ~127 == (127 * 127 + 126) & ~127).all())
+    elif n % 128:
+        assert bool((winner_rows < n - last).all())
+
+
 def test_winner_columns_invert_the_kernel_layout():
     nblk, winners, n_tiles = 4, 3, 2
     n_cols = n_tiles * nblk * winners
@@ -136,7 +185,7 @@ def test_bounds_from_shapes():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: kernels K1 and K2 run only on the card")
+        pytest.skip("needs a CUDA device: kernels K1, K2 and K3 run only on the card")
     return "cuda"
 
 
@@ -155,6 +204,17 @@ def test_k1_edge_on_the_card(cuda_device, case):
     if real is not None:
         assert cs.winners_valid(got, real, winners, nblk)
         assert cs.winners_valid(ref, real, winners, nblk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cs.K3_EDGE_CASES, ids=_k3_id)
+def test_k3_edge_on_the_card(cuda_device, case):
+    data, q_op = _k3(case, cuda_device)
+    before = dense.dense_scan_i8_kernel_launches
+    got = dense.dense_block_scan_i8(data, q_op)
+    torch.cuda.synchronize()
+    assert dense.dense_scan_i8_kernel_launches == before + 1
+    assert torch.equal(got, dense._dense_block_scan_plain_i8(data, q_op))
 
 
 @pytest.mark.cuda

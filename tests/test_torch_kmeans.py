@@ -32,7 +32,7 @@ def test_fit_kmeans_matches_jax_with_injected_init(seed, k):
     cfg_t = tkm.KMeansConfig(k=k, max_iters=10, seed=seed, precision="highest")
     ref = jkm.fit_kmeans(x, cfg_j)
     init = np.asarray(jkm.init_indices(m, n, k, seed))
-    got = tkm.fit_kmeans(x, cfg_t, init_indices=init)
+    got = tkm.fit_kmeans(x, cfg_t, device="cpu", init_indices=init)
     same = np.mean(got.assignments.numpy() == np.asarray(ref.assignments))
     assert same >= 0.999, same
     np.testing.assert_allclose(
@@ -48,7 +48,7 @@ def test_fit_kmeans_unstacked_input():
     cfg = dict(k=8, max_iters=15, seed=3, precision="highest")
     ref = jkm.fit_kmeans(x, jkm.KMeansConfig(**cfg))
     init = np.asarray(jkm.init_indices(1, len(x), 8, 3))
-    got = tkm.fit_kmeans(x, tkm.KMeansConfig(**cfg), init_indices=init)
+    got = tkm.fit_kmeans(x, tkm.KMeansConfig(**cfg), device="cpu", init_indices=init)
     assert got.centroids.shape == (8, 5)
     assert np.mean(got.assignments.numpy() == np.asarray(ref.assignments)) >= 0.999
     np.testing.assert_allclose(
@@ -65,7 +65,7 @@ def test_empty_clusters_become_zero():
     init = np.array([[0, 0, 1, 2]])
     got = tkm.fit_kmeans(
         x, tkm.KMeansConfig(k=4, max_iters=1, precision="highest"),
-        init_indices=init,
+        device="cpu", init_indices=init,
     )
     c = got.centroids.numpy()[0]
     assert np.all(c[1] == 0.0)
@@ -99,17 +99,19 @@ def test_seeded_init_is_per_subspace_and_deterministic():
     assert not np.array_equal(a.numpy(), tkm.draw_init_indices(3, 1000, 16, 8).numpy())
     x = _stacked(6, m=2, n=500)
     cfg = tkm.KMeansConfig(k=8, max_iters=5, seed=1)
-    r1, r2 = tkm.fit_kmeans(x, cfg), tkm.fit_kmeans(x, cfg)
+    r1, r2 = (tkm.fit_kmeans(x, cfg, device="cpu") for _ in range(2))
     np.testing.assert_array_equal(r1.centroids.numpy(), r2.centroids.numpy())
 
 
 def test_deferred_options_raise():
     x = _stacked(7, m=1, n=200)
     with pytest.raises(NotImplementedError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="kmeans++"))
+        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="kmeans++"), device="cpu")
     with pytest.raises(NotImplementedError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4), report_fn=lambda *a: None)
+        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4), report_fn=lambda *a: None, device="cpu")
     with pytest.raises(ValueError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="bogus"))
+        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="bogus"), device="cpu")
     with pytest.raises(ValueError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4), init_indices=np.zeros((2, 4)))
+        tkm.fit_kmeans(
+            x, tkm.KMeansConfig(k=4), device="cpu", init_indices=np.zeros((2, 4))
+        )

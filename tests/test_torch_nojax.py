@@ -22,10 +22,11 @@ rng = np.random.default_rng(0)
 x = rng.normal(size=(1200, 12)).astype(np.float32)
 keys = np.array([f"k{i:05d}" for i in range(1200)], dtype=object)
 index = gt.build_flat_index(
-    keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=5)
+    keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=5),
+    device="cpu",
 )
 assert index.query(3, x[7]).keys[0] == "k00007"
-truth = gt.sample_ground_truth(keys, x, num_samples=50, ks=(1, 10))
+truth = gt.sample_ground_truth(keys, x, num_samples=50, ks=(1, 10), device="cpu")
 index.scan_strategy = "pallas"
 recall = gt.recall_of(index, truth, x, keys)
 assert 0.0 < recall[10].mean <= 1.0
@@ -36,17 +37,17 @@ assert index.query_arrays(10, x[:64])[1].shape == (64, 10)
 
 from gulon_tpu_torch.ops.cuda import dense
 
-exact = gt.build_exact_index(keys, x)
+exact = gt.build_exact_index(keys, x, device="cpu")
 exact.scan_strategy = "pallas"
 assert exact.query(3, x[9]).keys[0] == "k00009"
 exact.operand = "int8"
 assert exact.resolved_operand == "int8"
 assert exact.query(3, x[9]).keys[0] == "k00009"
-assert gt.exact_index_from_numpy(keys, x).size == 1200
+assert gt.exact_index_from_numpy(keys, x, device="cpu").size == 1200
 
 ivf = gt.build_ivf_index(
     keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=5),
-    num_partitions=6, strategy=gt.LimitGroups(3), coarse_max_iters=5,
+    num_partitions=6, strategy=gt.LimitGroups(3), coarse_max_iters=5, device="cpu",
 )
 assert "k00005" in set(ivf.query(3, x[5]).keys)
 for strategy in ("masked", "pallas", "gathered", "bucketed"):

@@ -54,7 +54,7 @@ def test_training_with_injected_init_matches(corpus, train_sample):
     jq = jpq.train_product_quantizer(corpus, jpq.PQConfig(**kw))
     n_train = train_sample or len(corpus)
     init = np.asarray(jkm.init_indices(4, n_train, 16, 3))
-    tq = tpq.train_product_quantizer(corpus, tpq.PQConfig(**kw), init_indices=init)
+    tq = tpq.train_product_quantizer(corpus, tpq.PQConfig(**kw), init_indices=init, device="cpu")
     assert tq.bounds == jq.bounds and tq.num_clusters == 16
     np.testing.assert_allclose(
         tq.codebooks.numpy(), np.asarray(jq.codebooks), atol=1e-2, rtol=0
@@ -86,7 +86,7 @@ def test_trained_quantizer_recall_ratio(corpus):
             precision="highest", topk_impl="exact",
         ),
     )
-    tq = tpq.train_product_quantizer(corpus, tpq.PQConfig(**cfg))
+    tq = tpq.train_product_quantizer(corpus, tpq.PQConfig(**cfg), device="cpu")
     tc = tq.encode(corpus)
     r_t = _recall_at_10(
         tq.codebooks, tq.bounds, tc, tq.reconstruction_norms(tc), corpus, q,
@@ -100,7 +100,7 @@ def test_trained_quantizer_recall_ratio(corpus):
 
 def test_bf16_snap_and_properties(corpus):
     tq = tpq.train_product_quantizer(
-        corpus[:1000], tpq.PQConfig(num_clusters=8, num_quantizers=5, max_iters=3)
+        corpus[:1000], tpq.PQConfig(num_clusters=8, num_quantizers=5, max_iters=3), device="cpu"
     )
     cb = tq.codebooks
     assert torch.equal(cb, cb.to(torch.bfloat16).to(torch.float32))
@@ -109,7 +109,7 @@ def test_bf16_snap_and_properties(corpus):
     assert tq.dtype_codes == torch.uint8
     raw = tpq.train_product_quantizer(
         corpus[:1000],
-        tpq.PQConfig(num_clusters=8, num_quantizers=5, max_iters=3, snap_bf16=False),
+        tpq.PQConfig(num_clusters=8, num_quantizers=5, max_iters=3, snap_bf16=False), device="cpu",
     )
     assert not torch.equal(
         raw.codebooks, raw.codebooks.to(torch.bfloat16).to(torch.float32)
@@ -120,8 +120,8 @@ def test_tensor_input_subsamples_on_device(corpus):
     x = torch.from_numpy(corpus)
     cfg = tpq.PQConfig(num_clusters=8, num_quantizers=4, max_iters=3,
                        train_sample=500)
-    a = tpq.train_product_quantizer(x, cfg)
-    b = tpq.train_product_quantizer(x, cfg)
+    a = tpq.train_product_quantizer(x, cfg, device="cpu")
+    b = tpq.train_product_quantizer(x, cfg, device="cpu")
     assert torch.equal(a.codebooks, b.codebooks)
     with pytest.raises(NotImplementedError):
-        tpq.train_product_quantizer(x, cfg, mesh=object())
+        tpq.train_product_quantizer(x, cfg, mesh=object(), device="cpu")

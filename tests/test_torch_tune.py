@@ -47,7 +47,7 @@ def corpus():
 def test_tune_matches_jax(corpus, strategy, target):
     x, keys, jx = corpus
     jx = dataclasses.replace(jx, strategy=strategy, precision="highest")
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     trace_j, trace_t = [], []
     kw = dict(target_recall=target, k=10, num_samples=128, seed=1)
     rj = jax_tune(jx, x, keys, report_fn=lambda *a: trace_j.append(a), **kw)
@@ -64,7 +64,7 @@ def test_tune_matches_jax(corpus, strategy, target):
 
 def test_tune_unmet_target_and_errors(corpus):
     x, keys, jx = corpus
-    port = interop.from_reference(jx)
+    port = interop.from_reference(jx, device="cpu")
     res = tune_probe_limit(port, x, keys, target_recall=1.0, num_samples=32)
     ref = jax_tune(jx, x, keys, target_recall=1.0, num_samples=32)
     assert (res.met, res.limit, res.evaluations) == (ref.met, ref.limit, ref.evaluations)
