@@ -53,7 +53,29 @@ phases); any failure raises and the script exits non-zero:
    masked scan's distances; recall@1/@10 of each route on 10,000 sampled
    queries (recall@10 >= 0.97x masked at 4 winners, >= 0.95x at 2 +
    rescore 4); then K1 at 4 winners against its plain version on the
-   index's own partition-padded operands (no padding row may win).
+   index's own partition-padded operands (no padding row may win); a
+   second build of the same corpus must give the same padded layout,
+   codes and row constants, bit for bit;
+9. k-means determinism: two ``fit_kmeans`` runs (uniform and k-means++
+   init) and two PQ trainings on the same host array give the same bits;
+10. CLI path (glove100, 400,000 x 100): the corpus as a word2vec binary
+   file and 1,024 queries as a text file (read by the native parser);
+   through ``gulon_tpu_torch.cli.main`` in process: ``build-index
+   --metric cosine -m 8 -k 256 -n 25``, ``info``, ``query -k 10`` (its
+   lines must equal ``load_index(...).query_arrays`` id for id), ``test
+   --sample 1000`` (R@10 >= 0.97x the decode route's, as the fused
+   route's), ``add-vectors`` of 1,000 new keys (each finds itself
+   first), ``remove-keys`` of them (none comes back), ``build-index -p``
+   (400 partitions, probe 20) and ``query``, ``build-index --opq 4`` and
+   ``query`` (R@10 not below the plain build's - 0.01), ``build-index
+   --exact`` and ``query``; K1 and K2 must launch from these calls. Then
+   ``python3 -m gulon_tpu_torch.cli query`` in a fresh process must print
+   the same lines, a ``serve --port 0`` process must answer 3 JSON
+   requests (1, 8 and 1024 queries) with ``query_arrays``'s keys, and
+   every ``tests/golden/*.pb`` must load on the card, serve, and save back
+   to its own bytes. Build, save and load seconds, the index bytes, the
+   first query after a load and the steady ms per 1024 batch are printed
+   beside the card's name and power limit.
 
 Every kernel case line carries its median ms of 10 CUDA-event timings
 after 3 warm-ups, its plain version's, ``bound_ms`` (the least time of
@@ -79,10 +101,15 @@ bound, the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published dense peaks of one H100 SXM at its 700 W limit: bf16 and int8
@@ -90,6 +117,7 @@ import time
 PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 _INVALID_MIN = 1.0e38  # a block winner at/above this is padding
+_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # K1 edge shapes: (rows, D, m, K, queries, winners, centered, extra);
 # extra "nan" puts NaN norm lanes on every 300th row, "sentinel" gives
@@ -1002,6 +1030,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
     index._pallas_operands()
     torch.cuda.synchronize()
     layout_s = time.perf_counter() - t0
+    rebuild = _ivf_rebuild_check(index, keys, x, device)
 
     strategy = index.resolve_strategy(batch, k)
     if strategy != "pallas":
@@ -1019,7 +1048,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
         probe=index.strategy.count, batch=batch, k=k,
         partition_rows=[int(sizes.min()), int(sizes.max())],
         padded_rows=int(index._pallas_layout[0].shape[1]),
-        build_s=build_s, layout_s=layout_s, strategy=strategy,
+        build_s=build_s, layout_s=layout_s, strategy=strategy, rebuild=rebuild,
     )
     for name, idx in routes.items():
         before = adc.adc_scan_kernel_launches
@@ -1051,10 +1080,9 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
         small[nq] = dict(strategy=resolved, ms=ms, max_rel_gap_to_masked=gaps)
     out["small_batches"] = small
 
-    # 10,000 self-queries: the coarse k-means is not bit-reproducible on
-    # the card, so each run's index differs a little, and over 1,000
-    # queries the two-winner ratio spreads by about +-0.005 between
-    # builds; over 10,000 by about +-0.0015
+    # 10,000 self-queries: over 1,000 the two-winner ratio moved by about
+    # +-0.005 between the builds of a k-means that was not reproducible
+    # on the card (before its update added in a fixed order)
     truth = gt.sample_ground_truth(keys, x, num_samples=10_000, ks=(1, 10), device=device)
     recall = {}
     for name, idx in routes.items():
@@ -1092,6 +1120,369 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
         out["pallas_w4"]["launches_per_batch"],
     )
     return dict(out, kernel=kernel)
+
+
+def _ivf_rebuild_check(index, keys, x, device) -> dict:
+    """Build the ivf1m index a second time from the same corpus: the
+    k-means adds in a fixed order, so the padded layout, the codes and the
+    row constants must be the same bits."""
+    import torch
+
+    import gulon_tpu_torch as gt
+
+    again = gt.build_ivf_index(
+        keys, x,
+        pq_config=gt.PQConfig(
+            num_clusters=256, num_quantizers=12, max_iters=10,
+            train_sample=200_000,
+        ),
+        coarse_max_iters=10,
+        device=device,
+    )
+    out = dict(
+        padded_rows=[int(index._pallas_operands()[0].shape[1]),
+                     int(again._pallas_operands()[0].shape[1])],
+        codes_equal=bool(torch.equal(index.codes, again.codes)),
+        row_const_equal=bool(torch.equal(index.row_const, again.row_const)),
+        centroids_equal=bool(torch.equal(index.centroids, again.centroids)),
+    )
+    if not (out["codes_equal"] and out["row_const_equal"] and out["centroids_equal"]
+            and out["padded_rows"][0] == out["padded_rows"][1]):
+        raise AssertionError(f"two ivf1m builds differ: {out}")
+    return out
+
+
+def phase_kmeans_determinism(seed: int) -> dict:
+    """Two k-means runs on the same host array give the same bits on the
+    card, for both inits, and so do two PQ trainings."""
+    import torch
+
+    import gulon_tpu_torch as gt
+
+    x = low_rank_corpus(seed, 400_000, 100)
+    out = {}
+    for init in ("sample", "kmeans++"):
+        cfg = gt.KMeansConfig(k=400, max_iters=10, seed=0, init=init)
+        t0 = time.perf_counter()
+        a = gt.fit_kmeans(x, cfg, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        b = gt.fit_kmeans(x, cfg, device="cuda")
+        out[init] = dict(
+            seconds=seconds, iterations=[a.iterations, b.iterations],
+            centroids_equal=bool(torch.equal(a.centroids, b.centroids)),
+            assignments_equal=bool(torch.equal(a.assignments, b.assignments)),
+        )
+    cfg = gt.PQConfig(num_clusters=256, num_quantizers=8, max_iters=10, train_sample=200_000)
+    p, q = (gt.train_product_quantizer(x, cfg, device="cuda") for _ in range(2))
+    out["pq_codebooks_equal"] = bool(torch.equal(p.codebooks, q.codebooks))
+    _emit({"phase": "kmeans_determinism", **out})
+    bad = [k for k, v in out.items() if v is False or (
+        isinstance(v, dict) and not (v["centroids_equal"] and v["assignments_equal"]))]
+    if bad:
+        raise AssertionError(f"k-means is not bit-reproducible on the card: {bad}")
+    return out
+
+
+# ---- CLI path ------------------------------------------------------------
+
+
+class _Cli:
+    """Runs ``gulon_tpu_torch.cli.main`` in process and counts the kernel
+    launches made inside its calls only."""
+
+    def __init__(self):
+        self.launches = {"K1": 0, "K2": 0, "K3": 0}
+        self.seconds = {}
+
+    def __call__(self, label, argv, stdin=None) -> str:
+        from gulon_tpu_torch import cli
+        from gulon_tpu_torch.ops.cuda import adc, dense
+
+        before = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
+                  dense.dense_scan_i8_kernel_launches)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        self.seconds[label] = time.perf_counter() - t0
+        after = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
+                 dense.dense_scan_i8_kernel_launches)
+        for name, b, a in zip(("K1", "K2", "K3"), before, after):
+            self.launches[name] += a - b
+        if rc != 0:
+            raise AssertionError(f"cli {label} exited {rc}: {err.getvalue()[-2000:]}")
+        return out.getvalue()
+
+
+def _query_lines(index, keys_q, q, k) -> str:
+    """What ``query`` prints for these queries, from ``query_arrays``."""
+    import numpy as np
+
+    ids = index.query_arrays(k, q)[1].cpu().numpy()
+    all_keys = np.asarray(index.key_index.keys, dtype=object)
+    return "".join(
+        f"{key}: {','.join(str(w) for w in all_keys[row[row >= 0]])}\n"
+        for key, row in zip(keys_q, ids)
+    )
+
+
+def _rpc(sock_file, req) -> dict:
+    sock_file.write(json.dumps(req).encode() + b"\n")
+    sock_file.flush()
+    return json.loads(sock_file.readline())
+
+
+def _serve_check(index, path: str, q, env) -> dict:
+    """``serve --port 0`` in a fresh process: 3 JSON requests (1, 8 and
+    1024 queries) must come back with ``query_arrays``'s keys."""
+    import socket
+
+    import numpy as np
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gulon_tpu_torch.cli", "serve", "--index", path, "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, env=env, cwd=_ROOT,
+    )
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        start_s = time.perf_counter() - t0
+        if not line.startswith("serving on "):
+            raise AssertionError(f"serve printed {line!r}")
+        host, port = line.split()[-1].rsplit(":", 1)
+        all_keys = np.asarray(index.key_index.keys, dtype=object)
+        answers = {}
+        with socket.create_connection((host, int(port)), timeout=120) as sock:
+            f = sock.makefile("rwb")
+            for nq in (1, 8, 1024):
+                t1 = time.perf_counter()
+                reply = _rpc(f, {"k": 10, "vectors": q[:nq].tolist()})
+                ms = (time.perf_counter() - t1) * 1e3
+                dists, ids = index.query_arrays(10, q[:nq])
+                want = [[str(w) for w in all_keys[row]] for row in ids.cpu().numpy()]
+                answers[nq] = dict(
+                    ms=ms, keys_equal=reply.get("keys") == want,
+                    max_dist_gap=float(np.abs(
+                        np.array(reply["distances"]) - dists.cpu().numpy()).max()),
+                )
+            info = _rpc(f, {"op": "info"})
+    finally:
+        proc.send_signal(2)  # SIGINT: the server's loop returns
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    out = dict(start_s=start_s, answers=answers, info=info, rc=proc.returncode)
+    if not all(a["keys_equal"] and a["max_dist_gap"] <= 1e-5 for a in answers.values()):
+        raise AssertionError(f"the server's answers differ from query_arrays: {out}")
+    return out
+
+
+def _golden_check(smi) -> dict:
+    """Every ``tests/golden/*.pb`` loads on the card, serves, and saves
+    back to its own bytes."""
+    import numpy as np
+
+    import gulon_tpu_torch as gt
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in sorted((pathlib.Path(_ROOT) / "tests" / "golden").glob("*.pb")):
+            index = gt.load_index(path)
+            q = np.random.default_rng(len(path.name)).normal(
+                size=(4, index.dimension)).astype(np.float32)
+            d, ids = index.query_arrays(1, q)
+            resaved = pathlib.Path(tmp) / path.name
+            gt.save_index(index, resaved)
+            out[path.name] = dict(
+                device=str(index.codes.device), served=list(ids.shape),
+                finite=bool(d.isfinite().all()),
+                bytes_equal=resaved.read_bytes() == path.read_bytes(),
+            )
+    if len(out) != 7 or not all(v["bytes_equal"] and v["finite"] and v["device"] == "cuda:0"
+                                for v in out.values()):
+        raise AssertionError(f"golden indices on the card: {out}")
+    return out
+
+
+def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
+    """The glove100 corpus through the command line, in process, then a
+    fresh ``query`` process, a ``serve`` process and the golden files."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.utils import native
+
+    d, batch, k = 100, 1024, 10
+    x = low_rank_corpus(seed, n, d)
+    keys = np.array([f"w{i:07d}" for i in range(n)], dtype=object)
+    rng = np.random.default_rng(seed + 11)
+    q_rows = rng.choice(n, batch, replace=False)
+    q_keys = np.array([f"q{i:04d}" for i in range(batch)], dtype=object)
+    new_x = rng.standard_normal((1000, d), dtype=np.float32)  # off the corpus
+    new_keys = np.array([f"new{i:04d}" for i in range(1000)], dtype=object)
+    adc.adc_scan_kernel_launches = 0
+    dense.dense_scan_kernel_launches = 0
+    dense.dense_scan_i8_kernel_launches = 0
+    run = _Cli()
+    out = dict(n=n, d=d, card=smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        p = {name: os.path.join(tmp, name) for name in (
+            "vecs.bin", "q.txt", "new.txt", "new.keys", "flat.pb", "flat2.pb", "added.pb",
+            "removed.pb", "ivf.pb", "opq.pb", "exact.npz")}
+        t0 = time.perf_counter()
+        gt.write_word2vec_bin(gt.WordVectors(keys, x), p["vecs.bin"])
+        with open(p["q.txt"], "w") as f:
+            gt.write_word2vec(gt.WordVectors(q_keys, x[q_rows]), f)
+        with open(p["new.txt"], "w") as f:
+            gt.write_word2vec(gt.WordVectors(new_keys, new_x), f)
+        with open(p["new.keys"], "w") as f:
+            f.write("\n".join(new_keys) + "\n")
+        out["write_s"] = time.perf_counter() - t0
+        out["vecs_bytes"] = os.path.getsize(p["vecs.bin"])
+        t0 = time.perf_counter()
+        wv = gt.read_word2vec_path(p["vecs.bin"])
+        out["read_binary_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wq = gt.read_word2vec_path(p["q.txt"])
+        out["read_text_s"] = time.perf_counter() - t0
+        out["readers"] = {
+            "binary": "python mmap (read_word2vec_bin)",
+            "text": "native" if native.available() else "python",
+        }
+        if not (np.array_equal(wv.vectors, x) and list(wv.keys) == list(keys)
+                and np.array_equal(wq.vectors, x[q_rows])):
+            raise AssertionError("the word2vec files do not read back as written")
+        del wv
+        q = wq.vectors
+
+        run("build", ["build-index", "--metric", "cosine", "-m", "8", "-k", "256",
+                      "-n", "25", "-o", p["flat.pb"], p["vecs.bin"]])
+        out["index_bytes"] = os.path.getsize(p["flat.pb"])
+        info = run("info", ["info", "--index", p["flat.pb"]])
+        if not info.startswith("type:        FlatIndex"):
+            raise AssertionError(f"info printed {info!r}")
+        query_out = run("query", ["query", "-k", "10", "--index", p["flat.pb"], p["q.txt"]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = gt.load_index(p["flat.pb"])
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gt.save_index(index, p["flat2.pb"])
+        out["save_s"] = time.perf_counter() - t0
+        out["resave_bytes_equal"] = (
+            pathlib.Path(p["flat2.pb"]).read_bytes() == pathlib.Path(p["flat.pb"]).read_bytes()
+        )
+        first_ms = _serve(index, q, np.arange(batch), k)[0]
+        steady = [_serve(index, q, np.arange(batch), k)[0] for _ in range(5)]
+        out.update(first_query_ms=first_ms, steady_ms_per_batch=steady,
+                   strategy=index.resolve_strategy(batch, k))
+        out["query_equal"] = query_out == _query_lines(index, q_keys, q, k)
+
+        test_out = run("test", ["test", "--vectors", p["vecs.bin"], "--index", p["flat.pb"],
+                                "--sample", "1000"])
+        cli_r10 = float(test_out.split("R@10: ")[1].split()[0])
+        xn = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-30)
+        truth = gt.sample_ground_truth(keys, xn, num_samples=1000, ks=(1, 10))
+        rec = {
+            "fused": gt.recall_of(index, truth, xn, keys)[10].mean,
+            "decode": gt.recall_of(
+                dataclasses.replace(index, scan_strategy="decode"), truth, xn, keys)[10].mean,
+        }
+        out["recall10"] = dict(cli_test=cli_r10, **rec)
+        out["recall10_ratio"] = {
+            "cli_test": cli_r10 / max(rec["decode"], 1e-12),
+            "fused": rec["fused"] / max(rec["decode"], 1e-12),
+        }
+
+        run("add", ["add-vectors", "--index", p["flat.pb"], "-o", p["added.pb"], p["new.txt"]])
+        added_out = run("query_added", ["query", "-k", "1", "--index", p["added.pb"], p["new.txt"]])
+        firsts = [ln.split(": ") for ln in added_out.splitlines()]
+        out["added_find_themselves"] = sum(a == b for a, b in firsts)
+        run("remove", ["remove-keys", "--index", p["added.pb"], "-o", p["removed.pb"],
+                       "--keys-file", p["new.keys"]])
+        removed_out = run("query_removed", ["query", "-k", "10", "--index", p["removed.pb"],
+                                            p["new.txt"]])
+        out["removed_seen_again"] = sum(
+            w.startswith("new") for ln in removed_out.splitlines()
+            for w in ln.split(": ")[1].split(",")
+        )
+
+        run("build_ivf", ["build-index", "--metric", "cosine", "-m", "8", "-k", "256",
+                          "-n", "25", "-p", "-o", p["ivf.pb"], p["vecs.bin"]])
+        ivf_out = run("query_ivf", ["query", "-k", "10", "--index", p["ivf.pb"], p["q.txt"]])
+        ivf = gt.load_index(p["ivf.pb"])
+        out["ivf"] = dict(
+            partitions=ivf.num_partitions, probe=ivf.strategy.count,
+            strategy=ivf.resolve_strategy(batch, k),
+            query_equal=ivf_out == _query_lines(ivf, q_keys, q, k),
+            recall10=gt.recall_of(ivf, truth, xn, keys)[10].mean,
+        )
+        del ivf
+
+        run("build_opq", ["build-index", "--metric", "cosine", "-m", "8", "-k", "256",
+                          "-n", "25", "--opq", "4", "-o", p["opq.pb"], p["vecs.bin"]])
+        opq_out = run("query_opq", ["query", "-k", "10", "--index", p["opq.pb"], p["q.txt"]])
+        opq = gt.load_index(p["opq.pb"])
+        out["opq"] = dict(
+            query_equal=opq_out == _query_lines(opq, q_keys, q, k),
+            recall10=gt.recall_of(opq, truth, xn, keys)[10].mean,
+            rotation=list(opq.rotation.shape),
+        )
+        del opq
+
+        run("build_exact", ["build-index", "--metric", "cosine", "--exact", "-o",
+                            p["exact.npz"], p["vecs.bin"]])
+        exact_out = run("query_exact", ["query", "-k", "10", "--index", p["exact.npz"],
+                                        p["q.txt"]])
+        exact = gt.load_index(p["exact.npz"])
+        out["exact"] = dict(
+            strategy=exact.resolve_strategy(k),
+            query_equal=exact_out == _query_lines(exact, q_keys, q, k),
+        )
+        del exact
+        out["launches"] = dict(run.launches)
+        out["cli_seconds"] = run.seconds
+
+        env = dict(os.environ, PYTHONPATH=_ROOT)
+        t0 = time.perf_counter()
+        fresh = subprocess.run(
+            [sys.executable, "-m", "gulon_tpu_torch.cli", "query", "-k", "10", "--index",
+             p["flat.pb"], p["q.txt"]],
+            capture_output=True, text=True, env=env, cwd=_ROOT, timeout=600,
+        )
+        out["fresh_process"] = dict(
+            rc=fresh.returncode, seconds=time.perf_counter() - t0,
+            stdout_equal=fresh.stdout == query_out,
+        )
+        out["serve"] = _serve_check(index, p["flat.pb"], q, env)
+    out["golden"] = _golden_check(smi)
+    _emit({"phase": "cli_path", **out})
+
+    checks = {
+        "query_equal": out["query_equal"], "resave": out["resave_bytes_equal"],
+        "cli_test_ratio": out["recall10_ratio"]["cli_test"] >= 0.97,
+        "fused_ratio": out["recall10_ratio"]["fused"] >= 0.97,
+        "added": out["added_find_themselves"] == 1000,
+        "removed": out["removed_seen_again"] == 0,
+        "ivf_query": out["ivf"]["query_equal"], "ivf_pallas": out["ivf"]["strategy"] == "pallas",
+        "opq_query": out["opq"]["query_equal"],
+        "opq_recall": out["opq"]["recall10"] >= rec["fused"] - 0.01,
+        "exact_query": out["exact"]["query_equal"],
+        "exact_pallas": out["exact"]["strategy"] == "pallas",
+        "flat_pallas": out["strategy"] == "pallas",
+        "k1": run.launches["K1"] > 0, "k2": run.launches["K2"] > 0,
+        "fresh": out["fresh_process"]["rc"] == 0 and out["fresh_process"]["stdout_equal"],
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli_path checks failed: {failed}")
+    return out
 
 
 def _kernel_entry(name, source, replaces, launches, max_abs_err, case, **extra) -> dict:
@@ -1153,14 +1544,18 @@ def main(argv=None) -> int:
     dense_k = phase_dense_kernel(args.seed, x2m, glove, lpb)
     del glove, x2m
     ivf = phase_ivf_path(args.seed)
+    phase_kmeans_determinism(args.seed)
+    cli = phase_cli_path(args.seed, smi)
     k2, k3 = dense_k["k2"], dense_k["k3"]
+    cli_l = cli["launches"]
     _emit({"kernels": [
         _kernel_entry(
             "adc_scan", "gulon_tpu_torch/csrc/adc_scan.cu",
             "gulon_tpu/ops/pallas/adc.py:276",
-            main_path["launches"] + ivf["launches"],
+            main_path["launches"] + ivf["launches"] + cli_l["K1"],
             max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"]), k1,
-            launches_by_path={"flat": main_path["launches"], "ivf": ivf["launches"]},
+            launches_by_path={"flat": main_path["launches"], "ivf": ivf["launches"],
+                              "cli": cli_l["K1"]},
             ivf_w4={k: ivf["kernel"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
                 "launches_per_batch")},
@@ -1168,8 +1563,10 @@ def main(argv=None) -> int:
         _kernel_entry(
             "dense_scan_bf16", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:89",
-            exact["launches_k2"] + cached["launches"], dense_k["k2_max_abs_err"], k2,
-            launches_by_path={"exact": exact["launches_k2"], "cached": cached["launches"]},
+            exact["launches_k2"] + cached["launches"] + cli_l["K2"],
+            dense_k["k2_max_abs_err"], k2,
+            launches_by_path={"exact": exact["launches_k2"], "cached": cached["launches"],
+                              "cli": cli_l["K2"]},
             cache_400k={k: dense_k["k2_cache"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
                 "launches_per_batch")},
@@ -1177,7 +1574,8 @@ def main(argv=None) -> int:
         _kernel_entry(
             "dense_scan_i8", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:419",
-            exact["launches_k3"], dense_k["k3_max_abs_err"], k3,
+            exact["launches_k3"] + cli_l["K3"], dense_k["k3_max_abs_err"], k3,
+            launches_by_path={"exact": exact["launches_k3"], "cli": cli_l["K3"]},
         ),
     ]})
     print(smi, flush=True)

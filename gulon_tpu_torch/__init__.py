@@ -13,9 +13,14 @@ key indices, ``Metric``, the update helpers, ``SummaryStats``,
 
 Ported so far: the flat main path (build a flat PQ index, answer batched
 top-k queries through the fused scan, measure recall), the flat
-``cached`` strategy, the exact brute-force index, and the IVF residual
-index (build, probe strategies, all four scan strategies, probe-limit
-tuning).
+``cached`` strategy, the exact brute-force index, the IVF residual index
+(build, probe strategies, all four scan strategies, probe-limit tuning),
+``add``/``remove`` on every index, OPQ rotations and k-means++ seeding,
+the reference's protobuf index files (``utils/serde.py``, read and
+written without the protobuf library), the word2vec readers and writers,
+the command line (``python -m gulon_tpu_torch.cli``) and the line server
+(``server.py``). Still to come: streaming builds, sharded serving and
+ahead-of-time serving.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +56,17 @@ _EXPORTS = {
     "flat_index_from_numpy": "gulon_tpu_torch.interop",
     "exact_index_from_numpy": "gulon_tpu_torch.interop",
     "from_reference": "gulon_tpu_torch.interop",
+    "train_opq": "gulon_tpu_torch.ops.opq",
+    "reconstruction_mse": "gulon_tpu_torch.ops.opq",
+    "WordVectors": "gulon_tpu_torch.utils.word2vec",
+    "read_word2vec": "gulon_tpu_torch.utils.word2vec",
+    "read_word2vec_path": "gulon_tpu_torch.utils.word2vec",
+    "write_word2vec": "gulon_tpu_torch.utils.word2vec",
+    "read_word2vec_bin": "gulon_tpu_torch.utils.word2vec",
+    "write_word2vec_bin": "gulon_tpu_torch.utils.word2vec",
+    "sniff_word2vec_binary": "gulon_tpu_torch.utils.word2vec",
+    "load_index": "gulon_tpu_torch.utils.serde",
+    "save_index": "gulon_tpu_torch.utils.serde",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__"]

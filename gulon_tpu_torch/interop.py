@@ -115,11 +115,14 @@ def ivf_index_from_numpy(
     )
 
 
+def _rotation_tensor(ref, device):
+    rotation = getattr(ref, "rotation", None)
+    if rotation is None:
+        return None
+    return torch.from_numpy(np.array(rotation, np.float32)).to(device)
+
+
 def _ivf_from_reference(ref, device) -> IVFIndex:
-    if getattr(ref, "rotation", None) is not None:
-        raise NotImplementedError(
-            "OPQ rotations come with slice 4 of the PyTorch port"
-        )
     # the JAX strategy classes live in a jax-importing module: map by
     # their proto value (LIMIT_GROUPS=0, LIMIT_VECTORS=2) and count
     kind = {0: LimitGroups, 2: LimitVectors}[ref.strategy.proto_value]
@@ -139,6 +142,7 @@ def _ivf_from_reference(ref, device) -> IVFIndex:
     )
     for name in _IVF_KNOBS:
         setattr(index, name, getattr(ref, name))
+    index.rotation = _rotation_tensor(ref, device)
     cache = getattr(ref, "recon_cache", None)
     if cache is not None:
         bf16 = str(cache.dtype) == "bfloat16"
@@ -186,8 +190,8 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     which it serves unchanged. An IVF index is recognised by ``centroids``
     and ``group_ids``; its strategy carries across by kind and count. A
     flat or IVF index with a decoded cache gets its cache rebuilt (the
-    decode is exact) in the same dtype. Packed codes and OPQ rotations
-    come with later slices of the port."""
+    decode is exact) in the same dtype; an OPQ rotation carries across.
+    Packed codes come with a later slice of the port."""
     ref = jax_index
     if hasattr(ref, "vectors") and not hasattr(ref, "pq"):
         return _exact_from_reference(ref, device, prepared_i8)
@@ -198,10 +202,6 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     if getattr(ref, "packed_width", 0):
         raise NotImplementedError(
             "packed codes (pack_memory) come with a later slice of the port"
-        )
-    if getattr(ref, "rotation", None) is not None:
-        raise NotImplementedError(
-            "OPQ rotations come with a later slice of the port"
         )
     index = flat_index_from_numpy(
         ref.key_index.keys,
@@ -215,6 +215,7 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     )
     for name in _KNOBS:
         setattr(index, name, getattr(ref, name))
+    index.rotation = _rotation_tensor(ref, device)
     cache = getattr(ref, "decoded_cache", None)
     if cache is not None or getattr(ref, "_cache_aug", None) is not None:
         bf16 = cache is None or str(cache.dtype) == "bfloat16"

@@ -8,8 +8,11 @@
   (``WordVectors.scala:24-58``) -> train PQ on the residuals -> encode ->
   row constants -> ``IVFIndex``.
 
-OPQ rotations and mesh (multi-device) builds come with later slices of
-the port.
+With ``opq_iters > 0`` both learn an OPQ rotation (``ops/opq.py``)
+first. ``PQConfig.init`` and ``coarse_init`` pick the k-means seeding
+(``"sample"`` or ``"kmeans++"``); ``report_fn`` receives the k-means
+progress of every training. Mesh (multi-device) builds come with the
+parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.models.flat import FlatIndex
 from gulon_tpu_torch.models.ivf import IVFIndex, LimitGroups, Strategy
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, fit_kmeans
+from gulon_tpu_torch.ops.opq import train_opq
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
+from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 from gulon_tpu_torch.utils.word2vec import WordVectors
 
@@ -36,11 +41,9 @@ def _normalize_np(x: np.ndarray) -> np.ndarray:
     return np.where(norms > 0, x / np.where(norms > 0, norms, 1.0), x)
 
 
-def _encode_chunked(
-    pq: ProductQuantizer, x: np.ndarray, chunk: int
-) -> torch.Tensor:
-    """Encode host rows ``chunk`` at a time on the quantizer's device;
-    the codes stay there."""
+def _encode_chunked(pq: ProductQuantizer, x, chunk: int) -> torch.Tensor:
+    """Encode rows (host or device) ``chunk`` at a time on the quantizer's
+    device; the codes stay there."""
     parts = [pq.encode(x[start : start + chunk]) for start in range(0, len(x), chunk)]
     if not parts:
         return torch.zeros(
@@ -64,12 +67,10 @@ def build_flat_index(
     """Linear build: sort -> PQ train -> encode (``BuildIndex.scala:84-93``).
 
     ``vectors`` is host data (numpy or nested lists); training sample,
-    codes and norms live on ``device``."""
-    if opq_iters > 0:
-        raise NotImplementedError(
-            "OPQ rotations (opq_iters > 0) come with a later slice of the "
-            "PyTorch port"
-        )
+    codes and norms live on ``device``. With ``opq_iters > 0`` a rotation
+    is learned first and the codes quantize ``x @ rotation``
+    (``gulon_tpu/models/build.py:86-111``); queries rotate inside the
+    index."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh builds come with the parallel slice of the PyTorch port"
@@ -85,7 +86,12 @@ def build_flat_index(
     keys = keys[order]
     x = x[order]
 
-    pq = train_product_quantizer(x, pq_config, report_fn, device=device)
+    rotation = None
+    if opq_iters > 0:
+        rotation, pq = train_opq(x, pq_config, opq_iters=opq_iters, device=device)
+        x = matmul(torch.from_numpy(x).to(device), rotation, "highest")
+    else:
+        pq = train_product_quantizer(x, pq_config, report_fn, device=device)
     codes = _encode_chunked(pq, x, encode_chunk)
     recon_norms = pq.reconstruction_norms(codes)
     return FlatIndex(
@@ -94,6 +100,7 @@ def build_flat_index(
         codes=codes,
         recon_norms=recon_norms,
         metric=metric,
+        rotation=rotation,
     )
 
 
@@ -213,11 +220,10 @@ def build_ivf_index(
     ``max_partition_size`` splits oversized partitions into
     capacity-bounded children. The coarse init draws from
     ``torch.Generator``, not ``jax.random``, so a build matches the JAX
-    package's by recall, not id for id."""
-    if opq_iters > 0:
-        raise NotImplementedError(
-            "OPQ rotations (opq_iters > 0) come with slice 4 of the PyTorch port"
-        )
+    package's by recall, not id for id. With ``opq_iters > 0`` the
+    rotation is learned on the coarse residuals and applied as a global
+    basis change to residuals and centroids, which leaves the coarse
+    assignment exact (``gulon_tpu/models/build.py:284-300``)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh builds come with the parallel slice of the PyTorch port"
@@ -254,12 +260,19 @@ def build_ivf_index(
     grouped = WordVectors(keys, x).grouped(coarse_cents, coarse_assign)
 
     residuals = grouped.residuals()
-    pq = train_product_quantizer(residuals, pq_config, report_fn, device=device)
+    centroids = torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device)
+    rotation = None
+    if opq_iters > 0:
+        rotation, pq = train_opq(residuals, pq_config, opq_iters=opq_iters, device=device)
+        residuals = matmul(torch.from_numpy(residuals).to(device), rotation, "highest")
+        centroids = matmul(centroids, rotation, "highest")
+    else:
+        pq = train_product_quantizer(residuals, pq_config, report_fn, device=device)
     codes = _encode_chunked(pq, residuals, encode_chunk)
     # per-row constant of the expanded residual distance,
     # ||r^||^2 + 2<c_g, r^>, by per-partition LUT gathers
     row_const = pq.reconstruction_norms(codes) + 2.0 * pq.centroid_code_dot(
-        codes, grouped.centroids, grouped.group_ids
+        codes, centroids, grouped.group_ids
     )
     return IVFIndex(
         _key_index=GroupedKeyIndex(grouped.keys, grouped.group_offsets),
@@ -267,7 +280,8 @@ def build_ivf_index(
         codes=codes,
         row_const=row_const,
         group_ids=torch.from_numpy(grouped.group_ids).to(device),
-        centroids=torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device),
+        centroids=centroids,
         metric=metric,
         strategy=strategy,
+        rotation=rotation,
     )

@@ -18,8 +18,11 @@ batch. Scan strategies:
   codes on a CUDA device and inside the kernel's limits -> pallas;
   otherwise decode.
 
-``pack_memory``, ``add``/``remove`` and OPQ rotations come with later
-slices of the port.
+An OPQ ``rotation`` (``ops/opq.py``) rotates the queries at full f32
+before any strategy and is undone by :meth:`FlatIndex.lookup`.
+:meth:`FlatIndex.add` and :meth:`FlatIndex.remove` return a new index
+whose lazy operands are all cleared. ``pack_memory`` comes with the
+packed-serving slice of the port (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from gulon_tpu_torch.models import update as up
 from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.keyindex import SortedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
@@ -37,6 +41,7 @@ from gulon_tpu_torch.ops import scan as scan_ops
 from gulon_tpu_torch.ops.cuda.dense import dense_scan_fused, prepare_data
 from gulon_tpu_torch.ops.distance import normalize_rows
 from gulon_tpu_torch.ops.pq import ProductQuantizer
+from gulon_tpu_torch.ops.precision import matmul
 
 # Below this many queries the LUT scan moves less data than decode.
 _AUTO_LUT_MAX_QUERIES = 4
@@ -76,6 +81,10 @@ class FlatIndex(Index):
     pallas_winners: int = 0
     # [N, m*dsub] decoded codes for the "cached" strategy (enable_cache)
     decoded_cache: Optional[torch.Tensor] = None
+    # [D, D] learned OPQ rotation (ops/opq.py): the codes quantize
+    # x @ rotation, queries rotate in _prepare_queries, lookup un-rotates;
+    # None = plain PQ. Orthogonal, so reported distances are unchanged
+    rotation: Optional[torch.Tensor] = None
     # query-invariant [m, N] kernel code operand, built lazily
     _pallas_codes_t: Optional[torch.Tensor] = None
     # dense-kernel operand over the decoded cache (norm lanes appended),
@@ -109,6 +118,8 @@ class FlatIndex(Index):
             )
         if self.metric.normalized:
             q = normalize_rows(q)  # Index.scala:324-331
+        if self.rotation is not None:
+            q = matmul(q, self.rotation, "highest")
         return q
 
     def batch_query(self, k: int, vectors) -> List[Result]:
@@ -289,17 +300,66 @@ class FlatIndex(Index):
         self._cache_aug = None  # the dense-kernel operand rebuilds lazily
 
     def pack_memory(self) -> None:
-        _later("sub-byte code packing (pack_memory)", "packed-serving")
+        _later(
+            "sub-byte code packing (pack_memory, ROADMAP Queue 1 item 8)",
+            "packed-serving",
+        )
 
     def add(self, keys, vectors) -> "FlatIndex":
-        _later("FlatIndex.add", "updates")
+        """A new index with ``(keys, vectors)`` merged into the key sort
+        (``gulon_tpu/models/flat.py:437-470``). New rows are encoded with
+        the existing codebooks (frozen-PQ add, ``models/update.py``), after
+        the metric's normalization and the rotation; an extra over the
+        reference, which builds indices whole."""
+        keys_new, x = up.validate_add(keys, vectors, self.dimension)
+        xd = torch.from_numpy(x).to(self.device)
+        if self.metric.normalized:
+            xd = normalize_rows(xd)
+        if self.rotation is not None:
+            xd = matmul(xd, self.rotation, "highest")
+        codes_new = self.pq.encode(xd)
+        merged_keys, order = up.merge_sorted_order(self._key_index.keys, keys_new)
+        order = torch.from_numpy(order).to(self.device)
+        norms_new = self.pq.reconstruction_norms(codes_new)
+        return self._replace_rows(
+            merged_keys,
+            torch.cat([self.codes, codes_new])[order],
+            torch.cat([self.recon_norms, norms_new])[order],
+        )
 
     def remove(self, keys) -> "FlatIndex":
-        _later("FlatIndex.remove", "updates")
+        """A new index without the given keys (all occurrences);
+        ``KeyError`` for absent keys, ``ValueError`` on emptying."""
+        keep = up.removal_mask(self._key_index.keys, keys)
+        rows = torch.from_numpy(np.flatnonzero(keep)).to(self.device)
+        return self._replace_rows(
+            self._key_index.keys[keep], self.codes[rows], self.recon_norms[rows]
+        )
+
+    def _replace_rows(
+        self, keys: np.ndarray, codes: torch.Tensor, norms: torch.Tensor
+    ) -> "FlatIndex":
+        """The index over a new row set: every lazy operand covers the old
+        rows, so all of them are cleared and rebuild on first use (a stale
+        kernel operand would serve the old rows)."""
+        return dataclasses.replace(
+            self,
+            _key_index=SortedKeyIndex(keys),
+            codes=codes,
+            recon_norms=norms,
+            decoded_cache=None,
+            _pallas_codes_t=None,
+            _cache_aug=None,
+            _auto_rerank=None,
+            _auto_dup=None,
+        )
 
     def lookup(self, word: str) -> Optional[np.ndarray]:
         row = self._key_index.lookup(word)
         if row is None:
             return None
         rec = self.pq.decode(self.codes[row : row + 1])
+        if self.rotation is not None:
+            # the codes live in the rotated basis; map back
+            rec = matmul(rec, self.rotation.T, "highest")
         return rec.cpu().numpy()[0]

@@ -34,7 +34,10 @@ strategies (``scan_strategy``):
 
 Both sublinear paths decode probed codes in flight, or scan the
 reconstruction cache of :meth:`IVFIndex.enable_cache` when one is built.
-``add``/``remove`` and OPQ rotations come with slice 4 of the port.
+An OPQ ``rotation`` is a global basis change: centroids and codebooks are
+stored rotated, queries rotate at full f32, :meth:`IVFIndex.lookup`
+rotates back. :meth:`IVFIndex.add` and :meth:`IVFIndex.remove` return a
+new index whose lazy operands are all cleared.
 """
 
 from __future__ import annotations
@@ -45,11 +48,12 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from gulon_tpu_torch.models import update as up
 from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.keyindex import GroupedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
-from gulon_tpu_torch.ops.distance import normalize_rows, sq_norms
+from gulon_tpu_torch.ops.distance import nearest, normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.ops.topk import smallest_k
@@ -75,12 +79,6 @@ class LimitVectors:
 
 
 Strategy = Union[LimitGroups, LimitVectors]
-
-
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} comes with slice 4 (updates, OPQ) of the PyTorch port"
-    )
 
 
 def _probe_mask_limit_groups(cdist: torch.Tensor, count: int) -> torch.Tensor:
@@ -576,6 +574,9 @@ class IVFIndex(Index):
     topk_impl: str = "approx"
     recall_target: float = 0.95
     scan_strategy: str = "auto"  # auto|masked|pallas|gathered|bucketed
+    # [D, D] learned OPQ rotation (ops/opq.py), a global basis change:
+    # centroids and codebooks are stored rotated; None = plain PQ
+    rotation: Optional[torch.Tensor] = None
     recon_cache: Optional[torch.Tensor] = None  # [N + pad, D], enable_cache
     recon_norms_cache: Optional[torch.Tensor] = None  # [N + pad] f32
     _codes_pad: Optional[torch.Tensor] = None  # [N + pad, m], built lazily
@@ -739,7 +740,7 @@ class IVFIndex(Index):
         return strategy
 
     def _prepare_queries(self, vectors) -> torch.Tensor:
-        """Validate shape and normalize for cosine."""
+        """Validate shape, normalize for cosine, apply the rotation."""
         q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
         if q.ndim != 2 or q.shape[1] != self.dimension:
             raise ValueError(
@@ -747,6 +748,8 @@ class IVFIndex(Index):
             )
         if self.metric.normalized:
             q = normalize_rows(q)  # Index.scala:268-269
+        if self.rotation is not None:
+            q = matmul(q, self.rotation, "highest")
         return q
 
     def query_arrays(self, k: int, vectors):
@@ -885,17 +888,85 @@ class IVFIndex(Index):
         self.recon_norms_cache = norms
 
     def add(self, keys, vectors) -> "IVFIndex":
-        _later("IVFIndex.add")
+        """A new index with ``(keys, vectors)`` merged in
+        (``gulon_tpu/models/ivf.py:1215-1261``): each new row goes to its
+        nearest coarse centroid (after the metric's normalization and the
+        rotation), its residual is encoded with the existing codebooks and
+        its row constant computed; rows land in their partition's range
+        with keys sorted within each group."""
+        keys_new, x = up.validate_add(keys, vectors, self.dimension)
+        dev = self.device
+        xd = torch.from_numpy(x).to(dev)
+        if self.metric.normalized:
+            xd = normalize_rows(xd)
+        if self.rotation is not None:
+            xd = matmul(xd, self.rotation, "highest")
+        gid_new = nearest(xd, self.centroids)
+        codes_new = self.pq.encode(xd - self.centroids[gid_new.long()])
+        rc_new = self.pq.reconstruction_norms(codes_new) + 2.0 * self.pq.centroid_code_dot(
+            codes_new, self.centroids, gid_new
+        )
+        merged_keys, gids, offsets, order = up.merge_grouped_order(
+            self.group_ids.cpu().numpy(), self._key_index.keys,
+            gid_new.cpu().numpy(), keys_new, self.num_partitions,
+        )
+        order = torch.from_numpy(order).to(dev)
+        return self._replace_rows(
+            GroupedKeyIndex(merged_keys, offsets),
+            torch.cat([self.codes, codes_new])[order],
+            torch.cat([self.row_const, rc_new])[order],
+            torch.from_numpy(gids).to(dev),
+        )
 
     def remove(self, keys) -> "IVFIndex":
-        _later("IVFIndex.remove")
+        """A new index without the given keys (all occurrences). A
+        partition may become empty; its centroid stays, so group ids stay
+        stable. ``KeyError`` for absent keys, ``ValueError`` on emptying."""
+        keep = up.removal_mask(self._key_index.keys, keys)
+        keep_idx = np.flatnonzero(keep)
+        gids = self.group_ids.cpu().numpy()[keep_idx]
+        counts = np.bincount(gids, minlength=self.num_partitions)
+        offsets = np.cumsum(counts)[:-1].astype(np.int32)
+        rows = torch.from_numpy(keep_idx).to(self.device)
+        return self._replace_rows(
+            GroupedKeyIndex(self._key_index.keys[keep], offsets),
+            self.codes[rows],
+            self.row_const[rows],
+            torch.from_numpy(gids).to(self.device),
+        )
+
+    def _replace_rows(
+        self,
+        key_index: GroupedKeyIndex,
+        codes: torch.Tensor,
+        row_const: torch.Tensor,
+        group_ids: torch.Tensor,
+    ) -> "IVFIndex":
+        """The index over a new row set with every lazy operand cleared
+        (caches, padded operands, the kernel's partition-padded layout,
+        the partition sizes): they rebuild on first use."""
+        return dataclasses.replace(
+            self,
+            _key_index=key_index,
+            codes=codes,
+            row_const=row_const,
+            group_ids=group_ids,
+            recon_cache=None,
+            recon_norms_cache=None,
+            _codes_pad=None,
+            _row_const_pad=None,
+            _pallas_layout=None,
+            _sizes_dev=None,
+        )
 
     def lookup(self, word: str) -> Optional[np.ndarray]:
         """Decode residual + add the partition centroid
-        (``Index.scala:247-254``)."""
+        (``Index.scala:247-254``), in the original basis."""
         row = self._key_index.lookup(word)
         if row is None:
             return None
         g = self._key_index.group_of(row)
         rec = self.pq.decode(self.codes[row : row + 1])[0] + self.centroids[g]
+        if self.rotation is not None:
+            rec = matmul(rec[None], self.rotation.T, "highest")[0]
         return rec.cpu().numpy()

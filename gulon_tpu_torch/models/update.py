@@ -59,7 +59,11 @@ def removal_mask(index_keys: np.ndarray, keys) -> np.ndarray:
     req = np.asarray(list(dict.fromkeys(keys_arr)), dtype=object)
     if len(req) == 0:
         raise ValueError("remove() needs at least one key")
-    drop = np.isin(index_keys, req)
+    # set membership: np.isin sorts object arrays (4 s at 400,000 keys)
+    wanted = set(req.tolist())
+    drop = np.fromiter(
+        (k in wanted for k in index_keys), dtype=bool, count=len(index_keys)
+    )
     present = set(index_keys[drop].tolist())
     missing: List[str] = [k for k in req.tolist() if k not in present]
     if missing:
@@ -79,3 +83,33 @@ def merge_sorted_order(
     all_keys = np.concatenate([old_keys, new_keys])
     order = np.argsort(all_keys, kind="stable")
     return all_keys[order], order
+
+
+def merge_grouped_order(
+    old_gids: np.ndarray,
+    old_keys: np.ndarray,
+    new_gids: np.ndarray,
+    new_keys: np.ndarray,
+    num_groups: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Stable (group, key) merge for grouped indices.
+
+    Returns ``(keys, gids, internal group offsets, permutation)`` over
+    ``concat(old, new)`` — the row order the sublinear builder produces
+    (``WordVectors.scala:24-58``: stable sort by (cluster, word)), with
+    offsets recomputed from group counts. Groups may be empty after
+    removals; centroids are kept so group ids stay stable.
+    """
+    all_gids = np.concatenate(
+        [np.asarray(old_gids), np.asarray(new_gids)]
+    ).astype(np.int32)
+    all_keys = np.concatenate([old_keys, new_keys])
+    # two-pass stable sort == lexsort by (gid major, key minor); np.lexsort
+    # does not accept object-dtype keys, argsort(kind="stable") does
+    o1 = np.argsort(all_keys, kind="stable")
+    o2 = np.argsort(all_gids[o1], kind="stable")
+    order = o1[o2]
+    gids = all_gids[order]
+    counts = np.bincount(gids, minlength=num_groups)
+    offsets = np.cumsum(counts)[:-1].astype(np.int32)
+    return all_keys[order], gids, offsets, order

@@ -5,15 +5,19 @@ Counterpart of ``gulon_tpu/ops/kmeans.py`` (reference ``KMeans.scala``):
 - assignment is a blocked matmul + argmin (``||c||^2 - 2<x,c>``,
   ``KMeans.scala:37-52``), so no ``[n, k]`` score matrix of the whole
   input is ever held;
-- the centroid update is a segment sum of the rows by cluster; empty
-  clusters become zero vectors (``KMeans.scala:198-226``);
+- the centroid update is a blocked one-hot matmul at full f32, the
+  reference's segment sum (``gulon_tpu/ops/kmeans.py:154``): it adds in a
+  fixed order, so a fixed input gives the same bits on every run, on the
+  card too; empty clusters become zero vectors (``KMeans.scala:198-226``);
 - all m subspaces of a stacked ``[m, n, d]`` input train at once, and
   each stops at its own fixpoint ("assignment unchanged",
   ``KMeans.scala:149``): a converged subspace keeps its centroids and
   assignments while the others iterate.
 
 The JAX version runs the loop inside ``lax.while_loop``; here it is a
-Python loop that reads the ``done`` mask back once per iteration.
+Python loop that reads the ``done`` mask back once per iteration. The
+init is a uniform row sample or k-means++ (D^2-weighted) seeding, both
+drawn from ``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -37,8 +41,7 @@ class KMeansConfig(NamedTuple):
     block_rows: int = 65536
     # matmul precision of the assignment, see ops/precision.py
     precision: str = "default"
-    # "sample" = uniform rows with replacement; "kmeans++" waits for a
-    # later slice of the port
+    # "sample" = uniform rows with replacement; "kmeans++" = D^2-weighted
     init: str = "sample"
 
 
@@ -67,19 +70,32 @@ def _assign_blocked(
     return out
 
 
+# elements of one [m, block, k] one-hot tile of the centroid update
+_UPDATE_TILE = 1 << 26
+
+
 def _update(x: torch.Tensor, assignments: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-cluster means ``[m, k, d]`` by segment sum; empty -> zeros."""
+    """Per-cluster means ``[m, k, d]``; empty clusters -> zeros.
+
+    The sums are blocked one-hot matmuls at full f32, block after block in
+    row order (``gulon_tpu/ops/kmeans.py:154-183``), so their order of
+    addition is fixed and a fixed input gives the same bits on every run;
+    ``index_add_`` adds with float atomics on the card, in no fixed order.
+    The counts are an integer ``bincount``."""
     m, n, d = x.shape
+    block = max(1, min(n, _UPDATE_TILE // max(m * k, 1)))
+    ids = torch.arange(k, device=x.device, dtype=assignments.dtype)
+    sums = torch.zeros((m, k, d), dtype=torch.float32, device=x.device)
+    for start in range(0, n, block):
+        a = assignments[:, start : start + block]
+        onehot = (a[:, :, None] == ids).to(torch.float32)  # [m, b, k]
+        sums += matmul(onehot.transpose(1, 2), x[:, start : start + block], "highest")
     seg = (
-        assignments.long()
-        + torch.arange(m, device=x.device)[:, None] * k
+        assignments.long() + torch.arange(m, device=x.device)[:, None] * k
     ).reshape(-1)
-    sums = torch.zeros((m * k, d), dtype=torch.float32, device=x.device)
-    sums.index_add_(0, seg, x.reshape(m * n, d))
-    counts = torch.bincount(seg, minlength=m * k).to(torch.float32)
-    means = sums / torch.clamp(counts, min=1.0)[:, None]
-    means = torch.where(counts[:, None] > 0, means, torch.zeros_like(means))
-    return means.reshape(m, k, d)
+    counts = torch.bincount(seg, minlength=m * k).reshape(m, k, 1).to(torch.float32)
+    means = sums / torch.clamp(counts, min=1.0)
+    return torch.where(counts > 0, means, torch.zeros_like(means))
 
 
 def draw_init_indices(
@@ -98,6 +114,45 @@ def draw_init_indices(
     return torch.stack(rows).to(device)
 
 
+def kmeans_pp_indices(x: torch.Tensor, k: int, seed: int) -> torch.Tensor:
+    """``[m, k]`` k-means++ seed rows of stacked ``[m, n, d]`` input
+    (Arthur-Vassilvitskii, as ``gulon_tpu/ops/kmeans.py:219-263``): the
+    first row uniform, each next row drawn with probability proportional
+    to its squared distance to the nearest row chosen so far, all m
+    subspaces a step at a time. Where every remaining distance is 0 the
+    draw is uniform. Subspace i draws from its own ``torch.Generator``
+    seeded from ``(seed, i)`` by inverting the distances' running sum, so
+    its rows do not depend on how many subspaces are stacked with it.
+    These are not ``jax.random``'s draws: pass ``init_indices=`` to
+    :func:`fit_kmeans` to replay those."""
+    m, n, _ = x.shape
+    dev = x.device
+    u = torch.stack([
+        torch.rand(k, generator=torch.Generator().manual_seed(
+            seed * 1_000_003 + i + 0x9E37), dtype=torch.float64)
+        for i in range(m)
+    ], dim=1).to(dev)  # [k, m]
+    xn = sq_norms(x)  # [m, n]
+    sub = torch.arange(m, device=dev)
+
+    def dist_to(picks):  # [m] rows -> [m, n] squared distances
+        c = x[sub, picks]  # [m, d]
+        ip = matmul(x, c[:, :, None], "highest")[..., 0]
+        return torch.clamp(xn + sq_norms(c)[:, None] - 2.0 * ip, min=0.0)
+
+    idx = torch.empty((m, k), dtype=torch.long, device=dev)
+    idx[:, 0] = torch.clamp((u[0] * n).long(), max=n - 1)
+    d2 = dist_to(idx[:, 0])
+    for j in range(1, k):
+        cdf = torch.cumsum(d2.double(), dim=1)  # [m, n]
+        total = cdf[:, -1]
+        drawn = torch.searchsorted(cdf, (u[j] * total)[:, None], right=True)[:, 0]
+        uniform = (u[j] * n).long()
+        idx[:, j] = torch.clamp(torch.where(total > 0, drawn, uniform), max=n - 1)
+        d2 = torch.minimum(d2, dist_to(idx[:, j]))
+    return idx
+
+
 def fit_kmeans(
     x,
     config: KMeansConfig,
@@ -109,21 +164,16 @@ def fit_kmeans(
     """Train k-means. ``x`` is ``[n, d]`` or stacked ``[m, n, d]``.
 
     ``init_indices`` (``[m, k]`` ints) overrides the seeded draw of
-    initial rows; the parity tests pass the JAX package's draw through
-    it. Host (numpy) input trains on ``device`` (default: the CUDA card,
-    with no CPU fallback); tensor input stays on its device (or moves to
-    ``device`` when given).
+    initial rows, for either init; the parity tests pass the JAX package's
+    draw through it. ``report_fn(iteration, step mean, converged count,
+    step std, step min, step max)`` is called once per Lloyd iteration
+    with the distribution of the centroids' movement over every
+    (subspace, centroid), the reference's ``KMeans.ProgressReport``
+    (``KMeans.scala:119-127,160-168``). Host (numpy) input trains on
+    ``device`` (default: the CUDA card, with no CPU fallback); tensor input
+    stays on its device (or moves to ``device`` when given).
     """
-    if report_fn is not None:
-        raise NotImplementedError(
-            "k-means progress reports (report_fn) come with a later slice "
-            "of the port"
-        )
-    if config.init == "kmeans++":
-        raise NotImplementedError(
-            "kmeans++ seeding comes with a later slice of the port"
-        )
-    if config.init != "sample":
+    if config.init not in ("sample", "kmeans++"):
         raise ValueError(
             f"unknown init {config.init!r} (expected 'sample' or 'kmeans++')"
         )
@@ -136,14 +186,16 @@ def fit_kmeans(
         x = x[None]
     m, n, _ = x.shape
     k = config.k
-    if init_indices is None:
-        idx = draw_init_indices(m, n, k, config.seed, x.device)
-    else:
+    if init_indices is not None:
         if not isinstance(init_indices, torch.Tensor):
             init_indices = torch.from_numpy(np.array(init_indices, np.int64))
         idx = init_indices.to(device=x.device, dtype=torch.long)
         if idx.shape != (m, k):
             raise ValueError(f"init_indices must be [{m}, {k}], got {tuple(idx.shape)}")
+    elif config.init == "kmeans++":
+        idx = kmeans_pp_indices(x, k, config.seed)
+    else:
+        idx = draw_init_indices(m, n, k, config.seed, x.device)
     centroids = torch.stack([x[i, idx[i]] for i in range(m)])
     bs = config.block_rows
     assignments = _assign_blocked(x, centroids, bs, config.precision)
@@ -155,8 +207,14 @@ def fit_kmeans(
         new_a = _assign_blocked(x, new_c, bs, config.precision)
         new_a = torch.where(done[:, None], assignments, new_a)
         done = done | torch.all(new_a == assignments, dim=1)
-        centroids, assignments = new_c, new_a
         it += 1
+        if report_fn is not None:
+            moved = torch.sqrt(torch.sum((new_c - centroids) ** 2, dim=-1))
+            stats = torch.stack([
+                moved.mean(), moved.std(unbiased=False), moved.min(), moved.max(),
+            ]).tolist()
+            report_fn(it, stats[0], int(done.sum()), stats[1], stats[2], stats[3])
+        centroids, assignments = new_c, new_a
     if squeeze:
         return KMeansResult(centroids[0], assignments[0], it, done[0])
     return KMeansResult(centroids, assignments, it, done)

@@ -463,21 +463,19 @@ def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
     port = interop.from_reference(jax_index, device="cpu")
     pq = PQConfig(num_clusters=8, num_quantizers=4, max_iters=2)
+    # add/remove, OPQ and rotations are ported (tests/test_torch_update.py,
+    # tests/test_torch_opq.py); mesh builds are still to come
     for call in (
-        lambda: port.add(["zz"], x[:1]),
-        lambda: port.remove([keys[0]]),
-        lambda: build_ivf_index(
-            keys[:500], x[:500], pq_config=pq, num_partitions=2, opq_iters=2, device="cpu"
-        ),
         lambda: build_ivf_index(
             keys[:500], x[:500], pq_config=pq, num_partitions=2, mesh=object(), device="cpu"
-        ),
-        lambda: interop.from_reference(
-            dataclasses.replace(jax_index, rotation=jnp.eye(D, dtype=jnp.float32)), device="cpu"
         ),
     ):
         with pytest.raises(NotImplementedError):
             call()
+    rotated = interop.from_reference(
+        dataclasses.replace(jax_index, rotation=jnp.eye(D, dtype=jnp.float32)), device="cpu"
+    )
+    assert torch.equal(rotated.rotation, torch.eye(D))
 
 
 def test_cpu_index_never_counts_a_kernel_launch(data, jax_index):

@@ -1,10 +1,13 @@
 """Port parity: stacked Lloyd k-means.
 
 ``jax.random`` cannot be replayed in torch, so the port's ``fit_kmeans``
-takes the JAX package's init draw through ``init_indices=``; with it and
-``precision="highest"`` the two loops follow the same trajectory up to
-f32 summation order: >= 99.9 % of assignments equal, centroids within
-atol 1e-4, equal iteration counts and convergence flags.
+takes the JAX package's init draw through ``init_indices=`` (the uniform
+sample or the k-means++ draw); with it and ``precision="highest"`` the
+two loops follow the same trajectory up to f32 summation order: >= 99.9 %
+of assignments equal, centroids within atol 1e-4, equal iteration counts
+and convergence flags. The centroid update is the JAX package's blocked
+one-hot sum (within 1e-5 relative), and the progress reports carry its
+six values.
 """
 
 import numpy as np
@@ -104,14 +107,92 @@ def test_seeded_init_is_per_subspace_and_deterministic():
 
 
 def test_deferred_options_raise():
+    """Every init and the progress callback are ported; what is left to
+    raise is an unknown init and a malformed injected draw."""
     x = _stacked(7, m=1, n=200)
-    with pytest.raises(NotImplementedError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="kmeans++"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tkm.fit_kmeans(x, tkm.KMeansConfig(k=4), report_fn=lambda *a: None, device="cpu")
     with pytest.raises(ValueError):
         tkm.fit_kmeans(x, tkm.KMeansConfig(k=4, init="bogus"), device="cpu")
     with pytest.raises(ValueError):
         tkm.fit_kmeans(
             x, tkm.KMeansConfig(k=4), device="cpu", init_indices=np.zeros((2, 4))
         )
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1999, 7), (4, 3000, 16), (3, 257, 64)])
+def test_update_matches_blocked_one_hot(m, n, k):
+    """The port's update against ``_update_blocked`` on the same
+    assignments, 1e-5 relative; a few clusters are left empty."""
+    rng = np.random.default_rng(m * 100 + k)
+    x = rng.normal(size=(m, n, 5)).astype(np.float32) * 3.0 + 1.0
+    a = rng.integers(0, k - 2, size=(m, n)).astype(np.int32)
+    got = tkm._update(torch.from_numpy(x), torch.from_numpy(a), k).numpy()
+    for i in range(m):
+        ref = np.asarray(jkm._update_blocked(x[i], a[i], k, 512))
+        np.testing.assert_allclose(got[i], ref, rtol=1e-5, atol=1e-6)
+        assert np.all(got[i, k - 2:] == 0.0)
+
+
+def test_update_is_blocked_in_row_order(monkeypatch):
+    """Tiles of a few rows give the same means as one tile, within f32
+    summation order: the block loop covers every row once."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 1000, 4)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(0, 9, size=(2, 1000)).astype(np.int32))
+    whole = tkm._update(x, a, 9)
+    monkeypatch.setattr(tkm, "_UPDATE_TILE", 2 * 9 * 37)  # 37-row tiles
+    np.testing.assert_allclose(
+        tkm._update(x, a, 9).numpy(), whole.numpy(), rtol=1e-5, atol=1e-6
+    )
+
+
+def test_kmeans_pp_with_injected_jax_draw():
+    """The JAX package's k-means++ rows through ``init_indices``: the same
+    init, so the same trajectory and equal assignments."""
+    x = _stacked(8, m=3, n=1500)
+    cfg = dict(k=12, max_iters=10, seed=4, precision="highest", init="kmeans++")
+    ref = jkm.fit_kmeans(x, jkm.KMeansConfig(**cfg))
+    init = np.asarray(jkm._pp_indices_stacked(x, k=12, seed=4))
+    got = tkm.fit_kmeans(x, tkm.KMeansConfig(**cfg), device="cpu", init_indices=init)
+    np.testing.assert_array_equal(got.assignments.numpy(), np.asarray(ref.assignments))
+    np.testing.assert_allclose(
+        got.centroids.numpy(), np.asarray(ref.centroids), atol=1e-4, rtol=0
+    )
+    assert got.iterations == int(ref.iterations)
+
+
+def test_kmeans_pp_draw_is_seeded_and_spread():
+    """The port's own D^2 draw: deterministic per (seed, subspace), free
+    of repeats on distinct rows, every subspace independent of the
+    stacking, and a lower starting objective than the uniform draw on a
+    planted mixture."""
+    x = torch.from_numpy(_stacked(9, m=3, n=2000, k=12))
+    a = tkm.kmeans_pp_indices(x, 12, seed=5)
+    b = tkm.kmeans_pp_indices(x[:2], 12, seed=5)
+    assert a.shape == (3, 12)
+    np.testing.assert_array_equal(a[:2].numpy(), b.numpy())
+    assert all(len(set(row.tolist())) == 12 for row in a)
+    assert not torch.equal(a, tkm.kmeans_pp_indices(x, 12, seed=6))
+    uni = tkm.draw_init_indices(3, 2000, 12, 5)
+
+    def start_objective(idx):
+        c = torch.stack([x[i, idx[i]] for i in range(3)])
+        return float(((x[:, :, None] - c[:, None]) ** 2).sum(-1).min(-1).values.mean())
+
+    assert start_objective(a) < start_objective(uni)
+    all_same = torch.ones((1, 50, 3))
+    assert int(tkm.kmeans_pp_indices(all_same, 4, seed=0).max()) < 50
+
+
+def test_report_fn_once_per_iteration():
+    """Six values per Lloyd iteration: iteration, step mean, converged
+    count, step std, min and max of the centroids' movement."""
+    x = _stacked(10, m=2, n=800)
+    seen = []
+    res = tkm.fit_kmeans(
+        x, tkm.KMeansConfig(k=8, max_iters=6, seed=1), report_fn=lambda *a: seen.append(a),
+        device="cpu",
+    )
+    assert [r[0] for r in seen] == list(range(1, res.iterations + 1))
+    for it, mean, done, std, lo, hi in seen:
+        assert lo <= mean <= hi and std >= 0.0 and 0 <= done <= 2
+    assert seen[-1][2] == int(res.converged.sum())

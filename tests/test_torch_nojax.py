@@ -1,7 +1,11 @@
 """The port stands alone: a fresh interpreter imports ``gulon_tpu_torch``,
-builds, queries (fused, cached, exact and IVF paths) and measures recall on
-the CPU, and never loads ``jax`` or any module of the JAX package
-``gulon_tpu``. The port's sources (and ``chip_smoke.py``) import neither."""
+builds, queries (fused, cached, exact and IVF paths), measures recall,
+adds and removes rows, trains OPQ, saves and loads index files, reads
+word2vec files, drives the command line and answers a server request on
+the CPU, and never loads ``jax``, any module of the JAX package
+``gulon_tpu`` or ``google.protobuf`` (a GPU host need not have
+protobuf). The port's sources (and ``chip_smoke.py``) import none of
+them."""
 
 import pathlib
 import re
@@ -56,7 +60,41 @@ for strategy in ("masked", "pallas", "gathered", "bucketed"):
 ivf.enable_cache()
 assert ivf.query_arrays(10, x[:16])[1].shape == (16, 10)
 assert gt.tune_probe_limit(ivf, x, keys, target_recall=0.1, num_samples=32).met
+
+import io, json, os, socket, tempfile, threading
+from contextlib import redirect_stdout
+from gulon_tpu_torch import cli
+from gulon_tpu_torch.server import QueryServer
+
+tmp = tempfile.mkdtemp()
+grown = ivf.add(["zz"], x[:1]).remove(["k00001"])
+opq = gt.build_flat_index(
+    keys, x, pq_config=gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=3),
+    opq_iters=1, device="cpu",
+)
+for name, idx in (("ivf.pb", grown), ("opq.pb", opq)):
+    gt.save_index(idx, os.path.join(tmp, name))
+    back = gt.load_index(os.path.join(tmp, name), device="cpu")
+    assert back.query_arrays(3, x[:4])[1].tolist() == idx.query_arrays(3, x[:4])[1].tolist()
+vecs = os.path.join(tmp, "v.bin")
+gt.write_word2vec_bin(gt.WordVectors(keys, x), vecs)
+assert gt.sniff_word2vec_binary(vecs)
+out = io.StringIO()
+with redirect_stdout(out):
+    assert cli.main(["build-index", "--metric", "l2", "-k", "16", "-m", "4", "-n", "3",
+                     "-o", os.path.join(tmp, "f.pb"), vecs], device="cpu") == 0
+    assert cli.main(["info", "--index", os.path.join(tmp, "f.pb")], device="cpu") == 0
+assert "FlatIndex" in out.getvalue()
+srv = QueryServer(back, port=0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+with socket.create_connection(srv.address, timeout=30) as sock:
+    f = sock.makefile("rwb")
+    f.write(json.dumps({"k": 2, "vector": x[5].tolist()}).encode() + b"\n")
+    f.flush()
+    assert len(json.loads(f.readline())["keys"][0]) == 2
+srv.shutdown()
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert not [m for m in sys.modules if m.startswith("google.protobuf")]
 ref = sorted(m for m in sys.modules if m == "gulon_tpu" or m.startswith("gulon_tpu."))
 assert ref == [], ref
 print("ok")
@@ -80,6 +118,16 @@ def _sources():
 
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_port_sources_import_no_protobuf():
+    """A GPU host need not have protobuf: the port reads and writes index
+    files with its own codec (``proto/index_wire.py``)."""
+    pattern = re.compile(
+        r"^\s*(import google|from google|import \S*_pb2|from \S+ import .*_pb2)", re.M
+    )
     offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
     assert offenders == []
 
