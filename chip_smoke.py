@@ -473,9 +473,11 @@ def k1_decoded(operands):
 # ---- kernel cases -----------------------------------------------------------
 
 
-def _k1_case(label, operands, winners, nblk, real, launches_per_batch) -> dict:
-    """One K1 case on the card: kernel against plain, times, bound and the
-    contraction-only matmul."""
+def _k1_case(label, operands, winners, nblk, real, launches_per_batch,
+             scale_of=None) -> dict:
+    """One K1 case on the card: kernel against plain (``scale_of(ref)``,
+    when given, is each winner's summand scale for :func:`compare_packed`),
+    times, bound and the contraction-only matmul."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
@@ -488,7 +490,7 @@ def _k1_case(label, operands, winners, nblk, real, launches_per_batch) -> dict:
     case = dict(
         case=label, winners=winners, shape=[q_op.shape[0], n_cols, m * cb.shape[2]],
         k_codes=cb.shape[1], code_dtype=str(codes_t.dtype).replace("torch.", ""),
-        **compare_packed(got, ref),
+        **compare_packed(got, ref, None if scale_of is None else scale_of(ref)),
     )
     if real is not None:
         case["winners_valid"] = winners_valid(got, real, winners, nblk) and winners_valid(
@@ -904,7 +906,48 @@ def phase_cached_path(glove) -> dict:
     return out
 
 
-def _ivf_kernel_check(index, q, launches_per_batch) -> dict:
+def _flat_kernel_check(index, q, launches_per_batch, phase: str) -> dict:
+    """K1 against its plain version on a flat index's own operands, built
+    as its ``pallas`` route builds them (centered, the index's winners),
+    for the prepared queries ``q``: :func:`compare_packed` with each
+    winner's summand scale ``|rn - c| + ||q||^2 + c + 2 ||q|| sqrt(rn)``
+    (``rn = ||r^||^2``, ``c`` the centering constant), the size of the f32
+    partial sums whose order differs (a self-query cancels toward 0)."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+
+    pq, winners = index.pq, index.resolved_pallas_winners()
+    if index._pallas_codes_t is None:
+        index._pallas_codes_t = adc.pack_codes_t(index.codes, pq.num_clusters)
+    ops = adc.prepare_scan_operands(
+        q, pq.codebooks, index._pallas_codes_t, index.recon_norms, bounds=pq.bounds,
+        tile_rows=0, num_rows=index.size, winners=winners, center_scores=True,
+    )
+    nblk = ops["t"] // 128
+    operands = (
+        ops["codes_t"], adc._split_hi_lo(ops["norms"], ops["center"]),
+        ops["q_pad"][: len(q)].to(torch.bfloat16),
+        pq.codebooks.to(torch.bfloat16).contiguous(),
+    )
+    q2 = (q * q).sum(1)[:, None]
+    center = ops["center"]
+
+    def scale_of(ref):
+        block, _ = winner_columns(ref.shape[1], winners, nblk, ref.device)
+        rows = torch.clamp(block[None, :] * 128 + (ref.view(torch.int32) & 127),
+                           max=index.size - 1).long()
+        rn = index.recon_norms[rows]
+        return (rn - center).abs() + q2 + center.abs() + 2.0 * torch.sqrt(q2 * rn)
+
+    case = _k1_case(phase, operands, winners, nblk, None, launches_per_batch, scale_of)
+    _emit({"phase": phase, **case})
+    if not case["ok"]:
+        raise AssertionError(f"K1 disagrees with its plain version on {phase}: {case}")
+    return case
+
+
+def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -> dict:
     """K1 at 4 winners, uncentered, against its plain version on the
     index's own partition-padded operands. Values within ``2^-14 *
     max(|v|, S)``, ``S = |rc| + 2 ||q|| ||r^||`` the scale of the winner
@@ -985,7 +1028,7 @@ def _ivf_kernel_check(index, q, launches_per_batch) -> dict:
         library_call="torch.matmul(queries, decoded rows^T), contraction only",
         launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
-    _emit({"phase": "ivf_kernel", **case})
+    _emit({"phase": phase, **case})
     ok = (
         case["id_equal"] >= 0.995 and case["values_ok"] and case["ties_ok"]
         and case["no_padding_winner_kernel"] and case["no_padding_winner_plain"]
@@ -1448,6 +1491,9 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
         del exact
         out["launches"] = dict(run.launches)
         out["cli_seconds"] = run.seconds
+        out["aot"] = _aot_check(
+            p, q, {"flat": query_out, "ivf": ivf_out, "exact": exact_out}, batch, k
+        )
 
         env = dict(os.environ, PYTHONPATH=_ROOT)
         t0 = time.perf_counter()
@@ -1460,6 +1506,7 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
             rc=fresh.returncode, seconds=time.perf_counter() - t0,
             stdout_equal=fresh.stdout == query_out,
         )
+        out["aot"]["fresh_processes"] = _fresh_aot_check(p, query_out, env)
         out["serve"] = _serve_check(index, p["flat.pb"], q, env)
     out["golden"] = _golden_check(smi)
     _emit({"phase": "cli_path", **out})
@@ -1478,10 +1525,449 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
         "flat_pallas": out["strategy"] == "pallas",
         "k1": run.launches["K1"] > 0, "k2": run.launches["K2"] > 0,
         "fresh": out["fresh_process"]["rc"] == 0 and out["fresh_process"]["stdout_equal"],
+        "aot_query": all(out["aot"][name]["query_equal"] for name in ("flat", "ivf", "exact")),
+        "aot_warm_equal": all(out["aot"][name]["warm_equal_cold"]
+                              for name in ("flat", "ivf", "exact")),
+        "aot_fresh": out["aot"]["fresh_processes"]["stdout_equal"],
+        "aot_k1": out["aot"]["launches"]["K1"] > 0, "aot_k2": out["aot"]["launches"]["K2"] > 0,
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"cli_path checks failed: {failed}")
+    return out
+
+
+# ---- streaming path ---------------------------------------------------------
+
+# bytes of one text row: "w%07d" key, 300 values of " +d.dddd", newline
+_STREAM_DIM = 300
+_STREAM_ROW_BYTES = 8 + 8 * _STREAM_DIM + 1
+
+
+def write_fixed_width_word2vec(path: str, x, chunk: int = 32768) -> int:
+    """Write ``x`` ``[n, 300]`` as a word2vec text file, keys ``w%07d``
+    and every value as ``+d.dddd`` / ``-d.dddd`` (|v| clipped below 10).
+    Rows have one width, so chunks of rows are formatted on a thread each
+    (numpy on byte arrays: each value's 8 bytes from a table of the
+    100,000 magnitudes) and written at their offsets. Returns the file's
+    bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    n, d = x.shape
+    width = 8 + 8 * d + 1
+    header = f"{n} {d}\n".encode()
+    mags = np.arange(100_000)
+    table = np.empty((100_000, 8), np.uint8)  # " +d.dddd" without its sign
+    table[:, 0], table[:, 1], table[:, 3] = ord(" "), ord("+"), ord(".")
+    for col, div in ((2, 10_000), (4, 1000), (5, 100), (6, 10), (7, 1)):
+        table[:, col] = ord("0") + (mags // div) % 10
+
+    def write(fd, start):
+        xc = x[start : start + chunk]
+        b = len(xc)
+        buf = np.empty((b, width), np.uint8)
+        row = np.arange(start, start + b)
+        buf[:, 0] = ord("w")
+        for j in range(7):
+            buf[:, 7 - j] = ord("0") + (row // 10 ** j) % 10
+        vals = table[np.minimum(np.rint(np.abs(xc) * 1e4), 99_999).astype(np.int32)]
+        vals[..., 1][xc < 0] = ord("-")
+        buf[:, 8 : 8 + 8 * d] = vals.reshape(b, 8 * d)
+        buf[:, -1] = ord("\n")
+        os.pwrite(fd, buf.tobytes(), len(header) + start * width)
+
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.pwrite(fd, header, 0)
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+            for fut in [pool.submit(write, fd, s) for s in range(0, n, chunk)]:
+                fut.result()
+    finally:
+        os.close(fd)
+    return os.path.getsize(path)
+
+
+def _smaps_rss(text: str) -> dict:
+    """The resident set from ``/proc/self/smaps`` (the sum of every
+    mapping's Rss), the Rss of the mappings of the file ``text`` (the
+    memory-mapped word2vec file the parser reads, whose pages count as
+    they are touched) and their difference, ``held``: what the process
+    holds apart from the text."""
+    text = os.path.realpath(text)
+    rss = text_rss = 0
+    in_text = False
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            if line.startswith("Rss:"):
+                size = int(line.split()[1]) * 1024
+                rss += size
+                text_rss += size if in_text else 0
+            elif "-" in line.split(" ", 1)[0]:  # a mapping's header line
+                in_text = line.rstrip("\n").endswith(" " + text)
+    return {"rss": rss, "text_rss": text_rss, "held": rss - text_rss}
+
+
+class _RssPeak:
+    """The peak of each :func:`_smaps_rss` figure over its samples: those
+    :meth:`sample` takes where the build's host memory changes (after the
+    training-sample gather, and at every chunk boundary of the streamed
+    passes, through ``report_fn``), and one every 50 ms on a thread in
+    between (the codebook training), until :meth:`stop`."""
+
+    def __init__(self, text: str):
+        import threading
+
+        self.text = text
+        self.peak = _smaps_rss(text)
+        self.samples = 1
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def sample(self, *_):
+        now = _smaps_rss(self.text)
+        with self._lock:
+            self.peak = {k: max(v, self.peak[k]) for k, v in now.items()}
+            self.samples += 1
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.sample()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        self.sample()
+        return self.peak
+
+
+def _streaming_child(path: str, train_sample: int) -> dict:
+    """The streaming path in a process of its own, so that its resident
+    set holds the build and not the parent's corpora: parse-only pass,
+    ``build_flat_index_streaming`` with its pipeline split and the host
+    memory it held, bit-equality with ``build_flat_index`` of the same
+    file, 4 x 1024 queries through ``auto`` (K1) and recall against
+    decode, then ``build_ivf_index_streaming`` twice (bit-equal) served
+    through K1 at recall against ``masked``; K1 against its plain version
+    on each index's own operands."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.models.streaming import _DEFAULT_CHUNK
+    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.utils import native
+
+    torch.cuda.init()
+    adc._kernel()  # the library the parent built
+    k, batch = 10, 1024
+    cfg = gt.PQConfig(num_clusters=256, num_quantizers=25, train_sample=train_sample)
+    # a tiny build first, so the libraries' host state exists before the
+    # memory baseline
+    warm = np.random.default_rng(0).standard_normal((2048, _STREAM_DIM), dtype=np.float32)
+    gt.build_flat_index([f"k{i}" for i in range(2048)], warm, pq_config=cfg._replace(
+        num_clusters=16, max_iters=2, train_sample=None))
+    out = {}
+    start = _smaps_rss(path)
+    memory = _RssPeak(path)
+    gather = native.Word2VecStream.gather
+
+    def gather_sampled(self, ids):
+        rows = gather(self, ids)
+        memory.sample()  # the training sample is held from here on
+        return rows
+
+    native.Word2VecStream.gather = gather_sampled
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        index = gt.build_flat_index_streaming(
+            path, pq_config=cfg, pipeline_stats=stats, report_fn=memory.sample)
+        torch.cuda.synchronize()
+    finally:
+        native.Word2VecStream.gather = gather
+    build_s = time.perf_counter() - t0
+    peak = memory.stop()
+    n, d = index.size, index.dimension
+    chunk_bytes = min(_DEFAULT_CHUNK, n) * d * 4
+    some = index.key_index.keys[:10000]
+    key_bytes = (sum(sys.getsizeof(w) for w in some) // len(some) + 8) * n
+    held = dict(sample=min(train_sample, n) * d * 4, two_chunks=2 * chunk_bytes,
+                codes=n * index.pq.num_quantizers, keys=key_bytes)
+    out["memory"] = dict(
+        corpus_f32_bytes=n * d * 4, samples=memory.samples,
+        peak_growth_bytes={name: peak[name] - start[name] for name in start},
+        held_bytes=held, held_sum_bytes=sum(held.values()),
+        pinned_bytes=2 * (1 << (chunk_bytes - 1).bit_length()),  # rounded up to 2^k
+    )
+    out.update(n=n, d=d, pq="25x256", train_sample=train_sample, build_s=build_s,
+               pipeline=stats, chunk=_DEFAULT_CHUNK)
+
+    # parse-only: the same chunks through the parser into one buffer; the
+    # resident-set growth meanwhile says whether mapped text counts in it
+    buf = np.zeros((_DEFAULT_CHUNK, d), np.float32)
+    with gt.Word2VecStream(path) as stream:
+        t0 = time.perf_counter()
+        for first in range(0, n, _DEFAULT_CHUNK):
+            stream.rows(first, min(_DEFAULT_CHUNK, n - first), out=buf)
+        out["parse_only_s"] = time.perf_counter() - t0
+    out["overlap_fraction"] = 1.0 - stats["wait_s"] / max(out["parse_only_s"], 1e-9)
+
+    t0 = time.perf_counter()
+    wv = gt.read_word2vec_path(path)
+    out["read_s"] = time.perf_counter() - t0
+    keys, x = wv.keys, wv.vectors
+    del wv
+    t0 = time.perf_counter()
+    memory = gt.build_flat_index(keys, x, pq_config=cfg)
+    torch.cuda.synchronize()
+    out["in_memory_build_s"] = time.perf_counter() - t0
+    out["bit_equal"] = dict(
+        codebooks=bool(torch.equal(index.pq.codebooks, memory.pq.codebooks)),
+        codes=bool(torch.equal(index.codes, memory.codes)),
+        keys=list(index.key_index.keys[:5]) == list(memory.key_index.keys[:5]),
+    )
+    del memory
+
+    rng = np.random.default_rng(31)
+    batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
+    adc.adc_scan_kernel_launches = 0
+    strategy = index.resolve_strategy(batch, k)
+    ms = [_serve_checked(index, x, rows, k) for rows in batches]
+    launches = adc.adc_scan_kernel_launches
+    truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10))
+    rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in (
+        ("fused", index), ("decode", dataclasses.replace(index, scan_strategy="decode")))}
+    out["flat"] = dict(strategy=strategy, ms_per_batch=ms, recall10=rec,
+                       recall10_ratio=rec["fused"] / max(rec["decode"], 1e-12))
+    # the comparison's launches are not the path's
+    counted = adc.adc_scan_kernel_launches
+    out["flat"]["kernel"] = _flat_kernel_check(
+        index, index._prepare_queries(x[batches[0]]), launches / len(batches),
+        "streaming_flat_kernel",
+    )
+    adc.adc_scan_kernel_launches = counted
+    del index
+    torch.cuda.empty_cache()
+
+    ivf_runs, ivf_build_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivf_runs.append(gt.build_ivf_index_streaming(path, pq_config=cfg))
+        torch.cuda.synchronize()
+        ivf_build_s.append(time.perf_counter() - t0)
+    ivf, again = ivf_runs
+    equal = {name: bool(torch.equal(getattr(ivf, name), getattr(again, name)))
+             for name in ("centroids", "codes", "group_ids", "row_const")}
+    equal["codebooks"] = bool(torch.equal(ivf.pq.codebooks, again.pq.codebooks))
+    del again, ivf_runs
+    strategy = ivf.resolve_strategy(batch, k)
+    before = adc.adc_scan_kernel_launches
+    ms = [_serve_checked(ivf, x, rows, k) for rows in batches]
+    ivf_serve_launches = adc.adc_scan_kernel_launches - before
+    rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in (
+        ("pallas", ivf), ("masked", dataclasses.replace(ivf, scan_strategy="masked")))}
+    out["ivf"] = dict(
+        partitions=ivf.num_partitions, probe=ivf.strategy.count, strategy=strategy,
+        build_s=ivf_build_s, ms_per_batch=ms, serve_launches=ivf_serve_launches,
+        recall10=rec, recall10_ratio=rec["pallas"] / max(rec["masked"], 1e-12),
+        rebuild_bit_equal=equal,
+    )
+    out["launches"] = adc.adc_scan_kernel_launches
+    out["ivf"]["kernel"] = _ivf_kernel_check(
+        ivf, torch.from_numpy(x[batches[0]]).cuda(), ivf_serve_launches / len(batches),
+        "streaming_ivf_kernel",
+    )
+    out["max_abs_err"] = max(out["flat"]["kernel"]["max_abs_err"],
+                             out["ivf"]["kernel"]["max_abs_err"])
+    out["serve_launches"] = launches + ivf_serve_launches
+    return out
+
+
+def phase_streaming(seed: int, x, smi: str) -> dict:
+    """The 2,000,000 x 300 corpus as a word2vec text file (the shape of
+    fastText's crawl-300d-2M.vec), built from the file by the streaming
+    builders in a child process; see :func:`_streaming_child`."""
+    import shutil
+
+    n, d = x.shape
+    tmp_root = max((_ROOT, tempfile.gettempdir()), key=lambda p: shutil.disk_usage(p).free)
+    free = shutil.disk_usage(tmp_root).free
+    need = n * _STREAM_ROW_BYTES + (2 << 30)
+    if free < need:
+        raise AssertionError(
+            f"{free} bytes free in {tmp_root}: the {n}-row corpus needs {need}")
+    with tempfile.TemporaryDirectory(dir=tmp_root, prefix="gulon_stream_") as tmp:
+        path = os.path.join(tmp, "crawl2m.vec")
+        t0 = time.perf_counter()
+        file_bytes = write_fixed_width_word2vec(path, x)
+        write_s = time.perf_counter() - t0
+        env = dict(os.environ, PYTHONPATH=_ROOT)
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--streaming-child", path],
+            capture_output=True, text=True, env=env, cwd=_ROOT, timeout=900,
+        )
+    if child.returncode != 0:
+        raise AssertionError(f"streaming child exited {child.returncode}: {child.stderr[-3000:]}")
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:  # the child's kernel lines
+        print(line, flush=True)
+    out = json.loads(lines[-1])
+    out.update(file_bytes=file_bytes, write_s=write_s, card=smi)
+    _emit({"phase": "streaming", **out})
+    mem = out["memory"]
+    checks = {
+        "memory": mem["peak_growth_bytes"]["held"] < mem["corpus_f32_bytes"],
+        "bit_equal": all(out["bit_equal"].values()),
+        "flat_pallas": out["flat"]["strategy"] == "pallas",
+        "flat_ratio": out["flat"]["recall10_ratio"] >= 0.97,
+        "flat_kernel": out["flat"]["kernel"]["ok"],
+        "ivf_pallas": out["ivf"]["strategy"] == "pallas",
+        "ivf_ratio": out["ivf"]["recall10_ratio"] >= 0.97,
+        "ivf_rebuild": all(out["ivf"]["rebuild_bit_equal"].values()),
+        "k1": out["serve_launches"] >= 8,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"streaming checks failed: {failed}")
+    return out
+
+
+# ---- packed path ------------------------------------------------------------
+
+
+def phase_packed(glove, smi: str) -> dict:
+    """The glove100 corpus at PQ 8x16 (4-bit codes) and 8x4 (2-bit):
+    ``pack_memory()``, then 4 x 1024 queries through ``auto``, which must
+    take ``decode``; ids and distances equal the unpacked index's decode
+    route exactly, and ``save_index`` writes the unpacked index's bytes."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import adc, dense
+
+    x, keys = glove["x"], glove["keys"]
+    batch, k = 1024, 10
+    rng = np.random.default_rng(12)
+    batches = [rng.choice(len(x), batch, replace=False) for _ in range(4)]
+    out = dict(n=len(x), d=x.shape[1], card=smi)
+    before = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
+              dense.dense_scan_i8_kernel_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        for clusters, width in ((16, 4), (4, 2)):
+            plain = gt.build_flat_index(keys, x, pq_config=gt.PQConfig(
+                num_clusters=clusters, num_quantizers=8, max_iters=25,
+                train_sample=200_000))
+            decode = dataclasses.replace(plain, scan_strategy="decode")
+            packed = dataclasses.replace(plain)
+            packed.pack_memory()
+            packed.scan_strategy = "auto"
+            strategy = packed.resolve_strategy(batch, k)
+            equal, ms, ms_plain = True, [], []
+            for rows in batches:
+                t, dp, ip = _serve(packed, x, rows, k)
+                t2, dd, idd = _serve(decode, x, rows, k)
+                ms.append(t)
+                ms_plain.append(t2)
+                equal = equal and bool(torch.equal(ip, idd)) and bool(torch.equal(dp, dd))
+            a, b = os.path.join(tmp, "plain.pb"), os.path.join(tmp, "packed.pb")
+            gt.save_index(plain, a)
+            gt.save_index(packed, b)
+            out[f"{width}bit"] = dict(
+                pq=f"8x{clusters}", packed_width=packed.packed_width, strategy=strategy,
+                code_bytes=int(packed.codes.numel()), unpacked_code_bytes=int(plain.codes.numel()),
+                ms_per_batch=ms, unpacked_decode_ms_per_batch=ms_plain, results_equal=equal,
+                file_bytes_equal=pathlib.Path(a).read_bytes() == pathlib.Path(b).read_bytes(),
+            )
+    after = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
+             dense.dense_scan_i8_kernel_launches)
+    out["launches"] = [a - b for a, b in zip(after, before)]
+    _emit({"phase": "packed", **out})
+    bad = [w for w in ("4bit", "2bit") if not (
+        out[w]["strategy"] == "decode" and out[w]["results_equal"]
+        and out[w]["file_bytes_equal"] and out[w]["code_bytes"] < out[w]["unpacked_code_bytes"])]
+    if bad or out["launches"] != [0, 0, 0]:
+        raise AssertionError(f"packed checks failed: {bad} {out['launches']}")
+    return out
+
+
+def _launch_counts() -> dict:
+    from gulon_tpu_torch.ops.cuda import adc, dense
+
+    return {"K1": adc.adc_scan_kernel_launches, "K2": dense.dense_scan_kernel_launches,
+            "K3": dense.dense_scan_i8_kernel_launches}
+
+
+def _aot_check(p, q, plain_out, batch, k) -> dict:
+    """``export-aot`` of the flat, ``-p`` and ``--exact`` files, ``query
+    --aot`` in process (stdout equal to ``query``'s), and the first 1024
+    batch after ``load_index`` (cold) against the first after
+    ``load_serving`` (warm), in process."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+
+    start = _launch_counts()
+    run = _Cli()
+    out = {}
+    for name, path in (("flat", p["flat.pb"]), ("ivf", p["ivf.pb"]), ("exact", p["exact.npz"])):
+        sidecar = path + ".aot"
+        line = run(f"export_{name}", ["export-aot", "--index", path, "-o", sidecar])
+        served = run(f"query_{name}", ["query", "-k", str(k), "--index", path, "--aot",
+                                       sidecar, p["q.txt"]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold = gt.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cold_ms, d_cold, i_cold = _serve(cold, q, np.arange(batch), k)
+        del cold
+        warm_index = gt.load_index(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serving = gt.load_serving(sidecar, warm_index)
+        torch.cuda.synchronize()
+        load_serving_s = time.perf_counter() - t0
+        warm_ms, d_warm, i_warm = _serve(serving, q, np.arange(batch), k)
+        steady = [_serve(serving, q, np.arange(batch), k)[0] for _ in range(3)]
+        out[name] = dict(
+            export_line=line.strip(), sidecar_bytes=os.path.getsize(sidecar),
+            plans={f"{b}x{kk}": plan["scan_strategy"]
+                   for (b, kk), plan in sorted(serving._plans.items())},
+            query_equal=served == plain_out[name], load_index_s=load_s,
+            cold_first_ms=cold_ms, load_serving_s=load_serving_s, warm_first_ms=warm_ms,
+            warm_steady_ms=steady,
+            warm_equal_cold=bool(torch.equal(i_cold, i_warm) and torch.equal(d_cold, d_warm)),
+        )
+        del serving, warm_index
+    end = _launch_counts()
+    out["launches"] = {name: end[name] - start[name] for name in start}
+    out["cli_seconds"] = run.seconds
+    return out
+
+
+def _fresh_aot_check(p, query_out, env) -> dict:
+    """Fresh ``query`` processes with and without ``--aot``, in turns
+    (plain, aot, aot, plain): each one's seconds, and the same stdout."""
+    out = {"plain_s": [], "aot_s": [], "stdout_equal": True}
+    for tag in ("plain", "aot", "aot", "plain"):
+        extra = ["--aot", p["flat.pb"] + ".aot"] if tag == "aot" else []
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gulon_tpu_torch.cli", "query", "-k", "10", "--index",
+             p["flat.pb"], *extra, p["q.txt"]],
+            capture_output=True, text=True, env=env, cwd=_ROOT, timeout=600,
+        )
+        out[f"{tag}_s"].append(time.perf_counter() - t0)
+        out["stdout_equal"] = out["stdout_equal"] and (
+            proc.returncode == 0 and proc.stdout == query_out)
     return out
 
 
@@ -1497,6 +1983,8 @@ def _kernel_entry(name, source, replaces, launches, max_abs_err, case, **extra) 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # internal: the streaming phase runs its builds in a child process
+    parser.add_argument("--streaming-child", metavar="FILE", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -1504,6 +1992,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.streaming_child:
+        _emit(_streaming_child(args.streaming_child, train_sample=500_000))
+        return 0
     from gulon_tpu_torch.ops.cuda import _build, adc, dense
 
     smi = _nvidia_smi()
@@ -1542,31 +2033,43 @@ def main(argv=None) -> int:
         "cached": cached["launches_per_batch"],
     }
     dense_k = phase_dense_kernel(args.seed, x2m, glove, lpb)
-    del glove, x2m
+    packed = phase_packed(glove, smi)
+    del glove
+    torch.cuda.empty_cache()
+    streaming = phase_streaming(args.seed, x2m, smi)
+    del x2m
     ivf = phase_ivf_path(args.seed)
     phase_kmeans_determinism(args.seed)
     cli = phase_cli_path(args.seed, smi)
     k2, k3 = dense_k["k2"], dense_k["k3"]
-    cli_l = cli["launches"]
+    cli_l, aot_l = cli["launches"], cli["aot"]["launches"]
+    packed_l = dict(zip(("K1", "K2", "K3"), packed["launches"]))
     _emit({"kernels": [
         _kernel_entry(
             "adc_scan", "gulon_tpu_torch/csrc/adc_scan.cu",
             "gulon_tpu/ops/pallas/adc.py:276",
-            main_path["launches"] + ivf["launches"] + cli_l["K1"],
-            max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"]), k1,
+            main_path["launches"] + ivf["launches"] + cli_l["K1"] + streaming["launches"]
+            + aot_l["K1"],
+            max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"], streaming["max_abs_err"]),
+            k1,
             launches_by_path={"flat": main_path["launches"], "ivf": ivf["launches"],
-                              "cli": cli_l["K1"]},
-            ivf_w4={k: ivf["kernel"][k] for k in (
+                              "cli": cli_l["K1"], "streaming": streaming["launches"],
+                              "aot": aot_l["K1"], "packed": packed_l["K1"]},
+            **{name: {k: case[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
-                "launches_per_batch")},
+                "launches_per_batch", "max_abs_err")} for name, case in (
+                ("ivf_w4", ivf["kernel"]),
+                ("crawl2m_streamed_w1", streaming["flat"]["kernel"]),
+                ("crawl2m_streamed_ivf_w4", streaming["ivf"]["kernel"]))},
         ),
         _kernel_entry(
             "dense_scan_bf16", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:89",
-            exact["launches_k2"] + cached["launches"] + cli_l["K2"],
+            exact["launches_k2"] + cached["launches"] + cli_l["K2"] + aot_l["K2"],
             dense_k["k2_max_abs_err"], k2,
             launches_by_path={"exact": exact["launches_k2"], "cached": cached["launches"],
-                              "cli": cli_l["K2"]},
+                              "cli": cli_l["K2"], "aot": aot_l["K2"],
+                              "packed": packed_l["K2"]},
             cache_400k={k: dense_k["k2_cache"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
                 "launches_per_batch")},
@@ -1574,8 +2077,9 @@ def main(argv=None) -> int:
         _kernel_entry(
             "dense_scan_i8", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:419",
-            exact["launches_k3"] + cli_l["K3"], dense_k["k3_max_abs_err"], k3,
-            launches_by_path={"exact": exact["launches_k3"], "cli": cli_l["K3"]},
+            exact["launches_k3"] + cli_l["K3"] + aot_l["K3"], dense_k["k3_max_abs_err"], k3,
+            launches_by_path={"exact": exact["launches_k3"], "cli": cli_l["K3"],
+                              "aot": aot_l["K3"], "packed": packed_l["K3"]},
         ),
     ]})
     print(smi, flush=True)

@@ -19,8 +19,11 @@ top-k queries through the fused scan, measure recall), the flat
 the reference's protobuf index files (``utils/serde.py``, read and
 written without the protobuf library), the word2vec readers and writers,
 the command line (``python -m gulon_tpu_torch.cli``) and the line server
-(``server.py``). Still to come: streaming builds, sharded serving and
-ahead-of-time serving.
+(``server.py``), streaming builds from a word2vec text file
+(``models/streaming.py``), packed 2- and 4-bit codes
+(``FlatIndex.pack_memory``) and ahead-of-time serving plans
+(``utils/aot.py``): every name ``gulon_tpu`` exports. Still to come:
+sharded serving (``gulon_tpu/parallel``).
 """
 
 __version__ = "0.1.0"
@@ -56,6 +59,13 @@ _EXPORTS = {
     "flat_index_from_numpy": "gulon_tpu_torch.interop",
     "exact_index_from_numpy": "gulon_tpu_torch.interop",
     "from_reference": "gulon_tpu_torch.interop",
+    "build_flat_index_streaming": "gulon_tpu_torch.models.streaming",
+    "build_ivf_index_streaming": "gulon_tpu_torch.models.streaming",
+    "Word2VecStream": "gulon_tpu_torch.utils.native",
+    "export_serving": "gulon_tpu_torch.utils.aot",
+    "save_serving": "gulon_tpu_torch.utils.aot",
+    "load_serving": "gulon_tpu_torch.utils.aot",
+    "AOTServing": "gulon_tpu_torch.utils.aot",
     "train_opq": "gulon_tpu_torch.ops.opq",
     "reconstruction_mse": "gulon_tpu_torch.ops.opq",
     "WordVectors": "gulon_tpu_torch.utils.word2vec",

@@ -12,10 +12,12 @@ files are the reference's protobuf format (``utils/serde.py``), npz for
 ``--exact``.
 
 Every verb runs on the CUDA card; :func:`main` takes ``device=`` as a
-Python keyword (the tests pass ``"cpu"``), not as a flag. Flags whose
-module the port has not got yet exit 1 with an error naming their
-ROADMAP item: ``--streaming`` (item 10), ``--mesh`` (item 11),
-``export-aot`` and ``--aot`` (item 12).
+Python keyword (the tests pass ``"cpu"``), not as a flag.
+``build-index --streaming`` builds from the text file without holding its
+vectors (``models/streaming.py``); ``export-aot`` writes serving plans
+that ``--aot`` serves through (``utils/aot.py``). ``--mesh`` exits 1 with
+an error naming its ROADMAP item (11): sharded serving is the parallel
+slice of the port.
 """
 
 from __future__ import annotations
@@ -133,8 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument(
         "--streaming",
         action="store_true",
-        help="stream the build (comes with the streaming slice of the "
-        "port, ROADMAP Queue 1 item 10)",
+        help="stream the build: parse the text file in chunks on host "
+        "threads while the card encodes, never holding the full float "
+        "matrix in host memory (word2vec text input, quantized builds)",
     )
     b.add_argument("-o", "--output", required=True, help="output index file")
     b.add_argument("input", help="word2vec-format text file")
@@ -202,8 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     ex = sub.add_parser(
         "export-aot",
-        help="export ahead-of-time serving artifacts (comes with ROADMAP "
-        "Queue 1 item 12 of the port)",
+        help="export ahead-of-time serving artifacts for an index (a "
+        "sidecar of resolved serving plans; an extra over the reference)",
     )
     ex.add_argument("--index", required=True, help="index file")
     ex.add_argument(
@@ -309,8 +312,10 @@ def build_parser() -> argparse.ArgumentParser:
             "--aot",
             default=None,
             metavar="SIDECAR",
-            help="serve through ahead-of-time artifacts (comes with ROADMAP "
-            "Queue 1 item 12 of the port)",
+            help="serve through ahead-of-time artifacts written by "
+            "export-aot (routes resolved and operands built at load; "
+            "exported (batch, k) shapes use the plan, others the live "
+            "path; incompatible with --mesh)",
         )
     for sp in (b, q, w, t, a, r, tn, ex):
         sp.add_argument(
@@ -344,9 +349,12 @@ def _load_serving_index(args, reporter, device):
     from gulon_tpu_torch.utils.serde import load_index
 
     if getattr(args, "mesh", None):
+        if getattr(args, "aot", None):
+            raise ValueError(
+                "--aot serves a single-device index (artifacts are "
+                "exported unsharded); it is incompatible with --mesh"
+            )
         raise ValueError(_not_yet("--mesh (sharded serving)", 11))
-    if getattr(args, "aot", None):
-        raise ValueError(_not_yet("--aot (ahead-of-time serving)", 12))
     with reporter.task(f"loading {args.index}"):
         index = load_index(args.index, device=device)
     strategy = getattr(args, "scan_strategy", None)
@@ -394,6 +402,11 @@ def _load_serving_index(args, reporter, device):
                 "--pallas-winners applies to flat/partitioned indices"
             )
         index.pallas_winners = winners
+    if getattr(args, "aot", None):
+        from gulon_tpu_torch.utils.aot import load_serving
+
+        with reporter.task(f"loading AOT artifacts {args.aot}"):
+            index = load_serving(args.aot, index)
     return index
 
 
@@ -441,9 +454,6 @@ def cmd_build_index(args, reporter, device) -> int:
             "error: --opq applies to quantized in-memory builds only\n"
         )
         return 1
-    if args.streaming:
-        reporter.out.write(f"error: {_not_yet('--streaming (streaming builds)', 10)}\n")
-        return 1
 
     metric = Metric.parse(args.metric)
     pq_config = PQConfig(
@@ -452,6 +462,17 @@ def cmd_build_index(args, reporter, device) -> int:
         max_iters=args.max_iters,
         init=args.kmeans_init,
     )
+    if args.streaming:
+        from gulon_tpu_torch.utils.word2vec import sniff_word2vec_binary
+
+        if sniff_word2vec_binary(args.input):
+            reporter.out.write(
+                "error: --streaming reads the word2vec text format; "
+                f"{args.input} is the binary format — drop --streaming "
+                "(binary files mmap, so host RSS stays bounded anyway)\n"
+            )
+            return 1
+        return _build_streaming(args, reporter, metric, pq_config, device)
     with reporter.task(f"reading {args.input}"):
         wv = read_word2vec_path(
             args.input,
@@ -521,6 +542,77 @@ def cmd_build_index(args, reporter, device) -> int:
                 wv.keys, wv.vectors, metric=metric, pq_config=pq_config,
                 opq_iters=args.opq or 0,
                 report_fn=kmeans_progress,
+                device=device,
+            )
+    with reporter.task(f"writing {args.output}"):
+        save_index(index, args.output)
+    return 0
+
+
+def _build_streaming(args, reporter, metric, pq_config, device) -> int:
+    """``build-index --streaming``: native parser -> chunked device encode
+    (the library surface is ``models/streaming.py``). Where the parser
+    library cannot load it prints an error and exits 1; it never builds in
+    memory instead."""
+    from gulon_tpu_torch.models.ivf import LimitGroups, LimitVectors
+    from gulon_tpu_torch.models.streaming import (
+        build_flat_index_streaming,
+        build_ivf_index_streaming,
+    )
+    from gulon_tpu_torch.utils import native
+    from gulon_tpu_torch.utils.serde import save_index
+
+    if not native.available():
+        reporter.out.write(
+            "error: streaming build unavailable (native IO library "
+            "unavailable); rerun without --streaming\n"
+        )
+        return 1
+
+    def stream_progress(*a):
+        if len(a) == 1:  # StreamProgress from the encode pipeline
+            p = a[0]
+            reporter.progress(
+                "encoding",
+                p.rows_done / max(p.total_rows, 1),
+                f"{p.rows_done}/{p.total_rows} rows",
+            )
+        else:  # (iteration, step stats..., converged) from k-means
+            iteration, step_size = a[0], a[1]
+            step_std = a[3] if len(a) > 3 else 0.0
+            reporter.progress(
+                "k-means",
+                float(iteration) / args.max_iters,
+                f"iter {int(iteration)}/{args.max_iters} "
+                f"step {float(step_size):.3e} "
+                f"+/- {float(step_std):.1e}",
+            )
+
+    if args.partitioned:
+        strategy = None
+        if args.limit_vectors:
+            strategy = LimitVectors(args.limit_vectors)
+        elif args.limit:
+            strategy = LimitGroups(args.limit)
+        with reporter.task("building partitioned index (streaming)"):
+            index = build_ivf_index_streaming(
+                args.input,
+                metric=metric,
+                pq_config=pq_config,
+                num_partitions=args.partitions,
+                strategy=strategy,
+                coarse_init=args.kmeans_init,
+                max_partition_size=args.max_partition_size,
+                report_fn=stream_progress,
+                device=device,
+            )
+    else:
+        with reporter.task("building index (streaming)"):
+            index = build_flat_index_streaming(
+                args.input,
+                metric=metric,
+                pq_config=pq_config,
+                report_fn=stream_progress,
                 device=device,
             )
     with reporter.task(f"writing {args.output}"):
@@ -676,7 +768,38 @@ def cmd_info(args, reporter, device) -> int:
 
 
 def cmd_export_aot(args, reporter, device) -> int:
-    raise ValueError(_not_yet("export-aot (ahead-of-time serving artifacts)", 12))
+    from gulon_tpu_torch.utils.aot import export_serving, save_serving
+    from gulon_tpu_torch.utils.progress import format_bytes
+
+    def _int_list(text: str, flag: str) -> List[int]:
+        try:
+            values = [int(v) for v in text.split(",") if v.strip()]
+        except ValueError:
+            values = []
+        if not values or any(v < 1 for v in values):
+            raise ValueError(
+                f"{flag} expects a comma-separated list of positive "
+                f"integers, got {text!r}"
+            )
+        return values
+
+    batches = _int_list(args.batches, "--batches")
+    ks = _int_list(args.k, "-k")
+    index = _load_serving_index(args, reporter, device)
+    shapes = [(b, k) for b in batches for k in ks]
+    with reporter.task(
+        f"exporting {len(shapes)} serving computations "
+        f"(batches {batches}, k {ks})"
+    ):
+        bundle = export_serving(index, shapes=shapes)
+    with reporter.task(f"writing {args.output}"):
+        save_serving(args.output, bundle)
+    print(
+        f"{len(shapes)} artifacts for platform {bundle.platform} "
+        f"({format_bytes(os.path.getsize(args.output))}); serve with "
+        f"--aot {args.output}"
+    )
+    return 0
 
 
 def cmd_serve(args, reporter, device) -> int:

@@ -190,8 +190,9 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     which it serves unchanged. An IVF index is recognised by ``centroids``
     and ``group_ids``; its strategy carries across by kind and count. A
     flat or IVF index with a decoded cache gets its cache rebuilt (the
-    decode is exact) in the same dtype; an OPQ rotation carries across.
-    Packed codes come with a later slice of the port."""
+    decode is exact) in the same dtype; an OPQ rotation carries across, and
+    so do packed codes (``pack_memory``): the bytes and ``packed_width``,
+    one layout in both packages."""
     ref = jax_index
     if hasattr(ref, "vectors") and not hasattr(ref, "pq"):
         return _exact_from_reference(ref, device, prepared_i8)
@@ -199,10 +200,6 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
         raise ValueError("prepared_i8 applies to an exact index only")
     if hasattr(ref, "centroids") and hasattr(ref, "group_ids"):
         return _ivf_from_reference(ref, device)
-    if getattr(ref, "packed_width", 0):
-        raise NotImplementedError(
-            "packed codes (pack_memory) come with a later slice of the port"
-        )
     index = flat_index_from_numpy(
         ref.key_index.keys,
         np.asarray(ref.pq.codebooks),
@@ -215,6 +212,7 @@ def from_reference(jax_index, *, device=DEFAULT_DEVICE, prepared_i8=None):
     )
     for name in _KNOBS:
         setattr(index, name, getattr(ref, name))
+    index.packed_width = int(getattr(ref, "packed_width", 0))
     index.rotation = _rotation_tensor(ref, device)
     cache = getattr(ref, "decoded_cache", None)
     if cache is not None or getattr(ref, "_cache_aug", None) is not None:

@@ -56,6 +56,8 @@ class ExactIndex(Index):
     _data_i8: Optional[tuple] = None  # lazy (data_i8, meta), (None, None) = unfit
     _norms: Optional[torch.Tensor] = None  # lazy [N] f32 ||x||^2
 
+    _LAZY_OPERANDS = ("_data_t", "_data_i8", "_norms")
+
     @property
     def key_index(self) -> SortedKeyIndex:
         return self._key_index
@@ -196,7 +198,7 @@ class ExactIndex(Index):
     def _replace_rows(self, keys: np.ndarray, vectors: torch.Tensor) -> "ExactIndex":
         return dataclasses.replace(
             self, _key_index=SortedKeyIndex(keys), vectors=vectors,
-            _data_t=None, _data_i8=None, _norms=None,
+            **dict.fromkeys(self._LAZY_OPERANDS),
         )
 
     def save(self, path) -> None:

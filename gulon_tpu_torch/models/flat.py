@@ -14,15 +14,16 @@ batch. Scan strategies:
   :meth:`FlatIndex.enable_cache`; on a CUDA device inside the kernel's
   limits through the dense kernel K2 (``csrc/dense_scan.cu``) over the
   cache with hi/lo norm lanes, otherwise through ``cached_scan``;
-- ``"auto"`` (default): <= 4 queries -> lut; a cache built -> cached;
-  codes on a CUDA device and inside the kernel's limits -> pallas;
-  otherwise decode.
+- ``"auto"`` (default): <= 4 queries -> lut (decode for packed codes); a
+  cache built -> cached; unpacked codes on a CUDA device and inside the
+  kernel's limits -> pallas; otherwise decode.
 
 An OPQ ``rotation`` (``ops/opq.py``) rotates the queries at full f32
 before any strategy and is undone by :meth:`FlatIndex.lookup`.
 :meth:`FlatIndex.add` and :meth:`FlatIndex.remove` return a new index
-whose lazy operands are all cleared. ``pack_memory`` comes with the
-packed-serving slice of the port (ROADMAP Queue 1 item 8).
+whose lazy operands are all cleared. :meth:`FlatIndex.pack_memory` packs
+2- and 4-bit codes row-major into bytes (``ops/scan.py::pack_rows``); only
+``decode`` reads them, unpacking a tile at a time, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -53,12 +54,6 @@ def _augment_cache(cache: torch.Tensor, norms: torch.Tensor) -> torch.Tensor:
     return prepare_data(cache, norms)
 
 
-def _later(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} comes with the {where} slice of the PyTorch port"
-    )
-
-
 @dataclasses.dataclass
 class FlatIndex(Index):
     _key_index: SortedKeyIndex
@@ -81,6 +76,8 @@ class FlatIndex(Index):
     pallas_winners: int = 0
     # [N, m*dsub] decoded codes for the "cached" strategy (enable_cache)
     decoded_cache: Optional[torch.Tensor] = None
+    # 0 = codes are [N, m]; 2/4 = row-packed uint8 (see pack_memory)
+    packed_width: int = 0
     # [D, D] learned OPQ rotation (ops/opq.py): the codes quantize
     # x @ rotation, queries rotate in _prepare_queries, lookup un-rotates;
     # None = plain PQ. Orthogonal, so reported distances are unchanged
@@ -93,6 +90,11 @@ class FlatIndex(Index):
     # memoized auto knobs (rerank_factor/pallas_winners == 0)
     _auto_rerank: Optional[int] = None
     _auto_dup: Optional[float] = None
+
+    # the fields above that are built on first use from the rows
+    _LAZY_OPERANDS = (
+        "decoded_cache", "_pallas_codes_t", "_cache_aug", "_auto_rerank", "_auto_dup",
+    )
 
     @property
     def key_index(self) -> SortedKeyIndex:
@@ -133,11 +135,12 @@ class FlatIndex(Index):
         if self.scan_strategy != "auto":
             return self.scan_strategy
         k_eff = min(k, self.size)
-        if num_queries <= _AUTO_LUT_MAX_QUERIES:
-            return "lut"
+        if num_queries <= _AUTO_LUT_MAX_QUERIES and not self.packed_width:
+            return "lut"  # lut needs unpacked codes; packed stays on decode
         if self._has_cache():
             return "cached"
-        if self.device.type == "cuda" and self._kernel_bounds_ok(k_eff):
+        if (self.device.type == "cuda" and not self.packed_width
+                and self._kernel_bounds_ok(k_eff)):
             return "pallas"
         return "decode"
 
@@ -162,9 +165,14 @@ class FlatIndex(Index):
                 q, self.pq.codebooks, self.codes, self.recon_norms,
                 bounds=self.pq.bounds, k=k_eff, tile_rows=self.tile_rows,
                 precision=self.precision, topk_impl=self.topk_impl,
-                recall_target=self.recall_target,
+                recall_target=self.recall_target, packed_width=self.packed_width,
             )
         elif strategy == "lut":
+            if self.packed_width:
+                raise ValueError(
+                    "lut strategy needs unpacked codes (index.pack_memory()"
+                    " was called); use scan_strategy='decode'"
+                )
             dists, ids = scan_ops.adc_scan_lut(
                 self.pq.lut(q),
                 self.codes,
@@ -175,6 +183,11 @@ class FlatIndex(Index):
         elif strategy == "pallas":
             from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused, pack_codes_t
 
+            if self.packed_width:
+                raise ValueError(
+                    "pallas strategy needs unpacked codes; use "
+                    "scan_strategy='decode' after pack_memory()"
+                )
             if not self._kernel_bounds_ok(k_scan):
                 # tiny corpus / large k / large K: the decode scan
                 return dataclasses.replace(
@@ -190,6 +203,11 @@ class FlatIndex(Index):
                 winners=self.resolved_pallas_winners(),
             )
         elif strategy == "cached":
+            if self.packed_width and not self._has_cache():
+                raise ValueError(
+                    "cached strategy needs unpacked codes; build the cache "
+                    "before pack_memory()"
+                )
             q_pad = scan_ops._q_pad(q, self.pq.bounds, self.pq.pad_width)
             if (
                 self.device.type == "cuda"
@@ -224,7 +242,7 @@ class FlatIndex(Index):
         if k_scan > k_eff:
             dists, ids = scan_ops.rescore_exact(
                 q, self.pq.codebooks, self.codes, self.recon_norms, ids,
-                bounds=self.pq.bounds, k=k_eff,
+                bounds=self.pq.bounds, k=k_eff, packed_width=self.packed_width,
             )
         return dists, ids
 
@@ -264,8 +282,8 @@ class FlatIndex(Index):
             if n == 0:
                 self._auto_dup = 1.0
             else:
-                sample = min(n, 65536)
-                codes = self.codes[:sample].cpu().numpy()
+                sample = min(n, 65536)  # a packed index unpacks only these
+                codes = self._unpacked_codes(self.codes[:sample]).cpu().numpy()
                 distinct = np.unique(codes, axis=0).shape[0]
                 self._auto_dup = sample / max(distinct, 1)
         return self._auto_dup
@@ -294,16 +312,39 @@ class FlatIndex(Index):
         for start in range(0, self.size, chunk):
             stop = min(start + chunk, self.size)
             cache[start:stop] = scan_ops.decode_tile(
-                self.pq.codebooks, self.codes[start:stop]
+                self.pq.codebooks, self._unpacked_codes(self.codes[start:stop])
             ).to(dtype)
         self.decoded_cache = cache
         self._cache_aug = None  # the dense-kernel operand rebuilds lazily
 
     def pack_memory(self) -> None:
-        _later(
-            "sub-byte code packing (pack_memory, ROADMAP Queue 1 item 8)",
-            "packed-serving",
-        )
+        """Pack 2- and 4-bit codes into bytes in device memory (2-4x less),
+        unpacked a tile at a time inside the scan
+        (``gulon_tpu/models/flat.py:414-428``). Only ``decode`` reads
+        packed codes, so the strategy becomes ``decode``; ``lut``,
+        ``pallas`` and ``cached`` without a cache raise ``ValueError``.
+        Codes wider than 4 bits raise ``ValueError``."""
+        width = self.pq.code_bits
+        if self.packed_width:
+            return
+        if width > 4:
+            raise ValueError(
+                f"in-memory packing needs code width <= 4 bits, got {width}"
+            )
+        width = 4 if width > 2 else 2
+        self.codes = scan_ops.pack_rows(self.codes, width)
+        self.packed_width = width
+        self.scan_strategy = "decode"
+
+    def _unpacked_codes(self, codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``codes`` (default: all of them) as ``[rows, m]`` codes of the
+        quantizer's storage type, unpacked when the index is packed."""
+        codes = self.codes if codes is None else codes
+        if not self.packed_width:
+            return codes
+        return scan_ops.unpack_tile(
+            codes, self.pq.num_quantizers, self.packed_width
+        ).to(self.pq.dtype_codes)
 
     def add(self, keys, vectors) -> "FlatIndex":
         """A new index with ``(keys, vectors)`` merged into the key sort
@@ -323,7 +364,7 @@ class FlatIndex(Index):
         norms_new = self.pq.reconstruction_norms(codes_new)
         return self._replace_rows(
             merged_keys,
-            torch.cat([self.codes, codes_new])[order],
+            torch.cat([self._unpacked_codes(), codes_new])[order],
             torch.cat([self.recon_norms, norms_new])[order],
         )
 
@@ -333,32 +374,37 @@ class FlatIndex(Index):
         keep = up.removal_mask(self._key_index.keys, keys)
         rows = torch.from_numpy(np.flatnonzero(keep)).to(self.device)
         return self._replace_rows(
-            self._key_index.keys[keep], self.codes[rows], self.recon_norms[rows]
+            self._key_index.keys[keep], self._unpacked_codes()[rows],
+            self.recon_norms[rows],
         )
 
     def _replace_rows(
         self, keys: np.ndarray, codes: torch.Tensor, norms: torch.Tensor
     ) -> "FlatIndex":
-        """The index over a new row set: every lazy operand covers the old
-        rows, so all of them are cleared and rebuild on first use (a stale
-        kernel operand would serve the old rows)."""
+        """The index over new ``[N, m]`` codes: every lazy operand covers
+        the old rows, so all of them are cleared and rebuild on first use (a
+        stale kernel operand would serve the old rows); a packed index's
+        codes are packed again."""
+        if self.packed_width:
+            codes = scan_ops.pack_rows(codes, self.packed_width)
         return dataclasses.replace(
             self,
             _key_index=SortedKeyIndex(keys),
             codes=codes,
             recon_norms=norms,
-            decoded_cache=None,
-            _pallas_codes_t=None,
-            _cache_aug=None,
-            _auto_rerank=None,
-            _auto_dup=None,
+            **dict.fromkeys(self._LAZY_OPERANDS),
         )
+
+    def _adopt_operands(self, view: "FlatIndex") -> None:
+        super()._adopt_operands(view)
+        if self._cache_aug is not None:
+            self.decoded_cache = None  # the operand IS the cache (query_arrays)
 
     def lookup(self, word: str) -> Optional[np.ndarray]:
         row = self._key_index.lookup(word)
         if row is None:
             return None
-        rec = self.pq.decode(self.codes[row : row + 1])
+        rec = self.pq.decode(self._unpacked_codes(self.codes[row : row + 1]))
         if self.rotation is not None:
             # the codes live in the rotated basis; map back
             rec = matmul(rec, self.rotation.T, "highest")

@@ -40,6 +40,18 @@ class Result:
 class Index(abc.ABC):
     """An approximate nearest-neighbour index over keyed vectors."""
 
+    # the port's: the names of the fields an index builds from its rows on
+    # first use (kernel operands, caches, memoized statistics)
+    _LAZY_OPERANDS = ()
+
+    def _adopt_operands(self, view: "Index") -> None:
+        """Take the lazy operands ``view`` (this index with other knobs,
+        ``dataclasses.replace``) has built and this index lacks, so views
+        made afterwards start from them (``utils/aot.py``)."""
+        for name in self._LAZY_OPERANDS:
+            if getattr(self, name) is None:
+                setattr(self, name, getattr(view, name))
+
     @property
     @abc.abstractmethod
     def dimension(self) -> int:

@@ -593,6 +593,13 @@ class IVFIndex(Index):
     # with exact f32 ADC distances
     pallas_rescore: int = 0
 
+    # the fields above that are built from the rows, on first use or by
+    # enable_cache
+    _LAZY_OPERANDS = (
+        "recon_cache", "recon_norms_cache", "_codes_pad", "_row_const_pad",
+        "_pallas_layout", "_sizes_dev",
+    )
+
     @property
     def key_index(self) -> GroupedKeyIndex:
         return self._key_index
@@ -951,12 +958,7 @@ class IVFIndex(Index):
             codes=codes,
             row_const=row_const,
             group_ids=group_ids,
-            recon_cache=None,
-            recon_norms_cache=None,
-            _codes_pad=None,
-            _row_const_pad=None,
-            _pallas_layout=None,
-            _sizes_dev=None,
+            **dict.fromkeys(self._LAZY_OPERANDS),
         )
 
     def lookup(self, word: str) -> Optional[np.ndarray]:

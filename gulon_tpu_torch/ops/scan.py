@@ -15,7 +15,10 @@ tiles and carries the best ``(distance, row id)`` pairs across tiles
   (``exactNearestNeighbours``, ``Index.scala:209-229``), also the ground
   truth of the recall harness;
 - ``ivf_block_rescore``: exact f32 re-rank of the IVF fused strategy's
-  over-fetched block winners.
+  over-fetched block winners;
+- ``pack_rows`` / ``unpack_tile``: row-major packing of 2- and 4-bit codes
+  into bytes, which ``adc_scan_decode`` and ``rescore_exact`` unpack a
+  tile at a time (``packed_width``).
 
 All return squared-L2 distances ascending and global row ids; padding
 rows carry +inf norms and never enter the top-k.
@@ -87,10 +90,42 @@ def decode_tile(codebooks: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     return dec.reshape(ci.shape[0], m * dsub)
 
 
+def pack_rows(codes, width: int) -> torch.Tensor:
+    """Pack an ``[N, m]`` code matrix to ``[N, ceil(m*width/8)]`` uint8
+    (``gulon_tpu/ops/scan.py:295-314``): row-major, code ``s`` of a row in
+    bits ``(s % per) * width`` of byte ``s // per``, ``per = 8 // width``.
+    Widths 2 and 4 only. Distinct from the wire layout (``ops/coder.py``),
+    which is quantizer-major."""
+    if width not in (2, 4):
+        raise ValueError(f"in-memory packing supports widths 2/4, got {width}")
+    codes = torch.as_tensor(codes).to(torch.int32)
+    n, m = codes.shape
+    per = 8 // width
+    pad = (-m) % per
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    shifts = torch.arange(per, dtype=torch.int32, device=codes.device) * width
+    grouped = codes.reshape(n, -1, per) << shifts
+    return grouped.sum(dim=2).to(torch.uint8)
+
+
+def unpack_tile(packed: torch.Tensor, m: int, width: int) -> torch.Tensor:
+    """``[T, B] uint8 -> [T, m] int32``, the inverse of :func:`pack_rows`."""
+    per = 8 // width
+    shifts = torch.arange(per, dtype=torch.int32, device=packed.device) * width
+    cols = (packed.to(torch.int32)[:, :, None] >> shifts) & ((1 << width) - 1)
+    return cols.reshape(packed.shape[0], -1)[:, :m]
+
+
+def _tile_codes(codes: torch.Tensor, m: int, packed_width: int) -> torch.Tensor:
+    """A tile of codes as ``[T, m]``: unpacked when ``packed_width``."""
+    return unpack_tile(codes, m, packed_width) if packed_width else codes
+
+
 def adc_scan_decode(
     queries: torch.Tensor,  # [Q, D] f32
     codebooks: torch.Tensor,  # [m, K, dsub] f32
-    codes: torch.Tensor,  # [N, m] codes
+    codes: torch.Tensor,  # [N, m] codes (or [N, B] packed uint8, see packed_width)
     recon_norms: torch.Tensor,  # [N] f32 = ||decode(codes)||^2
     *,
     bounds,
@@ -99,18 +134,21 @@ def adc_scan_decode(
     precision: str = "default",
     topk_impl: str = "approx",
     recall_target: float = 0.95,
+    packed_width: int = 0,  # 0 = [N, m] codes; 2/4 = row-packed uint8
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode + matmul ADC scan. Returns ([Q,k] dists, [Q,k] ids)."""
+    """Decode + matmul ADC scan; a packed tile unpacks before it decodes.
+    Returns ([Q,k] dists, [Q,k] ids)."""
     _check_topk_impl(topk_impl)
     resolve_precision(precision)
     num_q = queries.shape[0]
+    m = codebooks.shape[0]
     n = codes.shape[0]
     tile_rows = min(tile_rows, max(n, 1))
     q_pad = _q_pad(queries, bounds, codebooks.shape[2])
     qn = sq_norms(queries)
 
     def dist_tile(start, stop):
-        dec = decode_tile(codebooks, codes[start:stop])
+        dec = decode_tile(codebooks, _tile_codes(codes[start:stop], m, packed_width))
         ip = matmul(q_pad, dec.T, precision)
         return qn[:, None] + recon_norms[None, start:stop] - 2.0 * ip
 
@@ -148,12 +186,13 @@ def adc_scan_lut(
 def rescore_exact(
     queries: torch.Tensor,  # [Q, D] f32
     codebooks: torch.Tensor,  # [m, K, dsub] f32
-    codes: torch.Tensor,  # [N, m] codes
+    codes: torch.Tensor,  # [N, m] codes (or [N, B] packed uint8, see packed_width)
     recon_norms: torch.Tensor,  # [N] f32
     cand_ids: torch.Tensor,  # [Q, C] candidate rows (-1 = empty slot)
     *,
     bounds,
     k: int,
+    packed_width: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact f32 ADC rescore of per-query candidate sets: the bf16-ranked
     fast scans over-fetch, and this ranks the survivors at full precision.
@@ -162,7 +201,8 @@ def rescore_exact(
     m, _, dsub = codebooks.shape
     cand_ids = cand_ids.to(torch.int32)
     safe = torch.clamp(cand_ids, min=0).long()
-    dec = decode_tile(codebooks, codes[safe.reshape(-1)]).reshape(
+    gathered = _tile_codes(codes[safe.reshape(-1)], m, packed_width)
+    dec = decode_tile(codebooks, gathered).reshape(
         num_q, c, m * dsub
     )
     q_pad = _q_pad(queries, bounds, dsub)

@@ -96,9 +96,12 @@ def _rotation_from_proto(msg, d: int, device):
 
 
 def index_to_proto(index: AnyIndex) -> wire.Index:
+    # packed codes (pack_memory) are a serving layout only: the wire holds
+    # the [N, m] codes (gulon_tpu/utils/serde.py:87-90)
+    codes = index._unpacked_codes() if isinstance(index, FlatIndex) else index.codes
     pqi = wire.PQIndex(
         product_quantizer=_pq_to_proto(index.pq),
-        data=_codes_to_proto(index.codes.cpu().numpy(), index.pq.num_clusters),
+        data=_codes_to_proto(codes.cpu().numpy(), index.pq.num_clusters),
     )
     keys = [str(w) for w in index.key_index.keys]
     rotation = _rotation_proto(index.rotation)

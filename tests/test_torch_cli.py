@@ -6,10 +6,13 @@ the JAX package's CLI prints on the same index file: ``info``, ``query``
 ``serve``'s start line; ``add-vectors`` and ``remove-keys`` write the
 same bytes. Indices the port builds (flat, partitioned, ``--exact``,
 ``--opq``, ``--kmeans-init kmeans++``, ``--limit-vectors``,
-``--max-partition-size``) serve in the JAX CLI as in the port's. Flags
-whose module the port has not got exit 1 naming their ROADMAP item. The
-corpus is Gaussian, so rows have distinct codes and no equal-distance
-ties.
+``--max-partition-size``) serve in the JAX CLI as in the port's.
+``build-index --streaming`` writes the bytes of the in-memory build of the
+same text file, and its errors are the JAX CLI's; ``export-aot`` prints
+the JAX CLI's line and ``--aot`` serves what the live path serves, as
+the JAX CLI's ``--aot`` does. ``--mesh`` still exits 1 naming its ROADMAP
+item. The corpus is Gaussian, so rows have distinct codes and no
+equal-distance ties.
 """
 
 import io
@@ -182,10 +185,7 @@ def test_serve_start_line_matches_jax(files, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["build-index", "--metric", "l2", "--streaming", "-o", "x.pb", "VECS"], "item 10"),
     (["query", "--mesh", "2", "--index", "FLAT", "VECS"], "item 11"),
-    (["test", "--vectors", "VECS", "--index", "FLAT", "--aot", "x.aot"], "item 12"),
-    (["export-aot", "--index", "FLAT", "-o", "x.aot"], "item 12"),
 ])
 def test_flags_not_yet_ported_exit_1(files, capsys, argv, item):
     paths, _ = files
@@ -195,6 +195,126 @@ def test_flags_not_yet_ported_exit_1(files, capsys, argv, item):
     assert tcli.main(argv, device="cpu") == 1
     err = capsys.readouterr().err
     assert f"ROADMAP Queue 1 {item}" in err and "Traceback" not in err
+
+
+def _both_err(capsys, argv):
+    """(rc, stdout, stderr) of the port's CLI and of the JAX package's."""
+    out = []
+    for main in (lambda a: tcli.main(a, device="cpu"), jcli.main):
+        capsys.readouterr()
+        rc = main(list(argv))
+        got = capsys.readouterr()
+        out.append((rc, got.out, got.err))
+    return out
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--metric", "cosine"], ["-p", "--partitions", "6", "--limit", "3"],
+    ["-p", "--partitions", "6", "--limit-vectors", "600", "--max-partition-size", "400"],
+])
+def test_streaming_build_writes_the_in_memory_bytes(files, capsys, tmp_path, extra):
+    """With the default (whole-corpus) training sample a streaming build
+    is the in-memory build of the same text file, byte for byte; the JAX
+    CLI serves it as the port does."""
+    paths, _ = files
+    metric = [] if "--metric" in extra else ["--metric", "l2"]
+    built = {}
+    for tag, flag in (("stream", ["--streaming"]), ("memory", [])):
+        built[tag] = str(tmp_path / f"{tag}.pb")
+        assert tcli.main(["build-index", *metric, *BUILD, *extra, *flag, "-o", built[tag],
+                          paths["vecs.txt"]], device="cpu") == 0
+    assert open(built["stream"], "rb").read() == open(built["memory"], "rb").read()
+    port, ref = _both(capsys, ["query", "-k", "5", "--index", built["stream"], paths["q.txt"]])
+    assert port == ref and port[0] == 0
+
+
+@pytest.mark.parametrize("extra", [["--exact"], ["--opq", "2"], ["BINARY"], ["NO_PARSER"]])
+def test_streaming_errors_match_jax(files, capsys, tmp_path, monkeypatch, extra):
+    paths, keys = files
+    vecs = paths["vecs.txt"]
+    if extra == ["BINARY"]:
+        vecs = str(tmp_path / "v.bin")
+        x = np.ones((4, D), np.float32)
+        from gulon_tpu_torch.utils.word2vec import write_word2vec_bin
+
+        write_word2vec_bin(WordVectors(keys[:4], x), vecs)
+    if extra == ["NO_PARSER"]:
+        monkeypatch.setattr("gulon_tpu_torch.utils.native._load", lambda: None)
+        monkeypatch.setattr("gulon_tpu.utils.native._load", lambda: None)
+    flags = [a for a in extra if a not in ("BINARY", "NO_PARSER")]
+    port, ref = _both_err(capsys, ["build-index", "--metric", "l2", "--streaming", *flags,
+                                   "-o", str(tmp_path / "x.pb"), vecs])
+    # the JAX CLI also reports its failed progress task (with a time)
+    assert port[:2] == ref[:2] and port[0] == 1
+    assert port[2].splitlines()[-1] == ref[2].splitlines()[-1]
+    assert port[2].splitlines()[-1].startswith("error: ")
+    assert not (tmp_path / "x.pb").exists()
+
+
+def _masked(line, *paths):
+    """export-aot's line without its byte count and paths (StableHLO and
+    plans differ in size)."""
+    for p in paths:
+        line = line.replace(p, "SIDECAR")
+    return line.split(" (")[0] + ";" + line.split(";", 1)[1]
+
+
+@pytest.mark.parametrize("index", ["flat.pb", "ivf.pb", "exact.npz"])
+def test_export_aot_and_aot_serving_match_jax(files, capsys, tmp_path, monkeypatch, index):
+    paths, keys = files
+    sidecars = {tag: str(tmp_path / f"{tag}.aot") for tag in ("port", "jax")}
+    lines = []
+    for tag, main in (("port", lambda a: tcli.main(a, device="cpu")), ("jax", jcli.main)):
+        capsys.readouterr()
+        assert main(["export-aot", "--index", paths[index], "-o", sidecars[tag],
+                     "--batches", "1,16", "-k", "4,10"]) == 0
+        lines.append(capsys.readouterr().out)
+    assert _masked(lines[0], *sidecars.values()) == _masked(lines[1], *sidecars.values())
+    assert lines[0].startswith("4 artifacts for platform cpu (")
+    for verb in (["query", "-k", "4", "--index", paths[index], paths["q.txt"]],
+                 ["test", "--vectors", paths["vecs.txt"], "--index", paths[index],
+                  "--sample", "40"]):
+        out = []
+        for tag, main in (("port", lambda a: tcli.main(a, device="cpu")), ("jax", jcli.main)):
+            capsys.readouterr()
+            assert main(verb + ["--aot", sidecars[tag]]) == 0
+            out.append(capsys.readouterr().out)
+        capsys.readouterr()
+        assert tcli.main(verb, device="cpu") == 0
+        assert out[0] == out[1] == capsys.readouterr().out
+    stdin = f"{keys[7]}\nnot-a-word\n"
+    words = []
+    for tag, main in (("port", lambda a: tcli.main(a, device="cpu")), ("jax", jcli.main)):
+        monkeypatch.setattr("sys.stdin", __import__("io").StringIO(stdin))
+        capsys.readouterr()
+        assert main(["query-words", "-k", "3", "--index", paths[index],
+                     "--aot", sidecars[tag]]) == 0
+        words.append(capsys.readouterr().out)
+    assert words[0] == words[1]
+
+
+def test_aot_serve_and_mesh_error_match_jax(files, capsys, tmp_path, monkeypatch):
+    paths, _ = files
+    sidecar = str(tmp_path / "flat.aot")
+    assert tcli.main(["export-aot", "--index", paths["flat.pb"], "-o", sidecar],
+                     device="cpu") == 0
+    served = []
+
+    def fake_serve(index, host, port, ready_fn, micro_batch_window_ms):
+        served.append(type(index).__name__)
+        ready_fn(host, 4242)
+
+    monkeypatch.setattr("gulon_tpu_torch.server.serve", fake_serve)
+    capsys.readouterr()
+    assert tcli.main(["serve", "--index", paths["flat.pb"], "--aot", sidecar],
+                     device="cpu") == 0
+    assert capsys.readouterr().out == "serving on 127.0.0.1:4242\n"
+    assert served == ["AOTServing"]
+    port, ref = _both_err(capsys, ["query", "--index", paths["flat.pb"], "--mesh", "2",
+                                   "--aot", sidecar, paths["q.txt"]])
+    assert port[:2] == ref[:2] and port[0] == 1
+    assert port[2].splitlines()[-1] == ref[2].splitlines()[-1]
+    assert "incompatible with --mesh" in port[2]
 
 
 @pytest.mark.parametrize("argv", [

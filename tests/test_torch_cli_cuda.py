@@ -8,10 +8,18 @@ one). This file imports no JAX, so on a GPU host without JAX it runs with
 - an index file loads onto the card (``load_index``'s default device),
   serves the CPU load's ids through the kernels, and saves back to the
   same bytes;
-- the command line builds, queries, adds and removes on the card.
+- the command line builds, queries, adds and removes on the card;
+- a streaming build of a word2vec text file equals the in-memory build of
+  the same file on the card, bit for bit (flat and partitioned);
+- a packed index serves the unpacked index's ids and distances on the card;
+- ``load_serving`` serves the live path's ids on the card (K1 through the
+  flat and IVF plans), and launches K1 while it loads; a cached flat
+  index's plan builds K2's operand once at load, and every plan reads the
+  index's copy.
 """
 
 import contextlib
+import dataclasses
 import io
 
 import numpy as np
@@ -20,7 +28,7 @@ import torch
 
 import gulon_tpu_torch as gt
 from gulon_tpu_torch import cli
-from gulon_tpu_torch.ops.cuda import adc
+from gulon_tpu_torch.ops.cuda import adc, dense
 
 
 @pytest.fixture
@@ -100,3 +108,96 @@ def test_cli_on_the_card(cuda_device, tmp_path):
     assert [ln.split(": ")[0] for ln in lines] == list(keys[:8])
     # keys[0] was added a second time, and remove-keys drops every copy
     assert gt.load_index(tmp_path / "r.pb").size == 8000 + 8 - 2
+
+
+def _text_file(path, n, d, seed=0):
+    x, keys = _corpus(n=n, d=d, seed=seed)
+    with open(path, "w") as f:
+        gt.write_word2vec(gt.WordVectors(keys, x), f)
+    return gt.read_word2vec_path(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_streamed_build_equals_in_memory_on_the_card(cuda_device, tmp_path, partitioned):
+    """150,000 rows in one streamed chunk: the codes of a row do not
+    depend on which rows share its encode block."""
+    path = tmp_path / "v.txt"
+    wv = _text_file(path, 150_000, 40)
+    if partitioned:
+        cfg = gt.PQConfig(num_clusters=64, num_quantizers=8, max_iters=6)
+        kw = dict(pq_config=cfg, num_partitions=150, coarse_max_iters=6)
+        a = gt.build_ivf_index(wv.keys, wv.vectors, **kw)
+        b = gt.build_ivf_index_streaming(str(path), **kw)
+        names = ("centroids", "codes", "group_ids", "row_const")
+    else:
+        cfg = gt.PQConfig(num_clusters=64, num_quantizers=8, max_iters=6, train_sample=40_000)
+        a = gt.build_flat_index(wv.keys, wv.vectors, pq_config=cfg)
+        b = gt.build_flat_index_streaming(str(path), pq_config=cfg)
+        names = ("codes", "recon_norms")
+    assert b.codes.is_cuda and torch.equal(a.pq.codebooks, b.pq.codebooks)
+    for name in names:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert list(a.key_index.keys) == list(b.key_index.keys)
+
+
+@pytest.mark.cuda
+def test_packed_ids_equal_unpacked_on_the_card(cuda_device):
+    x, keys = _corpus()
+    plain = gt.build_flat_index(keys, x, pq_config=gt.PQConfig(
+        num_clusters=16, num_quantizers=8, max_iters=5))
+    packed = dataclasses.replace(plain)
+    packed.pack_memory()
+    packed.scan_strategy = "auto"
+    q = x[:1024] + 0.01
+    assert packed.resolve_strategy(1024, 10) == "decode"
+    before = adc.adc_scan_kernel_launches
+    dp, ip = packed.query_arrays(10, q)
+    assert adc.adc_scan_kernel_launches == before  # decode is plain torch
+    dd, idd = dataclasses.replace(plain, scan_strategy="decode").query_arrays(10, q)
+    assert torch.equal(ip, idd) and torch.equal(dp, dd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_load_serving_equals_the_live_path_on_the_card(cuda_device, tmp_path, partitioned):
+    x, keys = _corpus()
+    pq = gt.PQConfig(num_clusters=64, num_quantizers=8, max_iters=5)
+    if partitioned:
+        index = gt.build_ivf_index(keys, x, pq_config=pq, num_partitions=20,
+                                   coarse_max_iters=5)
+    else:
+        index = gt.build_flat_index(keys, x, pq_config=pq)
+    path = str(tmp_path / "i.aot")
+    gt.save_serving(path, gt.export_serving(index, shapes=[(1, 10), (1024, 10)]))
+    before = adc.adc_scan_kernel_launches
+    serving = gt.load_serving(path, index)
+    assert adc.adc_scan_kernel_launches > before  # the warm-up ran K1
+    assert serving._plans[(1024, 10)]["scan_strategy"] == "pallas"
+    q = x[:1024] + 0.01
+    for nq in (1024, 1):
+        d_aot, i_aot = serving.query_arrays(10, q[:nq])
+        d_live, i_live = index.query_arrays(10, q[:nq])
+        assert torch.equal(i_aot, i_live) and torch.equal(d_aot, d_live)
+
+
+@pytest.mark.cuda
+def test_load_serving_shares_the_cached_operand_on_the_card(cuda_device, tmp_path):
+    x, keys = _corpus()
+    index = gt.build_flat_index(keys, x, pq_config=gt.PQConfig(
+        num_clusters=64, num_quantizers=8, max_iters=5))
+    index.enable_cache()
+    path = str(tmp_path / "c.aot")
+    gt.save_serving(path, gt.export_serving(index, shapes=[(8, 10), (1024, 10)],
+                                            warm_cache=False))
+    before = dense.dense_scan_kernel_launches
+    serving = gt.load_serving(path, index)
+    assert dense.dense_scan_kernel_launches > before  # the warm-up ran K2
+    assert serving._plans[(1024, 10)]["scan_strategy"] == "cached"
+    assert index._cache_aug is not None and index.decoded_cache is None
+    for view in serving._views.values():
+        assert view._cache_aug is index._cache_aug and view.decoded_cache is None
+    q = x[:1024] + 0.01
+    d_aot, i_aot = serving.query_arrays(10, q)
+    d_live, i_live = index.query_arrays(10, q)
+    assert torch.equal(i_aot, i_live) and torch.equal(d_aot, d_live)

@@ -166,10 +166,10 @@ def test_auto_knobs_match_jax(data, jax_index):
 def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
     port = interop.from_reference(jax_index, device="cpu")
-    # add/remove and OPQ are ported (tests/test_torch_update.py,
-    # tests/test_torch_opq.py); packing and mesh builds are still to come
+    # add/remove, OPQ and packing are ported (tests/test_torch_update.py,
+    # tests/test_torch_opq.py, tests/test_torch_packed.py); mesh builds
+    # are still to come
     for call in (
-        port.pack_memory,
         lambda: build_flat_index(
             keys[:500], x[:500], pq_config=PQConfig(**PQ), mesh=object(), device="cpu"
         ),

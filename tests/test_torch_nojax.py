@@ -1,8 +1,9 @@
 """The port stands alone: a fresh interpreter imports ``gulon_tpu_torch``,
 builds, queries (fused, cached, exact and IVF paths), measures recall,
-adds and removes rows, trains OPQ, saves and loads index files, reads
-word2vec files, drives the command line and answers a server request on
-the CPU, and never loads ``jax``, any module of the JAX package
+adds and removes rows, trains OPQ, packs codes, saves and loads index
+files, reads word2vec files, builds from one as a stream, serves through
+ahead-of-time plans, drives the command line and answers a server
+request on the CPU, and never loads ``jax``, any module of the JAX package
 ``gulon_tpu`` or ``google.protobuf`` (a GPU host need not have
 protobuf). The port's sources (and ``chip_smoke.py``) import none of
 them."""
@@ -85,6 +86,28 @@ with redirect_stdout(out):
                      "-o", os.path.join(tmp, "f.pb"), vecs], device="cpu") == 0
     assert cli.main(["info", "--index", os.path.join(tmp, "f.pb")], device="cpu") == 0
 assert "FlatIndex" in out.getvalue()
+txt = os.path.join(tmp, "v.txt")
+with open(txt, "w") as f:
+    gt.write_word2vec(gt.WordVectors(keys, x), f)
+cfg = gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=3)
+streamed = gt.build_flat_index_streaming(txt, pq_config=cfg, encode_chunk=500, device="cpu")
+memory = gt.build_flat_index(keys, gt.read_word2vec_path(txt).vectors, pq_config=cfg,
+                             device="cpu")
+assert torch.equal(streamed.codes, memory.codes)
+assert gt.build_ivf_index_streaming(txt, pq_config=cfg, num_partitions=6,
+                                    coarse_max_iters=3, device="cpu").size == 1200
+with gt.Word2VecStream(txt) as s:
+    assert s.rows(0, 2).shape == (2, 12)
+packed = gt.build_flat_index(keys, x, pq_config=gt.PQConfig(num_clusters=4, num_quantizers=4,
+                                                             max_iters=3), device="cpu")
+ids = packed.query_arrays(3, x[:8])[1]
+packed.pack_memory()
+assert torch.equal(packed.query_arrays(3, x[:8])[1], ids)
+ivf.scan_strategy = "auto"
+gt.save_serving(os.path.join(tmp, "i.aot"), gt.export_serving(ivf, shapes=[(1, 3), (16, 3)]))
+served = gt.load_serving(os.path.join(tmp, "i.aot"), ivf)
+assert isinstance(served, gt.AOTServing)
+assert torch.equal(served.query_arrays(3, x[:16])[1], ivf.query_arrays(3, x[:16])[1])
 srv = QueryServer(back, port=0)
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 with socket.create_connection(srv.address, timeout=30) as sock:
