@@ -56,9 +56,24 @@ phases); any failure raises and the script exits non-zero:
    index's own partition-padded operands (no padding row may win); a
    second build of the same corpus must give the same padded layout,
    codes and row constants, bit for bit;
-9. k-means determinism: two ``fit_kmeans`` runs (uniform and k-means++
+9. sharded path (deep10m, ``benchmarks/run.py:401``): a 10,000,000 x 96
+   low-rank corpus (intrinsic 24, 10,000 clusters), uncut; mesh M is four
+   logical shards of the one card, or every card when there are two or
+   more. ``build_flat_index(mesh=M)`` (PQ 12x256, 15 iterations, sample
+   200,000) twice, bit-equal, and once on one card (its codes equal on
+   >= 99.99 % of rows, the rest near-ties); then the flat ``auto`` (K1
+   once per shard and batch), ``cached`` (K2 once per shard) and exact
+   (K2 once per shard, f32 rescore) routes, 4 batches of 1024 top-10 at
+   mesh 1 and mesh M beside the single card, recall@10 on 1000 sampled
+   queries >= 0.99x the single card's; K1 and K2 against their plain
+   versions on one shard's operands; ivf1m (phase 8's index) sharded over
+   M at 4 winners (K1 once per shard, recall >= 0.99x the single card's);
+   two processes (``--mesh-child``) over a two-rank mesh, gloo with both
+   on one card or NCCL with a card each, whose ids must equal one
+   process's two-shard mesh;
+10. k-means determinism: two ``fit_kmeans`` runs (uniform and k-means++
    init) and two PQ trainings on the same host array give the same bits;
-10. CLI path (glove100, 400,000 x 100): the corpus as a word2vec binary
+11. CLI path (glove100, 400,000 x 100): the corpus as a word2vec binary
    file and 1,024 queries as a text file (read by the native parser);
    through ``gulon_tpu_torch.cli.main`` in process: ``build-index
    --metric cosine -m 8 -k 256 -n 25``, ``info``, ``query -k 10`` (its
@@ -68,7 +83,8 @@ phases); any failure raises and the script exits non-zero:
    first), ``remove-keys`` of them (none comes back), ``build-index -p``
    (400 partitions, probe 20) and ``query``, ``build-index --opq 4`` and
    ``query`` (R@10 not below the plain build's - 0.01), ``build-index
-   --exact`` and ``query``; K1 and K2 must launch from these calls. Then
+   --exact`` and ``query``, ``query --mesh <card count>`` (the lines of
+   ``query``, near-ties aside); K1 and K2 must launch from these calls. Then
    ``python3 -m gulon_tpu_torch.cli query`` in a fresh process must print
    the same lines, a ``serve --port 0`` process must answer 3 JSON
    requests (1, 8 and 1024 queries) with ``query_arrays``'s keys, and
@@ -107,6 +123,7 @@ import io
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -693,8 +710,10 @@ def _serve_checked(index, x, rows, k) -> float:
 
 def _profile(index, x, batches, k) -> dict:
     """Device ms per batch by kernel over the given batches
-    (``torch.profiler``): the sum over device kernels and copies, and the
-    eight largest."""
+    (``torch.profiler``): the sum over device kernels and copies, the
+    eight largest, and the sums by role: the scan kernels (K1-K3), the
+    sorts (selection over block winners, the merge), the copies, and the
+    rest."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -713,7 +732,13 @@ def _profile(index, x, batches, k) -> dict:
             us = e.self_cuda_time_total
         times[e.key[:90]] = times.get(e.key[:90], 0.0) + us / 1e3 / len(batches)
     top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
-    return dict(device_ms_per_batch=sum(times.values()), top=top)
+    roles = {"scan kernels": 0.0, "sorts": 0.0, "copies": 0.0, "other": 0.0}
+    for name, ms in times.items():
+        role = ("scan kernels" if "adc_scan_kernel" in name or "dense_kernel" in name
+                else "sorts" if "Sort" in name or "sort" in name
+                else "copies" if "Memcpy" in name or "copy" in name else "other")
+        roles[role] += ms
+    return dict(device_ms_per_batch=sum(times.values()), top=top, by_role=roles)
 
 
 def phase_main_path(seed: int):
@@ -908,21 +933,34 @@ def phase_cached_path(glove) -> dict:
 
 def _flat_kernel_check(index, q, launches_per_batch, phase: str) -> dict:
     """K1 against its plain version on a flat index's own operands, built
-    as its ``pallas`` route builds them (centered, the index's winners),
-    for the prepared queries ``q``: :func:`compare_packed` with each
-    winner's summand scale ``|rn - c| + ||q||^2 + c + 2 ||q|| sqrt(rn)``
-    (``rn = ||r^||^2``, ``c`` the centering constant), the size of the f32
-    partial sums whose order differs (a self-query cancels toward 0)."""
+    as its ``pallas`` route builds them: :func:`_k1_flat_check`."""
+    from gulon_tpu_torch.ops.cuda import adc
+
+    if index._pallas_codes_t is None:
+        index._pallas_codes_t = adc.pack_codes_t(index.codes, index.pq.num_clusters)
+    return _k1_flat_check(
+        index.pq, index._pallas_codes_t, index.recon_norms,
+        index.resolved_pallas_winners(), q, launches_per_batch, phase,
+    )
+
+
+def _k1_flat_check(pq, codes_t, recon_norms, winners, q, launches_per_batch,
+                   phase: str) -> dict:
+    """K1 against its plain version on a flat scan's operands (a whole
+    index's or one shard's: ``codes_t`` ``[m, n]``, ``recon_norms`` ``[n]``),
+    centered, at ``winners``, for the prepared queries ``q``:
+    :func:`compare_packed` with each winner's summand scale ``|rn - c| +
+    ||q||^2 + c + 2 ||q|| sqrt(rn)`` (``rn = ||r^||^2``, ``c`` the
+    centering constant), the size of the f32 partial sums whose order
+    differs (a self-query cancels toward 0)."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
 
-    pq, winners = index.pq, index.resolved_pallas_winners()
-    if index._pallas_codes_t is None:
-        index._pallas_codes_t = adc.pack_codes_t(index.codes, pq.num_clusters)
+    n = codes_t.shape[1]
     ops = adc.prepare_scan_operands(
-        q, pq.codebooks, index._pallas_codes_t, index.recon_norms, bounds=pq.bounds,
-        tile_rows=0, num_rows=index.size, winners=winners, center_scores=True,
+        q, pq.codebooks, codes_t, recon_norms, bounds=pq.bounds,
+        tile_rows=0, num_rows=n, winners=winners, center_scores=True,
     )
     nblk = ops["t"] // 128
     operands = (
@@ -936,8 +974,8 @@ def _flat_kernel_check(index, q, launches_per_batch, phase: str) -> dict:
     def scale_of(ref):
         block, _ = winner_columns(ref.shape[1], winners, nblk, ref.device)
         rows = torch.clamp(block[None, :] * 128 + (ref.view(torch.int32) & 127),
-                           max=index.size - 1).long()
-        rn = index.recon_norms[rows]
+                           max=n - 1).long()
+        rn = torch.clamp(recon_norms[rows], max=adc._BIG)  # +inf: padding rows
         return (rn - center).abs() + q2 + center.abs() + 2.0 * torch.sqrt(q2 * rn)
 
     case = _k1_case(phase, operands, winners, nblk, None, launches_per_batch, scale_of)
@@ -1038,10 +1076,11 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
     return case
 
 
-def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
+def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
     """ivf1m at full size: build -> serve through auto (pallas), W=2 +
     rescore 4, masked, and sublinear small batches -> recall of each
-    route -> K1 check on the index's operands."""
+    route -> K1 check on the index's operands. Returns the phase line and
+    the index, corpus, batches and ground truth for the sharded phase."""
     import numpy as np
     import torch
 
@@ -1162,7 +1201,8 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda") -> dict:
         index, torch.from_numpy(x[batches[0]]).to(device),
         out["pallas_w4"]["launches_per_batch"],
     )
-    return dict(out, kernel=kernel)
+    return dict(out, kernel=kernel), dict(
+        index=index, x=x, keys=keys, batches=batches, truth=truth, recall=recall)
 
 
 def _ivf_rebuild_check(index, keys, x, device) -> dict:
@@ -1358,6 +1398,7 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
 
     import gulon_tpu_torch as gt
     from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.parallel import make_mesh, shard_index
     from gulon_tpu_torch.utils import native
 
     d, batch, k = 100, 1024, 10
@@ -1426,6 +1467,17 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
         out.update(first_query_ms=first_ms, steady_ms_per_batch=steady,
                    strategy=index.resolve_strategy(batch, k))
         out["query_equal"] = query_out == _query_lines(index, q_keys, q, k)
+        # the same file served row-sharded over every card
+        cards = torch.cuda.device_count()
+        mesh_out = run("query_mesh", ["query", "-k", "10", "--mesh", str(cards), "--index",
+                                      p["flat.pb"], p["q.txt"]])
+        sharded = shard_index(index, make_mesh(cards))
+        out["query_mesh"] = dict(
+            cards=cards, lines_equal=mesh_out == query_out,
+            lines_of_sharded=mesh_out == _query_lines(sharded, q_keys, q, k),
+            **_near_ties(index.query_arrays(k, q), sharded.query_arrays(k, q)),
+        )
+        del sharded
 
         test_out = run("test", ["test", "--vectors", p["vecs.bin"], "--index", p["flat.pb"],
                                 "--sample", "1000"])
@@ -1513,6 +1565,9 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
 
     checks = {
         "query_equal": out["query_equal"], "resave": out["resave_bytes_equal"],
+        "query_mesh": out["query_mesh"]["lines_equal"] or (
+            out["query_mesh"]["lines_of_sharded"]
+            and out["query_mesh"]["mismatches_near_ties"]),
         "cli_test_ratio": out["recall10_ratio"]["cli_test"] >= 0.97,
         "fused_ratio": out["recall10_ratio"]["fused"] >= 0.97,
         "added": out["added_find_themselves"] == 1000,
@@ -1793,8 +1848,6 @@ def phase_streaming(seed: int, x, smi: str) -> dict:
     """The 2,000,000 x 300 corpus as a word2vec text file (the shape of
     fastText's crawl-300d-2M.vec), built from the file by the streaming
     builders in a child process; see :func:`_streaming_child`."""
-    import shutil
-
     n, d = x.shape
     tmp_root = max((_ROOT, tempfile.gettempdir()), key=lambda p: shutil.disk_usage(p).free)
     free = shutil.disk_usage(tmp_root).free
@@ -1897,6 +1950,344 @@ def phase_packed(glove, smi: str) -> dict:
     return out
 
 
+# ---- sharded path -----------------------------------------------------------
+
+
+def _sharding_mesh(device: str = "cuda"):
+    """The sharded phase's mesh: every card when there are two or more,
+    else four logical shards of the one card."""
+    import torch
+
+    from gulon_tpu_torch.parallel import make_mesh
+
+    if device == "cuda" and torch.cuda.device_count() >= 2:
+        return make_mesh()
+    return make_mesh(devices=[torch.device(device, 0)] * 4)
+
+
+def _near_ties(ref, got, rel: float = 1e-4) -> dict:
+    """Two ``(dists, ids)`` top-k results: the share of equal ids, and
+    whether every slot whose ids differ holds near-equal distances in both
+    (within ``rel * max(|d|, 1)``): a swapped near-tie, or a tie at the
+    k-th slot."""
+    import torch
+
+    (d_a, i_a), (d_b, i_b) = ref, got
+    d_b, i_b = d_b.to(d_a.device), i_b.to(i_a.device)
+    diff = i_a != i_b
+    tol = rel * torch.clamp(d_a.abs(), min=1.0)
+    return dict(
+        id_equal=float((~diff).float().mean()),
+        mismatches_near_ties=bool(((d_a - d_b).abs()[diff] <= tol[diff]).all()),
+        max_dist_gap=float((d_a - d_b).abs().max()),
+    )
+
+
+def _recall_rows(index, truth, x, k: int = 10) -> float:
+    """recall@k as ``recall_of`` counts it (a returned row within the true
+    k-th distance is a hit), for an index whose row i is corpus row i."""
+    import numpy as np
+
+    _, ids = index.query_arrays(k, truth.queries)
+    ids = ids.cpu().numpy()
+    valid = ids >= 0
+    rows = np.where(valid, ids, 0)
+    exact = ((x[rows] - truth.queries[:, None, :]) ** 2).sum(axis=2)
+    exact = np.where(valid, exact, np.inf)
+    return float(np.mean((exact[:, :k] <= truth.kth_distances[k][:, None]).sum(1) / k))
+
+
+def _route(index, x, batches, k, counter: str) -> dict:
+    """A warm-up batch, then ``batches`` through ``index``: host ms of
+    each (ending in a synchronize) and the launches of the ``counter``
+    kernel ("K1" or "K2") they made."""
+    _serve(index, x, batches[0], k)
+    before = _launch_counts()[counter]
+    ms = [_serve_checked(index, x, rows, k) for rows in batches]
+    return dict(ms_per_batch=ms, launches=_launch_counts()[counter] - before)
+
+
+def _mesh_child(rank: int, port: int, work: str, backend: str) -> dict:
+    """One rank of the multi-process check: join the group, load the
+    glove100 index, shard it over the two-rank mesh (one shard a rank),
+    answer the 1024-query batch and write the result."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.parallel import distributed_init, make_mesh, shard_index
+
+    dev = torch.device("cuda", rank if torch.cuda.device_count() >= 2 else 0)
+    distributed_init(devices=[dev], backend=backend, world_size=2, rank=rank,
+                     init_method=f"tcp://127.0.0.1:{port}")
+    adc._kernel()  # the library the parent built
+    gloo_cuda = None
+    if backend == "gloo":
+        # does gloo gather CUDA tensors, or only host ones?
+        t = torch.full((4,), float(rank), device=dev)
+        got = [torch.empty_like(t) for _ in range(2)]
+        try:
+            dist.all_gather(got, t)
+            gloo_cuda = "gathers" if [float(g[0]) for g in got] == [0.0, 1.0] else "wrong values"
+        except RuntimeError as e:
+            gloo_cuda = "refuses: " + str(e).splitlines()[0][:200]
+    mesh = make_mesh(devices=[dev])
+    index = gt.load_index(os.path.join(work, "glove.pb"), device=dev)
+    q = np.load(os.path.join(work, "q.npy"))
+    sharded = shard_index(index, mesh)
+    adc.adc_scan_kernel_launches = 0
+    d, ids = sharded.query_arrays(10, q)
+    torch.cuda.synchronize()
+    np.savez(os.path.join(work, f"rank{rank}.npz"), d=d.cpu().numpy(), ids=ids.cpu().numpy())
+    out = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
+               shards=mesh.shape["rows"], local_rows=mesh.local_rows,
+               k1_launches=adc.adc_scan_kernel_launches, gloo_all_gather_cuda=gloo_cuda)
+    dist.destroy_process_group()
+    return out
+
+
+def _multiprocess_check(work: str) -> dict:
+    """Two child processes (:func:`_mesh_child`) serve the saved glove100
+    index over a two-rank mesh: NCCL with a card a rank when there are two
+    cards, else gloo with both ranks on card 0. Their ids must equal one
+    process's two-shard mesh, near-ties aside."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.parallel import make_mesh, shard_index
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=_ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", str(r), str(port), work,
+         backend], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=_ROOT) for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    for proc, (stdout, stderr) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh child exited {proc.returncode}: {stderr[-3000:]}")
+    ranks = [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in outs]
+    index = gt.load_index(os.path.join(work, "glove.pb"))
+    q = np.load(os.path.join(work, "q.npy"))
+    ref = shard_index(index, make_mesh(devices=["cuda:0"] * 2)).query_arrays(10, q)
+    compared = []
+    for r in range(2):
+        got = np.load(os.path.join(work, f"rank{r}.npz"))
+        compared.append(_near_ties(ref, (torch.from_numpy(got["d"]), torch.from_numpy(got["ids"]))))
+    return dict(backend=backend, seconds=seconds, ranks=ranks, against_one_process=compared)
+
+
+def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
+                  n: int = 10_000_000, device: str = "cuda") -> dict:
+    """deep10m (``benchmarks/run.py:401``): 10,000,000 x 96, PQ 12x256,
+    top-10 over batches of 1024, uncut. Two mesh builds (bit-equal) and a
+    single-card build; the flat ``auto`` (K1 per shard), ``cached`` (K2
+    per shard) and exact (K2 per shard) routes at mesh 1 and mesh M
+    against the single-card routes by recall@10; K1 and K2 against their
+    plain versions on one shard's operands; ivf1m sharded at W=4; the
+    multi-process check."""
+    import numpy as np
+    import torch
+
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.models.build import _encode_chunked
+    from gulon_tpu_torch.ops import scan as scan_ops
+    from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.parallel import make_mesh, shard_index
+
+    d, batch, k = 96, 1024, 10
+    adc.adc_scan_kernel_launches = 0
+    dense.dense_scan_kernel_launches = 0
+    dense.dense_scan_i8_kernel_launches = 0
+    t0 = time.perf_counter()
+    x = low_rank_corpus(seed, n, d, intrinsic=24, n_clusters=10_000)
+    keys = np.array([f"d{i:08d}" for i in range(n)], dtype=object)  # sorted: row i is key i
+    rng = np.random.default_rng(seed)
+    batches = [np.sort(rng.choice(n, batch, replace=False)) for _ in range(4)]
+    mesh, mesh1 = _sharding_mesh(device), make_mesh(devices=[torch.device(device, 0)])
+    shards = mesh.shape["rows"]
+    out = dict(n=n, d=d, pq="12x256", batch=batch, k=k, card=smi,
+               corpus_s=time.perf_counter() - t0,
+               mesh=dict(shards=shards, devices=[str(v) for v in mesh.devices[:, 0]]))
+    cfg = gt.PQConfig(num_clusters=256, num_quantizers=12, max_iters=15, train_sample=200_000)
+
+    def build(on_mesh):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx = gt.build_flat_index(keys, x, pq_config=cfg, mesh=on_mesh, device=device)
+        torch.cuda.synchronize()
+        return idx, time.perf_counter() - t
+
+    index, mesh_s = build(mesh)
+    again, mesh_s2 = build(mesh)
+    single, single_s = build(None)
+    out["build_s"] = dict(mesh=[mesh_s, mesh_s2], single_card=single_s)
+    out["mesh_builds_bit_equal"] = dict(
+        codebooks=bool(torch.equal(index.pq.codebooks, again.pq.codebooks)),
+        codes=bool(torch.equal(index.codes, again.codes)),
+        norms=bool(torch.equal(index.recon_norms, again.recon_norms)),
+    )
+    del again
+    same_cb = bool(torch.equal(single.pq.codebooks, index.pq.codebooks))
+    ref_codes = single.codes if same_cb else _encode_chunked(index.pq, x, 1 << 20)
+    del single
+    differ = (index.codes != ref_codes).any(dim=1).nonzero()[:, 0]
+    gaps = []
+    if len(differ):
+        rows = differ.cpu().numpy()
+        xs = index.pq.split(x[rows])  # [m, r, dsub]
+        cb = index.pq.codebooks
+        sub = torch.arange(cb.shape[0], device=cb.device)[:, None]
+        for codes in (index.codes[differ], ref_codes[differ]):
+            c = cb[sub, codes.T.long()]  # [m, r, dsub]
+            gaps.append(((xs.double() - c.double()) ** 2).sum(-1))
+        scale = (xs.double() ** 2).sum(-1) + (cb.double() ** 2).sum(-1).max(dim=1).values[:, None]
+        near = ((gaps[0] - gaps[1]).abs() <= 2.0 ** -8 * scale).all().item()
+    else:
+        near = True
+    out["encode_vs_single_card"] = dict(
+        same_codebooks=same_cb, rows_equal=1.0 - len(differ) / n, rows_differing=len(differ),
+        differing_rows_near_ties=bool(near),
+    )
+    del ref_codes
+
+    truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10), device=device)
+    decode = dataclasses.replace(index, scan_strategy="decode")
+    out["recall_single_decode"] = _recall_rows(decode, truth, x)
+    del decode
+    # the timed batches' launches: sharded (mesh 1 and mesh M) and single card
+    sharded_launches, single_launches = {"K1": 0, "K2": 0}, {"K1": 0, "K2": 0}
+    routes = {}
+
+    def drive(name, single_index, counter, make):
+        """The single-card route, then the same index sharded at mesh 1
+        and mesh M: ms per batch, launches, recall@10."""
+        r = {}
+        for tag, idx in (("mesh1", make(mesh1)), (f"mesh{shards}", make(mesh))):
+            r[tag] = _route(idx, x, batches, k, counter)
+            r[tag]["recall10"] = _recall_rows(idx, truth, x)
+            sharded_launches[counter] += r[tag]["launches"]
+            if tag != "mesh1":
+                r["sharded"] = idx
+        r["single_card"] = _route(single_index, x, batches, k, counter)
+        single_launches[counter] += r["single_card"]["launches"]
+        r["single_card"]["recall10"] = _recall_rows(single_index, truth, x)
+        r["recall10_ratio"] = r[f"mesh{shards}"]["recall10"] / max(
+            r["single_card"]["recall10"], 1e-12)
+        routes[name] = r
+        return r.pop("sharded")
+
+    if index.resolve_strategy(batch, k) != "pallas":
+        raise AssertionError("deep10m flat auto does not resolve to the kernel route")
+    flat_m = drive("flat_auto", index, "K1", lambda m: shard_index(index, m))
+    out["profile_flat_auto"] = _profile(flat_m, x, batches, k)
+    q0 = torch.from_numpy(x[batches[0]]).to(device)
+    lpb = routes["flat_auto"][f"mesh{shards}"]["launches"] / len(batches)
+    counted = adc.adc_scan_kernel_launches  # the comparison's launches are not the path's
+    k1_shard = _k1_flat_check(
+        index.pq, flat_m.codes_t_sharded[0], flat_m.norms_sharded[0],
+        index.resolved_pallas_winners(), q0, lpb, "sharded_k1",
+    )
+    adc.adc_scan_kernel_launches = counted
+    del flat_m
+
+    index.enable_cache()
+    index.scan_strategy = "cached"
+    sharded_cached = {}
+
+    def make_cached(m):
+        sharded_cached[m.shape["rows"]] = shard_index(index, m)
+        return sharded_cached[m.shape["rows"]]
+
+    # shard before the single-card route: its K2 operand replaces the cache
+    drive("cached", index, "K2", make_cached)
+    aug0 = sharded_cached[shards].cache_aug_sharded[0]
+    q_pad = scan_ops._q_pad(q0, index.pq.bounds, index.pq.pad_width)
+    counted = dense.dense_scan_kernel_launches
+    k2_shard = _dense_case(
+        "K2", dense.dense_block_scan, dense._dense_block_scan_plain, aug0,
+        dense_queries(q_pad, aug0.shape[1]), False,
+        routes["cached"][f"mesh{shards}"]["launches"] / len(batches), label="deep10m_shard",
+    )
+    dense.dense_scan_kernel_launches = counted
+    del sharded_cached, aug0, index
+    torch.cuda.empty_cache()
+
+    exact = gt.build_exact_index(keys, x, device=device)
+    if exact.resolve_strategy(k) != "pallas":
+        raise AssertionError("deep10m exact auto does not resolve to the kernel route")
+    drive("exact", exact, "K2", lambda m: shard_index(exact, m))
+    del exact
+    torch.cuda.empty_cache()
+
+    ivf, ivf_x = ivf_ctx["index"], ivf_ctx["x"]
+    ivf_m = shard_index(ivf, mesh)
+    resolved = ivf_m._resolve(batch, k)
+    ivf_route = _route(ivf_m, ivf_x, ivf_ctx["batches"], k, "K1")
+    sharded_launches["K1"] += ivf_route["launches"]
+    rec = gt.recall_of(ivf_m, ivf_ctx["truth"], ivf_x, ivf_ctx["keys"])
+    single = ivf_ctx["recall"]
+    ivf_route.update(
+        strategy=resolved, recall10=rec[10].mean,
+        recall10_single_pallas_w4=single["pallas_w4"][10],
+        recall10_single_masked=single["masked"][10],
+        recall10_ratio=rec[10].mean / max(single["pallas_w4"][10], 1e-12),
+        recall10_ratio_to_masked=rec[10].mean / max(single["masked"][10], 1e-12),
+    )
+    out["ivf1m_w4"] = ivf_route
+    out["multiprocess"] = _multiprocess_check(work)
+    _emit({"phase": "sharded_backend", "backend": out["multiprocess"]["backend"],
+           "gloo_all_gather_cuda": [r["gloo_all_gather_cuda"]
+                                    for r in out["multiprocess"]["ranks"]]})
+    out["routes"] = routes
+    out["launches_sharded"] = sharded_launches
+    out["launches_single_card"] = single_launches
+    # every launch of the phase but the kernel-against-plain comparisons':
+    # the timed batches above, plus warm-ups, recall, profile and the
+    # multi-process reference
+    out["launches"] = _launch_counts()
+    _emit({"phase": "sharded", **out})
+
+    checks = {
+        "bit_equal": all(out["mesh_builds_bit_equal"].values()),
+        "encode_rows": out["encode_vs_single_card"]["rows_equal"] >= 0.9999,
+        "encode_near_ties": out["encode_vs_single_card"]["differing_rows_near_ties"],
+        "ivf_pallas": resolved == "pallas",
+        "ivf_launches": ivf_route["launches"] == shards * len(batches),
+        "ivf_recall": ivf_route["recall10_ratio"] >= 0.99,
+        "multiprocess": all(c["id_equal"] == 1.0 or c["mismatches_near_ties"]
+                            for c in out["multiprocess"]["against_one_process"]),
+        "multiprocess_k1": all(r["k1_launches"] >= 1 for r in out["multiprocess"]["ranks"]),
+    }
+    for name, r in routes.items():
+        checks[f"{name}_launches"] = (
+            r[f"mesh{shards}"]["launches"] == shards * len(batches)
+            and r["mesh1"]["launches"] == len(batches))
+        checks[f"{name}_recall"] = r["recall10_ratio"] >= 0.99
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded checks failed: {failed}")
+    return dict(out, k1_shard=k1_shard, k2_shard=k2_shard)
+
+
 def _launch_counts() -> dict:
     from gulon_tpu_torch.ops.cuda import adc, dense
 
@@ -1983,10 +2374,14 @@ def _kernel_entry(name, source, replaces, launches, max_abs_err, case, **extra) 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    # internal: the streaming phase runs its builds in a child process
+    # internal: the streaming phase runs its builds in a child process,
+    # the sharded phase its two ranks in two
     parser.add_argument("--streaming-child", metavar="FILE", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-child", nargs=4, metavar=("RANK", "PORT", "DIR", "BACKEND"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1995,6 +2390,11 @@ def main(argv=None) -> int:
     if args.streaming_child:
         _emit(_streaming_child(args.streaming_child, train_sample=500_000))
         return 0
+    if args.mesh_child:
+        rank, port, work, backend = args.mesh_child
+        _emit(_mesh_child(int(rank), int(port), work, backend))
+        return 0
+    import gulon_tpu_torch as gt
     from gulon_tpu_torch.ops.cuda import _build, adc, dense
 
     smi = _nvidia_smi()
@@ -2034,52 +2434,73 @@ def main(argv=None) -> int:
     }
     dense_k = phase_dense_kernel(args.seed, x2m, glove, lpb)
     packed = phase_packed(glove, smi)
-    del glove
+    work = tempfile.mkdtemp(prefix="gulon_smoke_")
+    try:
+        # the glove100 index and a query batch for the multi-process check
+        gt.save_index(glove["index"], os.path.join(work, "glove.pb"))
+        rows = np.random.default_rng(args.seed + 13).choice(len(glove["x"]), 1024, replace=False)
+        np.save(os.path.join(work, "q.npy"), glove["x"][rows])
+        del glove
+        torch.cuda.empty_cache()
+        streaming = phase_streaming(args.seed, x2m, smi)
+        del x2m
+        ivf, ivf_ctx = phase_ivf_path(args.seed)
+        sharded = phase_sharded(args.seed, smi, ivf_ctx, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del ivf_ctx
     torch.cuda.empty_cache()
-    streaming = phase_streaming(args.seed, x2m, smi)
-    del x2m
-    ivf = phase_ivf_path(args.seed)
     phase_kmeans_determinism(args.seed)
     cli = phase_cli_path(args.seed, smi)
     k2, k3 = dense_k["k2"], dense_k["k3"]
     cli_l, aot_l = cli["launches"], cli["aot"]["launches"]
     packed_l = dict(zip(("K1", "K2", "K3"), packed["launches"]))
+    sh_l, sh_1, sh_all = (sharded["launches_sharded"], sharded["launches_single_card"],
+                          sharded["launches"])
+    case_keys = ("ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
+                 "launches_per_batch", "max_abs_err")
     _emit({"kernels": [
         _kernel_entry(
             "adc_scan", "gulon_tpu_torch/csrc/adc_scan.cu",
             "gulon_tpu/ops/pallas/adc.py:276",
             main_path["launches"] + ivf["launches"] + cli_l["K1"] + streaming["launches"]
-            + aot_l["K1"],
-            max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"], streaming["max_abs_err"]),
+            + aot_l["K1"] + sh_all["K1"],
+            max(k1["max_abs_err"], ivf["kernel"]["max_abs_err"], streaming["max_abs_err"],
+                sharded["k1_shard"]["max_abs_err"]),
             k1,
             launches_by_path={"flat": main_path["launches"], "ivf": ivf["launches"],
                               "cli": cli_l["K1"], "streaming": streaming["launches"],
-                              "aot": aot_l["K1"], "packed": packed_l["K1"]},
-            **{name: {k: case[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
-                "launches_per_batch", "max_abs_err")} for name, case in (
+                              "aot": aot_l["K1"], "packed": packed_l["K1"],
+                              "sharded": sh_l["K1"], "deep10m_single_card": sh_1["K1"],
+                              "sharded_phase_untimed": sh_all["K1"] - sh_l["K1"] - sh_1["K1"]},
+            **{name: {k: case[k] for k in case_keys} for name, case in (
                 ("ivf_w4", ivf["kernel"]),
                 ("crawl2m_streamed_w1", streaming["flat"]["kernel"]),
-                ("crawl2m_streamed_ivf_w4", streaming["ivf"]["kernel"]))},
+                ("crawl2m_streamed_ivf_w4", streaming["ivf"]["kernel"]),
+                ("deep10m_shard", sharded["k1_shard"]))},
         ),
         _kernel_entry(
             "dense_scan_bf16", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:89",
-            exact["launches_k2"] + cached["launches"] + cli_l["K2"] + aot_l["K2"],
-            dense_k["k2_max_abs_err"], k2,
+            exact["launches_k2"] + cached["launches"] + cli_l["K2"] + aot_l["K2"]
+            + sh_all["K2"],
+            max(dense_k["k2_max_abs_err"], sharded["k2_shard"]["max_abs_err"]), k2,
             launches_by_path={"exact": exact["launches_k2"], "cached": cached["launches"],
                               "cli": cli_l["K2"], "aot": aot_l["K2"],
-                              "packed": packed_l["K2"]},
-            cache_400k={k: dense_k["k2_cache"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_resource", "library_ms",
-                "launches_per_batch")},
+                              "packed": packed_l["K2"], "sharded": sh_l["K2"],
+                              "deep10m_single_card": sh_1["K2"],
+                              "sharded_phase_untimed": sh_all["K2"] - sh_l["K2"] - sh_1["K2"]},
+            cache_400k={k: dense_k["k2_cache"][k] for k in case_keys[:-1]},
+            deep10m_shard={k: sharded["k2_shard"][k] for k in case_keys},
         ),
         _kernel_entry(
             "dense_scan_i8", "gulon_tpu_torch/csrc/dense_scan.cu",
             "gulon_tpu/ops/pallas/dense.py:419",
-            exact["launches_k3"] + cli_l["K3"] + aot_l["K3"], dense_k["k3_max_abs_err"], k3,
+            exact["launches_k3"] + cli_l["K3"] + aot_l["K3"] + sh_all["K3"],
+            dense_k["k3_max_abs_err"], k3,
             launches_by_path={"exact": exact["launches_k3"], "cli": cli_l["K3"],
-                              "aot": aot_l["K3"], "packed": packed_l["K3"]},
+                              "aot": aot_l["K3"], "packed": packed_l["K3"],
+                              "sharded": sh_all["K3"]},
         ),
     ]})
     print(smi, flush=True)

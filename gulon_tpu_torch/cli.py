@@ -15,9 +15,9 @@ Every verb runs on the CUDA card; :func:`main` takes ``device=`` as a
 Python keyword (the tests pass ``"cpu"``), not as a flag.
 ``build-index --streaming`` builds from the text file without holding its
 vectors (``models/streaming.py``); ``export-aot`` writes serving plans
-that ``--aot`` serves through (``utils/aot.py``). ``--mesh`` exits 1 with
-an error naming its ROADMAP item (11): sharded serving is the parallel
-slice of the port.
+that ``--aot`` serves through (``utils/aot.py``). ``--mesh N`` serves the
+index row-sharded over the first N cards (``parallel/``); on the CPU
+(``device="cpu"``) over N logical shards of it.
 """
 
 from __future__ import annotations
@@ -305,8 +305,8 @@ def build_parser() -> argparse.ArgumentParser:
             type=_positive_int(1),
             default=None,
             metavar="N",
-            help="shard the index over N devices (comes with the parallel "
-            "slice of the port, ROADMAP Queue 1 item 11)",
+            help="shard the index row-wise over the first N devices and "
+            "serve with a top-k merge (default: single device)",
         )
         sp.add_argument(
             "--aot",
@@ -333,16 +333,9 @@ _IVF_STRATEGIES = ("auto", "masked", "pallas", "gathered", "bucketed")
 _EXACT_STRATEGIES = ("auto", "xla", "pallas")
 
 
-def _not_yet(what: str, item: int) -> str:
-    return (
-        f"{what} comes with ROADMAP Queue 1 item {item} of the PyTorch port "
-        "(gulon_tpu_torch); it is not available yet"
-    )
-
-
 def _load_serving_index(args, reporter, device):
     """Load an index and apply the serving knobs (strategy, precision,
-    rerank factor, winners)."""
+    rerank factor, winners, mesh)."""
     from gulon_tpu_torch.models.exact import ExactIndex
     from gulon_tpu_torch.models.flat import FlatIndex
     from gulon_tpu_torch.models.ivf import IVFIndex
@@ -354,7 +347,6 @@ def _load_serving_index(args, reporter, device):
                 "--aot serves a single-device index (artifacts are "
                 "exported unsharded); it is incompatible with --mesh"
             )
-        raise ValueError(_not_yet("--mesh (sharded serving)", 11))
     with reporter.task(f"loading {args.index}"):
         index = load_index(args.index, device=device)
     strategy = getattr(args, "scan_strategy", None)
@@ -402,6 +394,23 @@ def _load_serving_index(args, reporter, device):
                 "--pallas-winners applies to flat/partitioned indices"
             )
         index.pallas_winners = winners
+    if getattr(args, "mesh", None):
+        import torch
+
+        from gulon_tpu_torch.parallel import make_mesh, shard_index
+
+        devices = None  # the first N cards
+        if torch.device(device).type == "cuda":
+            avail = torch.cuda.device_count()
+        else:  # N logical shards of the named device
+            avail = os.cpu_count() or 1
+            devices = [device] * args.mesh
+        if args.mesh > avail:
+            raise ValueError(
+                f"--mesh {args.mesh} exceeds the {avail} available devices"
+            )
+        with reporter.task(f"sharding over {args.mesh} devices"):
+            index = shard_index(index, make_mesh(args.mesh, devices=devices))
     if getattr(args, "aot", None):
         from gulon_tpu_torch.utils.aot import load_serving
 

@@ -11,8 +11,11 @@
 With ``opq_iters > 0`` both learn an OPQ rotation (``ops/opq.py``)
 first. ``PQConfig.init`` and ``coarse_init`` pick the k-means seeding
 (``"sample"`` or ``"kmeans++"``); ``report_fn`` receives the k-means
-progress of every training. Mesh (multi-device) builds come with the
-parallel slice of the port.
+progress of every single-device training. With ``mesh``
+(``parallel/mesh.py``) the k-means stages train distributed (rows
+data-parallel, subspaces over ``"sub"``) and the encode shards rows over
+every device of the mesh (``parallel/ops.py``); the index itself lands on
+``device``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from gulon_tpu_torch.ops.kmeans import KMeansConfig, fit_kmeans
 from gulon_tpu_torch.ops.opq import train_opq
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.parallel.mesh import check_mesh
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 from gulon_tpu_torch.utils.word2vec import WordVectors
 
@@ -41,15 +45,21 @@ def _normalize_np(x: np.ndarray) -> np.ndarray:
     return np.where(norms > 0, x / np.where(norms > 0, norms, 1.0), x)
 
 
-def _encode_chunked(pq: ProductQuantizer, x, chunk: int) -> torch.Tensor:
+def _encode_chunked(pq: ProductQuantizer, x, chunk: int, mesh=None) -> torch.Tensor:
     """Encode rows (host or device) ``chunk`` at a time on the quantizer's
-    device; the codes stay there."""
+    device, or with ``mesh`` over every device of the mesh (P3,
+    ``ProductQuantizer.scala:25-35`` at mesh scale); the codes land on the
+    quantizer's device."""
+    if mesh is not None and len(x):
+        from gulon_tpu_torch.parallel.ops import sharded_encode
+
+        return torch.from_numpy(sharded_encode(pq, x, mesh, chunk=chunk)).to(pq.device)
     parts = [pq.encode(x[start : start + chunk]) for start in range(0, len(x), chunk)]
     if not parts:
         return torch.zeros(
             (0, pq.num_quantizers), dtype=pq.dtype_codes, device=pq.device
         )
-    return torch.cat(parts, dim=0)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def build_flat_index(
@@ -67,14 +77,12 @@ def build_flat_index(
     """Linear build: sort -> PQ train -> encode (``BuildIndex.scala:84-93``).
 
     ``vectors`` is host data (numpy or nested lists); training sample,
-    codes and norms live on ``device``. With ``opq_iters > 0`` a rotation
-    is learned first and the codes quantize ``x @ rotation``
-    (``gulon_tpu/models/build.py:86-111``); queries rotate inside the
-    index."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh builds come with the parallel slice of the PyTorch port"
-        )
+    codes and norms live on ``device``. With ``mesh`` the codebooks train
+    and the rows encode distributed over its devices. With ``opq_iters >
+    0`` a rotation is learned first and the codes quantize ``x @
+    rotation`` (``gulon_tpu/models/build.py:86-111``); queries rotate
+    inside the index."""
+    check_mesh(mesh)
     x = np.asarray(vectors, np.float32)
     keys = np.asarray(keys, dtype=object)
     if len(keys) != len(x):
@@ -88,11 +96,15 @@ def build_flat_index(
 
     rotation = None
     if opq_iters > 0:
-        rotation, pq = train_opq(x, pq_config, opq_iters=opq_iters, device=device)
+        rotation, pq = train_opq(
+            x, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+        )
         x = matmul(torch.from_numpy(x).to(device), rotation, "highest")
     else:
-        pq = train_product_quantizer(x, pq_config, report_fn, device=device)
-    codes = _encode_chunked(pq, x, encode_chunk)
+        pq = train_product_quantizer(
+            x, pq_config, None if mesh is not None else report_fn, mesh=mesh, device=device
+        )
+    codes = _encode_chunked(pq, x, encode_chunk, mesh)
     recon_norms = pq.reconstruction_norms(codes)
     return FlatIndex(
         _key_index=SortedKeyIndex(keys),
@@ -223,11 +235,10 @@ def build_ivf_index(
     package's by recall, not id for id. With ``opq_iters > 0`` the
     rotation is learned on the coarse residuals and applied as a global
     basis change to residuals and centroids, which leaves the coarse
-    assignment exact (``gulon_tpu/models/build.py:284-300``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh builds come with the parallel slice of the PyTorch port"
-        )
+    assignment exact (``gulon_tpu/models/build.py:284-300``). With
+    ``mesh`` the coarse k-means, the PQ training and the encode run
+    distributed over its devices."""
+    check_mesh(mesh)
     x = np.asarray(vectors, np.float32)
     keys = np.asarray(keys, dtype=object)
     if len(keys) != len(x):
@@ -240,14 +251,15 @@ def build_ivf_index(
         strategy = LimitGroups(default_limit(num_partitions))
 
     # coarse clustering over the full vectors (CommandUtils.scala:127-133)
-    coarse = fit_kmeans(
-        torch.as_tensor(x, device=device),
-        KMeansConfig(
-            k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed,
-            init=coarse_init,
-        ),
-        report_fn,
+    coarse_cfg = KMeansConfig(
+        k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed, init=coarse_init,
     )
+    if mesh is not None:
+        from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
+
+        coarse = sharded_fit_kmeans(x, coarse_cfg, mesh)
+    else:
+        coarse = fit_kmeans(torch.as_tensor(x, device=device), coarse_cfg, report_fn)
     coarse_cents = coarse.centroids.cpu().numpy()
     coarse_assign = coarse.assignments.cpu().numpy()
     if max_partition_size is not None:
@@ -263,12 +275,17 @@ def build_ivf_index(
     centroids = torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device)
     rotation = None
     if opq_iters > 0:
-        rotation, pq = train_opq(residuals, pq_config, opq_iters=opq_iters, device=device)
+        rotation, pq = train_opq(
+            residuals, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+        )
         residuals = matmul(torch.from_numpy(residuals).to(device), rotation, "highest")
         centroids = matmul(centroids, rotation, "highest")
     else:
-        pq = train_product_quantizer(residuals, pq_config, report_fn, device=device)
-    codes = _encode_chunked(pq, residuals, encode_chunk)
+        pq = train_product_quantizer(
+            residuals, pq_config, None if mesh is not None else report_fn, mesh=mesh,
+            device=device,
+        )
+    codes = _encode_chunked(pq, residuals, encode_chunk, mesh)
     # per-row constant of the expanded residual distance,
     # ||r^||^2 + 2<c_g, r^>, by per-partition LUT gathers
     row_const = pq.reconstruction_norms(codes) + 2.0 * pq.centroid_code_dot(

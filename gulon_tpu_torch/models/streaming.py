@@ -20,7 +20,10 @@ the host: 12 GB at 10M x 300. These builders never do:
 
 The streaming IVF build trains its coarse quantizer on the training sample
 rather than on the whole corpus (the JAX package's semantics; every row is
-still assigned and encoded exactly).
+still assigned and encoded exactly). With ``mesh`` the k-means stages
+train distributed and each chunk encodes over every device of the mesh
+(``parallel/ops.py``); pass A's coarse assignment stays on ``device``, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from gulon_tpu_torch.models.build import (
+    _encode_chunked,
     _normalize_np,
     _split_oversized_partitions,
     default_limit,
@@ -45,17 +49,12 @@ from gulon_tpu_torch.models.keyindex import GroupedKeyIndex, SortedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, _assign_blocked, fit_kmeans
 from gulon_tpu_torch.ops.pq import PQConfig, train_product_quantizer
+from gulon_tpu_torch.parallel.mesh import check_mesh
+from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 from gulon_tpu_torch.utils.native import Word2VecStream
 
 _DEFAULT_CHUNK = 1 << 18
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh builds come with the parallel slice of the PyTorch port"
-        )
 
 
 @dataclasses.dataclass
@@ -172,7 +171,7 @@ def build_flat_index_streaming(
     scale). Codebooks, codes and norms live on ``device``; with the same
     ``pq_config`` the index equals ``build_flat_index`` of the file's
     vectors."""
-    _no_mesh(mesh)
+    check_mesh(mesh)
     with Word2VecStream(path, num_threads) as stream:
         n = stream.num_rows
         # the reference trains on the key-sorted corpus
@@ -180,13 +179,13 @@ def build_flat_index_streaming(
         order = np.argsort(stream.keys, kind="stable")
         train_x, _ = _train_sample(stream, pq_config, metric.normalized, order=order)
         pq = train_product_quantizer(
-            train_x, pq_config._replace(train_sample=None), device=device
+            train_x, pq_config._replace(train_sample=None), mesh=mesh, device=device
         )
         del train_x
         codes = torch.empty((n, pq.num_quantizers), dtype=pq.dtype_codes, device=device)
 
         def consume(start, x):
-            codes[start : start + len(x)] = pq.encode(x)
+            codes[start : start + len(x)] = _encode_chunked(pq, x, len(x), mesh)
 
         _pipeline(
             stream, n, encode_chunk, metric.normalized, consume, report_fn,
@@ -229,7 +228,7 @@ def build_ivf_index_streaming(
     vectors. Pass A assigns with the routine and precision of the
     k-means the in-memory builder's assignments come from, so with a
     sample covering the corpus both builders give the same index."""
-    _no_mesh(mesh)
+    check_mesh(mesh)
     with Word2VecStream(path, num_threads) as stream:
         n = stream.num_rows
         if num_partitions is None:
@@ -244,9 +243,12 @@ def build_ivf_index_streaming(
             k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed,
             init=coarse_init,
         )
-        coarse = fit_kmeans(train_x, coarse_cfg, report_fn, device=device)
+        if mesh is not None:
+            coarse = sharded_fit_kmeans(train_x, coarse_cfg, mesh)
+        else:
+            coarse = fit_kmeans(train_x, coarse_cfg, report_fn, device=device)
         del train_x
-        cent_dev = coarse.centroids
+        cent_dev = coarse.centroids.to(device)
         centroids_full = cent_dev.cpu().numpy()
 
         # pass A: the nearest coarse centroid of every row
@@ -286,7 +288,7 @@ def build_ivf_index_streaming(
         pq_x, pq_rows = _train_sample(stream, pq_config, metric.normalized, order=order)
         pq = train_product_quantizer(
             pq_x - centroids_full[assignments[pq_rows]],
-            pq_config._replace(train_sample=None), device=device,
+            pq_config._replace(train_sample=None), mesh=mesh, device=device,
         )
         del pq_x
 
@@ -297,7 +299,8 @@ def build_ivf_index_streaming(
 
         def consume_encode(start, x):
             stop = start + len(x)
-            codes[start:stop] = pq.encode(x - cent_dev[assign_dev[start:stop].long()])
+            res = x - cent_dev[assign_dev[start:stop].long()]
+            codes[start:stop] = _encode_chunked(pq, res, len(res), mesh)
 
         _pipeline(
             stream, n, encode_chunk, metric.normalized, consume_encode, report_fn,

@@ -377,6 +377,14 @@ def _block_scan(
     )
     codes_t, t, num_q = ops["codes_t"], ops["t"], ops["num_q"]
     nblk = t // _LANES
+    n_rt = codes_t.shape[1] // t
+    wn = winners * nblk
+    cols = np.arange(n_rt * wn, dtype=np.int64)
+    base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
+    # copied in before the launch: a host copy waits for the device's
+    # stream, and after the launch it would hold back the next shard's
+    # kernel on another card until this one ends
+    base_cols = torch.from_numpy(base_cols).to(codes_t.device)
     packed = fused_block_scan(
         codes_t,
         _split_hi_lo(ops["norms"], ops["center"]),
@@ -385,13 +393,9 @@ def _block_scan(
         winners=winners,
         nblk=nblk,
     )
-    n_rt = codes_t.shape[1] // t
-    wn = winners * nblk
-    cols = np.arange(n_rt * wn, dtype=np.int64)
-    base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
     return (
         packed,
-        torch.from_numpy(base_cols).to(packed.device),
+        base_cols,
         ops["qs"],
         codes_t,
         ops["pretransposed"],

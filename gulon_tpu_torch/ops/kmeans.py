@@ -74,8 +74,12 @@ def _assign_blocked(
 _UPDATE_TILE = 1 << 26
 
 
-def _update(x: torch.Tensor, assignments: torch.Tensor, k: int) -> torch.Tensor:
-    """Per-cluster means ``[m, k, d]``; empty clusters -> zeros.
+def _segment_sums(
+    x: torch.Tensor, assignments: torch.Tensor, k: int,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Per-cluster sums ``[m, k, d]`` and counts ``[m, k, 1]`` (f32) of
+    the rows, leaving out rows where the ``[n]`` mask ``valid`` is False.
 
     The sums are blocked one-hot matmuls at full f32, block after block in
     row order (``gulon_tpu/ops/kmeans.py:154-183``), so their order of
@@ -88,14 +92,29 @@ def _update(x: torch.Tensor, assignments: torch.Tensor, k: int) -> torch.Tensor:
     sums = torch.zeros((m, k, d), dtype=torch.float32, device=x.device)
     for start in range(0, n, block):
         a = assignments[:, start : start + block]
-        onehot = (a[:, :, None] == ids).to(torch.float32)  # [m, b, k]
-        sums += matmul(onehot.transpose(1, 2), x[:, start : start + block], "highest")
-    seg = (
-        assignments.long() + torch.arange(m, device=x.device)[:, None] * k
-    ).reshape(-1)
-    counts = torch.bincount(seg, minlength=m * k).reshape(m, k, 1).to(torch.float32)
+        onehot = a[:, :, None] == ids  # [m, b, k]
+        if valid is not None:
+            onehot = onehot & valid[None, start : start + block, None]
+        sums += matmul(
+            onehot.to(torch.float32).transpose(1, 2), x[:, start : start + block], "highest"
+        )
+    seg = assignments.long() + torch.arange(m, device=x.device)[:, None] * k
+    if valid is not None:
+        seg = seg[:, valid]
+    counts = torch.bincount(seg.reshape(-1), minlength=m * k).reshape(m, k, 1)
+    return sums, counts.to(torch.float32)
+
+
+def _means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """``sums / counts``; empty clusters -> zeros (``KMeans.scala:198-226``)."""
     means = sums / torch.clamp(counts, min=1.0)
     return torch.where(counts > 0, means, torch.zeros_like(means))
+
+
+def _update(x: torch.Tensor, assignments: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-cluster means ``[m, k, d]`` (:func:`_segment_sums`); empty
+    clusters -> zeros."""
+    return _means(*_segment_sums(x, assignments, k))
 
 
 def draw_init_indices(

@@ -55,12 +55,9 @@ def train_opq(
     ``init_indices``, one ``[m, k]`` init draw per round and one for the
     final training, replaces the seeded draws (the parity tests pass the
     JAX package's through it). Host input trains on ``device`` (default:
-    the CUDA card); a tensor stays on its device.
+    the CUDA card); a tensor stays on its device. With ``mesh`` every PQ
+    training runs distributed over its devices.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (multi-device) OPQ comes with the parallel slice of the port"
-        )
     if init_indices is not None and len(init_indices) != opq_iters + 1:
         raise ValueError(
             f"init_indices needs {opq_iters + 1} draws (one per round and "
@@ -78,7 +75,7 @@ def train_opq(
     for it in range(opq_iters):
         z = matmul(x, rot, "highest")
         pq = train_product_quantizer(
-            z, inner._replace(seed=config.seed + 7919 * it),
+            z, inner._replace(seed=config.seed + 7919 * it), mesh=mesh,
             init_indices=None if init_indices is None else init_indices[it],
         )
         x_hat = pq.decode(pq.encode(z))
@@ -87,7 +84,8 @@ def train_opq(
             report_fn(it, float(torch.mean(torch.sum((z - x_hat) ** 2, dim=1))))
     z = matmul(x, rot, "highest")
     pq = train_product_quantizer(
-        z, config, init_indices=None if init_indices is None else init_indices[-1],
+        z, config, mesh=mesh,
+        init_indices=None if init_indices is None else init_indices[-1],
     )
     return rot, pq
 

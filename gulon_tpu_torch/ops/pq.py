@@ -86,7 +86,7 @@ class PQConfig(NamedTuple):
     precision: str = "default"
     # optional row subsample for codebook training
     train_sample: Optional[int] = None
-    # "sample" (uniform rows); "kmeans++" waits for a later slice
+    # "sample" (uniform rows) or "kmeans++"
     init: str = "sample"
     # snap trained centroids to bf16-representable values: the fused
     # scan's operands are bf16, so its reconstruction points are then
@@ -231,13 +231,14 @@ def train_product_quantizer(
     to ``device`` (default: the CUDA card, with no CPU fallback); tensor
     input stays on its device (or moves to ``device`` when given) and is
     subsampled with a ``torch.Generator`` seeded by ``config.seed``.
-    ``init_indices`` is passed on to :func:`fit_kmeans`.
+    With ``mesh`` the codebooks train distributed over its devices
+    (``parallel/ops.py::sharded_fit_kmeans``, no progress reports, as in
+    the JAX package) and land on that same device. ``init_indices`` is
+    passed on to the k-means.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (multi-device) training comes with the parallel slice "
-            "of the port"
-        )
+    from gulon_tpu_torch.parallel.mesh import check_mesh
+
+    check_mesh(mesh)
     on_device = isinstance(x, torch.Tensor)
     if on_device:
         x = x.to(torch.float32)
@@ -273,8 +274,13 @@ def train_product_quantizer(
         precision=config.precision,
         init=config.init,
     )
-    res = fit_kmeans(xs, kmeans_cfg, report_fn, init_indices=init_indices)
-    centroids = res.centroids
+    if mesh is not None:
+        from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
+
+        res = sharded_fit_kmeans(xs, kmeans_cfg, mesh, init_indices=init_indices)
+    else:
+        res = fit_kmeans(xs, kmeans_cfg, report_fn, init_indices=init_indices)
+    centroids = res.centroids.to(train_x.device)
     if config.snap_bf16:
         centroids = centroids.to(torch.bfloat16).to(torch.float32)
     return ProductQuantizer(

@@ -10,9 +10,10 @@ same bytes. Indices the port builds (flat, partitioned, ``--exact``,
 ``build-index --streaming`` writes the bytes of the in-memory build of the
 same text file, and its errors are the JAX CLI's; ``export-aot`` prints
 the JAX CLI's line and ``--aot`` serves what the live path serves, as
-the JAX CLI's ``--aot`` does. ``--mesh`` still exits 1 naming its ROADMAP
-item. The corpus is Gaussian, so rows have distinct codes and no
-equal-distance ties.
+the JAX CLI's ``--aot`` does. ``query --mesh 2`` prints the JAX CLI's
+lines (two logical CPU shards in the port, two virtual devices in the
+JAX package), and ``--mesh`` beyond the devices exits 1. The corpus is
+Gaussian, so rows have distinct codes and no equal-distance ties.
 """
 
 import io
@@ -184,17 +185,34 @@ def test_serve_start_line_matches_jax(files, capsys, monkeypatch):
     assert served == ["FlatIndex", "FlatIndex"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["query", "--mesh", "2", "--index", "FLAT", "VECS"], "item 11"),
+@pytest.mark.parametrize("index,strategy,rc", [
+    ("flat.pb", None, 0), ("flat.pb", "decode", 0), ("flat.pb", "pallas", 0),
+    ("ivf.pb", None, 0), ("ivf.pb", "masked", 0), ("ivf.pb", "pallas", 0),
+    ("ivf.pb", "bucketed", 0), ("exact.npz", None, 0),
+    # the sharded cache scan needs enable_cache() before sharding, and
+    # 750 rows a shard are below the dense kernel's 256*k: both CLIs exit 1
+    ("flat.pb", "cached", 1), ("exact.npz", "pallas", 1),
 ])
-def test_flags_not_yet_ported_exit_1(files, capsys, argv, item):
+def test_query_mesh_matches_jax(files, capsys, index, strategy, rc):
+    """``query --mesh 2`` serves through the sharded classes and prints
+    the JAX CLI's lines."""
+    paths, keys = files
+    argv = ["query", "-k", "4", "--mesh", "2", "--index", paths[index], paths["q.txt"]]
+    if strategy:
+        argv += ["--scan-strategy", strategy]
+    port, ref = _both(capsys, argv)
+    assert port == ref and port[0] == rc
+    if rc == 0:
+        assert [ln.split(": ")[0] for ln in port[1].strip().splitlines()] == list(keys[:12])
+
+
+def test_mesh_beyond_devices_exits_1(files, capsys):
     paths, _ = files
-    argv = [paths["vecs.txt"] if a == "VECS" else paths["flat.pb"] if a == "FLAT" else a
-            for a in argv]
     capsys.readouterr()
+    argv = ["query", "--mesh", "100000", "--index", paths["flat.pb"], paths["vecs.txt"]]
     assert tcli.main(argv, device="cpu") == 1
     err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 {item}" in err and "Traceback" not in err
+    assert "--mesh 100000 exceeds the" in err and "Traceback" not in err
 
 
 def _both_err(capsys, argv):

@@ -166,18 +166,34 @@ def test_auto_knobs_match_jax(data, jax_index):
 def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
     port = interop.from_reference(jax_index, device="cpu")
-    # add/remove, OPQ and packing are ported (tests/test_torch_update.py,
-    # tests/test_torch_opq.py, tests/test_torch_packed.py); mesh builds
-    # are still to come
+    # add/remove, OPQ, packing and mesh builds are ported
+    # (tests/test_torch_update.py, test_torch_opq.py, test_torch_packed.py,
+    # test_torch_parallel.py); a mesh that is not a parallel.Mesh raises
     for call in (
         lambda: build_flat_index(
             keys[:500], x[:500], pq_config=PQConfig(**PQ), mesh=object(), device="cpu"
         ),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             call()
     with pytest.raises(ValueError):
         dataclasses.replace(port, scan_strategy="bogus").query_arrays(5, x[:8])
+
+
+@pytest.mark.parametrize("opq_iters", [0, 1])
+def test_mesh_build_equals_single_process(data, opq_iters):
+    """``mesh=`` (four logical CPU shards) trains and encodes over the
+    mesh and builds the single-process index: codebooks within 1e-6,
+    equal codes and norms."""
+    from gulon_tpu_torch.parallel import make_mesh
+
+    x, keys, _ = data
+    args = dict(pq_config=PQConfig(**PQ), opq_iters=opq_iters, device="cpu")
+    one = build_flat_index(keys[:3000], x[:3000], **args)
+    mesh = build_flat_index(keys[:3000], x[:3000], mesh=make_mesh(devices=["cpu"] * 4), **args)
+    np.testing.assert_allclose(mesh.pq.codebooks.numpy(), one.pq.codebooks.numpy(), atol=1e-6)
+    assert torch.equal(mesh.codes, one.codes)
+    np.testing.assert_allclose(mesh.recon_norms.numpy(), one.recon_norms.numpy(), rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -459,18 +459,37 @@ def test_pallas_falls_back_below_the_envelope(data, jax_index):
     assert i2.shape == (2, small.size) and (i2.numpy() >= 0).all()
 
 
+def test_mesh_build_equals_single_process(data):
+    """``mesh=`` (four logical CPU shards) runs the coarse k-means, the
+    residual PQ training and the encode over the mesh and builds the
+    single-process index: the same partitions and codes, centroids and
+    row constants within 1e-5."""
+    from gulon_tpu_torch.parallel import make_mesh
+
+    x, keys, _ = data
+    args = dict(pq_config=PQConfig(**PQ), num_partitions=16, strategy=LimitGroups(4),
+                coarse_max_iters=8, device="cpu")
+    one = build_ivf_index(keys[:4000], x[:4000], **args)
+    mesh = build_ivf_index(keys[:4000], x[:4000], mesh=make_mesh(devices=["cpu"] * 4), **args)
+    np.testing.assert_array_equal(mesh.partition_sizes(), one.partition_sizes())
+    assert torch.equal(mesh.codes, one.codes)
+    np.testing.assert_allclose(mesh.centroids.numpy(), one.centroids.numpy(), atol=1e-5)
+    np.testing.assert_allclose(mesh.row_const.numpy(), one.row_const.numpy(), atol=1e-5)
+
+
 def test_deferred_paths_raise(data, jax_index):
     x, keys, _ = data
     port = interop.from_reference(jax_index, device="cpu")
     pq = PQConfig(num_clusters=8, num_quantizers=4, max_iters=2)
-    # add/remove, OPQ and rotations are ported (tests/test_torch_update.py,
-    # tests/test_torch_opq.py); mesh builds are still to come
+    # add/remove, OPQ, rotations and mesh builds are ported
+    # (tests/test_torch_update.py, test_torch_opq.py, test_torch_parallel.py);
+    # a mesh that is not a parallel.Mesh raises
     for call in (
         lambda: build_ivf_index(
             keys[:500], x[:500], pq_config=pq, num_partitions=2, mesh=object(), device="cpu"
         ),
     ):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             call()
     rotated = interop.from_reference(
         dataclasses.replace(jax_index, rotation=jnp.eye(D, dtype=jnp.float32)), device="cpu"

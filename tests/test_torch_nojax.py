@@ -2,8 +2,9 @@
 builds, queries (fused, cached, exact and IVF paths), measures recall,
 adds and removes rows, trains OPQ, packs codes, saves and loads index
 files, reads word2vec files, builds from one as a stream, serves through
-ahead-of-time plans, drives the command line and answers a server
-request on the CPU, and never loads ``jax``, any module of the JAX package
+ahead-of-time plans, shards indices over a mesh of logical CPU shards and
+builds over it (``gulon_tpu_torch.parallel``), drives the command line
+(``--mesh`` too) and answers a server request on the CPU, and never loads ``jax``, any module of the JAX package
 ``gulon_tpu`` or ``google.protobuf`` (a GPU host need not have
 protobuf). The port's sources (and ``chip_smoke.py``) import none of
 them."""
@@ -108,6 +109,19 @@ gt.save_serving(os.path.join(tmp, "i.aot"), gt.export_serving(ivf, shapes=[(1, 3
 served = gt.load_serving(os.path.join(tmp, "i.aot"), ivf)
 assert isinstance(served, gt.AOTServing)
 assert torch.equal(served.query_arrays(3, x[:16])[1], ivf.query_arrays(3, x[:16])[1])
+from gulon_tpu_torch import parallel as tpar
+
+mesh = tpar.make_mesh(devices=["cpu"] * 4)
+exact.scan_strategy = "auto"  # 300 rows a shard: below the kernel's 256*k
+for idx in (ivf, exact, opq):
+    assert tpar.shard_index(idx, mesh).query_arrays(10, x[:16])[1].shape == (16, 10)
+meshed = gt.build_flat_index(keys, x, pq_config=cfg, mesh=mesh, device="cpu")
+assert torch.equal(meshed.codes, memory.codes)
+out = io.StringIO()
+with redirect_stdout(out):
+    assert cli.main(["query", "--mesh", "2", "--index", os.path.join(tmp, "f.pb"), txt],
+                    device="cpu") == 0
+assert len(out.getvalue().splitlines()) == 1200
 srv = QueryServer(back, port=0)
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 with socket.create_connection(srv.address, timeout=30) as sock:
@@ -136,6 +150,8 @@ def test_port_runs_without_importing_jax():
 def _sources():
     sources = list((ROOT / "gulon_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(sources) > 10
+    assert {"mesh.py", "ops.py", "index.py"} <= {
+        p.name for p in sources if p.parent.name == "parallel"}
     return sources
 
 

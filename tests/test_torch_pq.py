@@ -123,5 +123,22 @@ def test_tensor_input_subsamples_on_device(corpus):
     a = tpq.train_product_quantizer(x, cfg, device="cpu")
     b = tpq.train_product_quantizer(x, cfg, device="cpu")
     assert torch.equal(a.codebooks, b.codebooks)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tpq.train_product_quantizer(x, cfg, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("init,sub_parallel", [("sample", 1), ("sample", 2), ("kmeans++", 1)])
+def test_mesh_training_equals_single_process(corpus, init, sub_parallel):
+    """``mesh=`` trains the codebooks over the mesh (rows over ``rows``,
+    subspaces over ``sub``) from the same init: the single-process
+    codebooks within 1e-6 and the same codes."""
+    from gulon_tpu_torch.parallel import make_mesh
+
+    cfg = tpq.PQConfig(num_clusters=16, num_quantizers=4, max_iters=8, init=init,
+                       train_sample=3000)
+    one = tpq.train_product_quantizer(corpus, cfg, device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 4, sub_parallel=sub_parallel)
+    got = tpq.train_product_quantizer(corpus, cfg, mesh=mesh, device="cpu")
+    assert got.device == torch.device("cpu")
+    np.testing.assert_allclose(got.codebooks.numpy(), one.codebooks.numpy(), atol=1e-6)
+    assert torch.equal(got.encode(corpus), one.encode(corpus))

@@ -13,7 +13,8 @@
   same training-sample rows; recall@10 within 0.99x (the k-means init
   draws differ by design, so the builds are held by recall);
 - progress reports, ``pipeline_stats``, ``max_partition_size`` and
-  ``coarse_init``; ``mesh=`` raises.
+  ``coarse_init``; ``mesh=`` (four logical CPU shards) builds the
+  single-process index, and a mesh that is not a ``parallel.Mesh`` raises.
 
 The chunk sizes force several pipeline iterations and a short last chunk.
 """
@@ -208,8 +209,29 @@ def test_streaming_ivf_split_and_init_knobs(corpus):
 
 @pytest.mark.parametrize("builder", ["flat", "ivf"])
 def test_streaming_mesh_raises(corpus, builder):
+    """A mesh that is not a ``parallel.Mesh`` raises."""
     path, _, _ = corpus
     fn = getattr(tstreaming, f"build_{builder}_index_streaming")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         fn(path, pq_config=PQConfig(num_clusters=8, num_quantizers=2), mesh=object(),
            device="cpu")
+
+
+@pytest.mark.parametrize("builder", ["flat", "ivf"])
+def test_streaming_mesh_build_equals_single_process(corpus, builder):
+    """``mesh=`` trains over the mesh and encodes each chunk over it: the
+    same codes as the single-process streaming build."""
+    from gulon_tpu_torch.parallel import make_mesh
+
+    path, _, _ = corpus
+    fn = getattr(tstreaming, f"build_{builder}_index_streaming")
+    args = dict(pq_config=PQConfig(num_clusters=16, num_quantizers=4, max_iters=6,
+                                   train_sample=1500), encode_chunk=700, device="cpu")
+    if builder == "ivf":
+        args.update(num_partitions=6, coarse_max_iters=6)
+    one = fn(path, **args)
+    mesh = fn(path, mesh=make_mesh(devices=["cpu"] * 4), **args)
+    assert torch.equal(mesh.codes, one.codes)
+    np.testing.assert_allclose(mesh.pq.codebooks.numpy(), one.pq.codebooks.numpy(), atol=1e-6)
+    if builder == "ivf":
+        np.testing.assert_array_equal(mesh.partition_sizes(), one.partition_sizes())
