@@ -8,9 +8,10 @@ phases); any failure raises and the script exits non-zero:
 
 1. device: the card's name, and its name and power limit as
    ``nvidia-smi`` reports them;
-2. build: ``nvcc`` builds kernel K1 (``adc_scan``) and kernels K2/K3
-   (``dense_scan``) from ``gulon_tpu_torch/csrc``, one process each, in
-   parallel;
+2. build: ``nvcc`` builds kernel K1 (``adc_scan``), kernels K2/K3
+   (``dense_scan``) and the probe kernels P1/P2 (``adc_probes``), P3
+   (``kernel_probe``) and P4 (``floor_probe``) from
+   ``gulon_tpu_torch/csrc``, one process each, in parallel;
 3. main path: build a flat PQ index of a seeded 400,000 x 100 low-rank
    corpus on the card, answer 4 batches of 1024 top-10 queries through
    the ``auto`` strategy (which must pick the fused kernel, K1), and
@@ -27,14 +28,37 @@ phases); any failure raises and the script exits non-zero:
    ``2^-14 * max(|v|, 1)``, every id mismatch a near-tie, NaN winners in
    the same places and rows, and with padding rows exactly ``min(W, real
    rows)`` valid winners a block, all of them real rows;
-5. exact path: ``build_exact_index`` of a seeded 2,000,000 x 300
+5. probes: P1-P4 (``gulon_tpu_torch.probes``), the stage-ablation probes
+   of K1, and K1's own kernel cut after its decode, its contraction and
+   its block minimum (``k1_stages``). Their path first, through the entry
+   points, once each with the launch counts set to 0 before and read
+   after: every P4 variant (``floor_probe``, the headline 401,408 x 8 int8
+   codes and 1024 x 112 queries), every P3 variant (``kernel_probe``,
+   400,000 -> 401,408 rows x m 8 x K 256, dsub 13, mdp 128, 1024 queries,
+   t 2048), P1 / P2 (``adc_scan_probe``, top-10) in every decode mode,
+   natural and piped, on the kernel phase's glove100 operands and on a
+   deep768 draw (depth 772, where natural is live), and each cut of K1 on
+   P3's headline operands (as K1 scores them) and on both K1 shapes. Then
+   each variant against its plain version: P4 zeros, and no faster than
+   its bytes over 3.35 TB/s at the headline shape and at 16x its rows; P3
+   zeros exactly, else values within ``2^-14 * max(|v|, 1)``, ids >=
+   99.5 % equal and every mismatch a near-tie; P1 / P2 K1's rule, and
+   their decoded rows equal the plain gather bit for bit; the cut K1
+   zeros exactly after its decode, else values within ``2^-14 * max(|v|,
+   1)``. Each prints its ms (the card's time of one call, queued back to
+   back: ``probes.median_ms``), plain ms, bound, bytes read and K1's ms
+   on the same operands; then one ``stage_split`` line: for each of K1's
+   operand sets floor (P4), decode, + contraction, + block min, +
+   selection (K1 whole), full; and P3's own split (its tdec stages, K1
+   on its operands, the no-decode ``tdec_cached``);
+6. exact path: ``build_exact_index`` of a seeded 2,000,000 x 300
    low-rank corpus on the card; 4 batches of 1024 top-10 queries through
    ``auto`` (which must pick the kernel route, K2), then with
    ``operand="int8"`` (K3) and with ``scan_strategy="xla"``; recall@1/@10
    of each on 1000 sampled queries;
-6. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
+7. cached path: ``enable_cache()`` on the glove100 index; ``auto`` must
    pick ``cached``; 4 batches through K2; recall against decode;
-7. dense kernel: K2 and K3 against their plain versions on the same
+8. dense kernel: K2 and K3 against their plain versions on the same
    operands at the fasttext shape (that corpus, Dp 304 / 320, 1024
    queries drawn from it), K2 at the glove100 cache width (400,000 x 104,
    Dp 112), K2 at the edge shapes (:data:`K2_EDGE_CASES`: ragged row
@@ -44,7 +68,7 @@ phases); any failure raises and the script exits non-zero:
    ragged last chunk, a 128-query tile, streamed query chunks, all-+-127
    lanes, a last block won by a padding row); K2 within ``2^-14 *
    max(|v|, ||x||^2 + ||q||^2)`` with >= 99.5 % equal ids, K3 bit for bit;
-8. IVF path (ivf1m): ``build_ivf_index`` of a seeded 1,000,000 x 96
+9. IVF path (ivf1m): ``build_ivf_index`` of a seeded 1,000,000 x 96
    low-rank corpus (intrinsic 24, 4096 clusters) on the card, PQ 12x256,
    the default 1000 partitions and probe limit 50; 4 batches of 1024
    top-10 queries through ``auto`` (which must pick ``pallas``, K1),
@@ -56,7 +80,7 @@ phases); any failure raises and the script exits non-zero:
    index's own partition-padded operands (no padding row may win); a
    second build of the same corpus must give the same padded layout,
    codes and row constants, bit for bit;
-9. sharded path (deep10m, ``benchmarks/run.py:401``): a 10,000,000 x 96
+10. sharded path (deep10m, ``benchmarks/run.py:401``): a 10,000,000 x 96
    low-rank corpus (intrinsic 24, 10,000 clusters), uncut; mesh M is four
    logical shards of the one card, or every card when there are two or
    more. ``build_flat_index(mesh=M)`` (PQ 12x256, 15 iterations, sample
@@ -66,14 +90,14 @@ phases); any failure raises and the script exits non-zero:
    (K2 once per shard, f32 rescore) routes, 4 batches of 1024 top-10 at
    mesh 1 and mesh M beside the single card, recall@10 on 1000 sampled
    queries >= 0.99x the single card's; K1 and K2 against their plain
-   versions on one shard's operands; ivf1m (phase 8's index) sharded over
+   versions on one shard's operands; ivf1m (phase 9's index) sharded over
    M at 4 winners (K1 once per shard, recall >= 0.99x the single card's);
    two processes (``--mesh-child``) over a two-rank mesh, gloo with both
    on one card or NCCL with a card each, whose ids must equal one
    process's two-shard mesh;
-10. k-means determinism: two ``fit_kmeans`` runs (uniform and k-means++
+11. k-means determinism: two ``fit_kmeans`` runs (uniform and k-means++
    init) and two PQ trainings on the same host array give the same bits;
-11. CLI path (glove100, 400,000 x 100): the corpus as a word2vec binary
+12. CLI path (glove100, 400,000 x 100): the corpus as a word2vec binary
    file and 1,024 queries as a text file (read by the native parser);
    through ``gulon_tpu_torch.cli.main`` in process: ``build-index
    --metric cosine -m 8 -k 256 -n 25``, ``info``, ``query -k 10`` (its
@@ -93,8 +117,11 @@ phases); any failure raises and the script exits non-zero:
    first query after a load and the steady ms per 1024 batch are printed
    beside the card's name and power limit.
 
-Every kernel case line carries its median ms of 10 CUDA-event timings
-after 3 warm-ups, its plain version's, ``bound_ms`` (the least time of
+Every kernel case line carries its ms (the card's time of one call:
+back-to-back calls queued behind a sleep kernel between two CUDA events,
+median of 10 readings after 3 warm-ups, ``probes.median_ms``), its plain
+version's (one call between two events, its host launch path included),
+``bound_ms`` (the least time of
 the same work on an H100: bytes over the memory rate, the contraction
 over the tensor cores' peak, the selection over the CUDA cores' f32
 rate, whichever is largest, named in ``bound_resource``), ``library_ms``
@@ -110,8 +137,9 @@ after the paths and count for none of them. Each path also reports its
 device time per batch by kernel (``torch.profiler`` over its 4 batches
 after a warm-up).
 
-Then a line with each kernel's launches on the paths, error, times and
-bound, the raw ``nvidia-smi`` line, and last ``{"ok": true, ...}``.
+Then a line with each kernel's launches on the paths (P1-P4: the probes'
+path), error, times and bound, the raw ``nvidia-smi`` line, and last
+``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -209,24 +237,22 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
-    """Median ms of ``fn()`` over ``reps`` runs, each between two CUDA
-    events, after ``warmup`` runs."""
-    import numpy as np
-    import torch
+def _kernel_ms(fn) -> float:
+    """Device ms of one call of a kernel or a library call
+    (``probes.median_ms``: back-to-back calls queued behind a sleep, median
+    of 10 readings after 3 warm-ups)."""
+    from gulon_tpu_torch.probes import median_ms
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
+    return median_ms(fn)
+
+
+def _plain_ms(fn) -> float:
+    """ms of one call of a plain version, its host launch path included
+    (``probes.median_ms(queued=False)``: one call between two CUDA events,
+    median of 10 after 3 warm-ups)."""
+    from gulon_tpu_torch.probes import median_ms
+
+    return median_ms(fn, queued=False)
 
 
 def low_rank_corpus(seed: int, n: int, d: int, intrinsic: int = 32,
@@ -247,15 +273,19 @@ def low_rank_corpus(seed: int, n: int, d: int, intrinsic: int = 32,
 # ---- bounds -----------------------------------------------------------------
 
 
-def bound(bytes_moved: float, mma_ops: float, mma_type: str, select_ops: float) -> dict:
+def bound(bytes_moved: float, mma_ops: float, mma_type: str, select_ops: float,
+          more_mma=None) -> dict:
     """Least time of a kernel's work on an H100: the largest of its bytes
     (each input read once, the output written once) over the memory rate,
-    its contraction over the tensor cores' peak for ``mma_type`` and its
-    selection over the CUDA cores' f32 rate, each counted from the shapes
-    of this run's inputs."""
+    its contraction over the tensor cores' peak for ``mma_type`` (plus
+    ``more_mma``, ``{type: ops}`` of other tensor-core work, in turn) and
+    its selection over the CUDA cores' f32 rate, each counted from the
+    shapes of this run's inputs."""
+    more = more_mma or {}
+    tensor = (mma_ops / PEAK[mma_type] + sum(o / PEAK[t] for t, o in more.items())) * 1e3
     parts = {
         "HBM bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
-        f"tensor cores ({mma_type})": mma_ops / PEAK[mma_type] * 1e3,
+        f"tensor cores ({'+'.join([mma_type, *more])})": tensor,
         "CUDA cores (selection)": select_ops / PEAK["f32"] * 1e3,
     }
     resource = max(parts, key=parts.get)
@@ -362,12 +392,12 @@ def winners_valid(packed, real, winners: int, nblk: int) -> bool:
 # ---- operands ---------------------------------------------------------------
 
 
-def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, dev):
-    """Seeded random K1 operands as the scan builds them: ``(operands, nblk,
-    real rows per block or None)``; ``extra`` as :data:`K1_EDGE_CASES`."""
+def k1_inputs(gen, n, d, m, k_codes, q_n, extra=None, *, dev) -> dict:
+    """Seeded random inputs of a fused scan: bf16-snapped codebooks with
+    zero-padded subspaces, uniform codes, their reconstruction norms
+    (``extra == "sentinel"``: see :data:`K1_EDGE_CASES`) and queries."""
     import torch
 
-    from gulon_tpu_torch.ops.cuda import adc
     from gulon_tpu_torch.ops.pq import subspace_bounds
 
     bounds = subspace_bounds(d, m)
@@ -383,8 +413,20 @@ def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, de
         pad = torch.arange(128, device=dev)[None, :] >= keep[:, None]
         norms = torch.where(pad.reshape(-1), torch.full_like(norms, 2e38), norms)
     queries = torch.randn((q_n, d), generator=gen, device=dev)
+    return dict(queries=queries, codebooks=cb, codes=codes, recon_norms=norms, bounds=bounds)
+
+
+def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, dev):
+    """Seeded random K1 operands as the scan builds them: ``(operands, nblk,
+    real rows per block or None)``; ``extra`` as :data:`K1_EDGE_CASES`."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+
+    raw = k1_inputs(gen, n, d, m, k_codes, q_n, extra, dev=dev)
+    cb, codes, norms = raw["codebooks"], raw["codes"], raw["recon_norms"]
     ops = adc.prepare_scan_operands(
-        queries, cb, adc.pack_codes_t(codes, k_codes), norms, bounds=bounds,
+        raw["queries"], cb, adc.pack_codes_t(codes, k_codes), norms, bounds=raw["bounds"],
         tile_rows=0, num_rows=n, winners=winners, center_scores=centered,
     )
     norms_hl = adc._split_hi_lo(ops["norms"], ops["center"])
@@ -470,21 +512,10 @@ def k1_decoded(operands):
     """K1's row operand decoded once, ``[N', q width]`` bf16 (codewords,
     hi/lo norm lanes, two ones, zero pad): what a bare matmul against the
     queries contracts."""
-    import torch
+    from gulon_tpu_torch.probes.adc_probes import _decode_rows_plain
 
     codes_t, norms_hl, q_op, cb = operands
-    m, n_cols = codes_t.shape
-    _, k_codes, dsub = cb.shape
-    c = codes_t.to(torch.int32) + (128 if codes_t.dtype == torch.int8 else 0)
-    valid = (c >= 0) & (c < k_codes)
-    sub = torch.arange(m, device=c.device)[:, None]
-    dec = cb[sub, torch.where(valid, c, 0).long()] * valid[..., None]
-    dev = c.device
-    return torch.cat([
-        dec.permute(1, 0, 2).reshape(n_cols, m * dsub), norms_hl.T,
-        torch.ones((n_cols, 2), dtype=torch.bfloat16, device=dev),
-        torch.zeros((n_cols, q_op.shape[1] - m * dsub - 4), dtype=torch.bfloat16, device=dev),
-    ], dim=1).contiguous()
+    return _decode_rows_plain(codes_t, norms_hl, cb, q_op.shape[1])
 
 
 # ---- kernel cases -----------------------------------------------------------
@@ -517,9 +548,9 @@ def _k1_case(label, operands, winners, nblk, real, launches_per_batch,
     del got, ref
     dec = k1_decoded(operands)
     case.update(
-        ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
-        plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
-        library_ms=_cuda_ms(lambda: torch.matmul(q_op, dec.T)),
+        ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
+        plain_ms=_plain_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
+        library_ms=_kernel_ms(lambda: torch.matmul(q_op, dec.T)),
         library_call="torch.matmul(queries, decoded rows^T), contraction only",
         launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
@@ -556,6 +587,389 @@ def phase_kernel(seed: int, launches_per_batch: float) -> dict:
     return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
+# ---- probes (P1-P4) -----------------------------------------------------------
+
+# P1 and P2 on the kernel phase's glove100 operands (its first case, drawn
+# from the same seed) and on operands drawn as its deep768 case: depth 772,
+# where natural is live; every decode mode in both orientations (P1) and
+# piped (P2). glove100's depth (108) drops natural, so those requests
+# resolve to the base orientation and run once.
+PROBE_SHAPES = {
+    "glove100": (400_000, 100, 8, 256, 1024),
+    "deep768": (400_000, 768, 96, 256, 1024),
+}
+PROBE_REQUESTS = [(mode, natural, False) for mode in ("take", "base", "bf16cmp")
+                  for natural in (False, True)] + [
+    (mode, False, True) for mode in ("take", "base", "bf16cmp")]
+# P3's stages, from the floor up (P4, then P3's tdec stages): P3's own split
+P3_STAGES = (("floor", "codes+q, out v only [32]"), ("decode_only", "tdec_grid"),
+             ("contraction", "tdec_noselect"), ("block_min", "tdec_min"),
+             ("selection", "tdec_packed"))
+# P4's loads check runs it at 16x the headline rows, where its bytes
+# outweigh the launch
+P4_LOADS_SCALE = 16
+
+
+def _ms_pair(fn, plain_fn) -> dict:
+    return dict(ms=_kernel_ms(fn), plain_ms=_plain_ms(plain_fn))
+
+
+def p3_bound(variant, operands, prepared_bytes: int) -> dict:
+    """P3's work: its operands read once (``prepared_bytes``: the code,
+    codebook or decoded operand it reads), vals and ids written; the
+    one-hot decode (2 m K dsub operations a row, bf16, s8 for tdec_i8), the
+    contraction (2 m dsub a row and query: the lanes past m dsub up to mdp
+    are zeros, no work of the function) and the selection (1 a pair for a
+    minimum, 3 for a minimum and its row) as far as its stage goes."""
+    from gulon_tpu_torch.probes import kernel_probe as kp
+
+    stage, impl, _ = kp.spec(variant)
+    codes_t, norms, q_pad, cb = operands
+    m, npad = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    num_q = q_pad.shape[0]
+    out = 2 * npad // 128 * num_q * 4
+    level = ("noop", "grid", "noselect", "min", "match", "packed").index(stage)
+    decode = 0 if level == 0 or impl == "cached" else 2 * npad * m * k_codes * dsub
+    scored = level >= 2
+    moved = out + (prepared_bytes if level else 0) + (
+        norms.numel() * 4 + q_pad.numel() * 2 if scored else 0)
+    select = npad * num_q * {3: 1, 4: 3, 5: 3}.get(level, 0)
+    contraction = 2 * npad * num_q * m * dsub
+    if impl == "i8":
+        case = bound(moved, contraction, "bf16", select, more_mma={"int8": decode})
+    else:
+        case = bound(moved, decode + (contraction if scored else 0), "bf16", select)
+    return dict(case, bytes_read=moved - out)
+
+
+def k1_stage_bound(operands, stage: str) -> dict:
+    """K1 cut after ``stage`` (``probes.k1_stages``): the codes, norm lanes
+    and codebooks in (and the queries once it contracts), ``[Q, N'/128]``
+    f32 out; ``2 (m dsub + 4)`` bf16 operations a (row, query) pair from
+    the contraction on, 1 a pair for the block minimum."""
+    codes_t, norms_hl, q_op, cb = operands
+    m, n_cols = codes_t.shape
+    dsub = cb.shape[2]
+    q_n = q_op.shape[0]
+    level = ("decode", "contraction", "block_min").index(stage)
+    moved = sum(t.numel() * t.element_size() for t in (codes_t, norms_hl, cb))
+    moved += q_n * (n_cols // 128) * 4 + (q_op.numel() * 2 if level else 0)
+    pairs = n_cols * q_n
+    return dict(bound(moved, 2 * pairs * (m * dsub + 4) if level else 0, "bf16",
+                      pairs if level == 2 else 0), bytes_read=moved - q_n * (n_cols // 128) * 4)
+
+
+def _p3_check(variant, got, ref, dec, norms, q_pad) -> dict:
+    """P3 against its plain version: zeros exactly; else values within
+    ``2^-14 * max(|v|, 1)``, ids >= 99.5 % equal, and the kernel's row at
+    each id mismatch scoring within that tolerance of the plain minimum."""
+    import torch
+
+    (vals, ids), (rv, ri) = got, ref
+    if not bool(rv.any()) and not bool(ri.any()):
+        ok = not bool(vals.any()) and not bool(ids.any())
+        return dict(ok=ok, exact=True, max_abs_err=0.0, id_equal=1.0)
+    tol = 2.0 ** -14 * torch.clamp(rv.abs(), min=1.0)
+    err = (vals - rv).abs()
+    mism = torch.nonzero(ids != ri)
+    ties_ok = True
+    if len(mism):
+        rows = ids[mism[:, 0], mism[:, 1]].long()
+        qs = mism[:, 1]
+        score = norms[0, rows] - 2.0 * (dec[rows].float() * q_pad[qs].float()).sum(1)
+        ties_ok = bool(((score - rv[mism[:, 0], mism[:, 1]]).abs()
+                        <= tol[mism[:, 0], mism[:, 1]]).all())
+    case = dict(values_ok=bool((err <= tol).all()), id_equal=float((ids == ri).float().mean()),
+                id_mismatches=len(mism), ties_ok=ties_ok, max_abs_err=float(err.max()),
+                exact=False)
+    case["ok"] = case["values_ok"] and case["id_equal"] >= 0.995 and ties_ok
+    return case
+
+
+def _k1_stage_check(stage, got, ref) -> dict:
+    """A cut K1 against its plain version: zeros exactly after the decode;
+    else NaN in the same places and every other value within ``2^-14 *
+    max(|v|, 1)`` (K1's rule on its scores)."""
+    import torch
+
+    if stage == "decode":
+        return dict(ok=bool(torch.equal(got, ref)), exact=True, max_abs_err=0.0)
+    nan = torch.isnan(ref)
+    err = (got - ref).abs()[~nan]
+    ok = bool(torch.equal(torch.isnan(got), nan)) and bool(
+        (err <= 2.0 ** -14 * torch.clamp(ref[~nan].abs(), min=1.0)).all())
+    return dict(ok=ok, exact=False, max_abs_err=float(err.max()) if err.numel() else 0.0,
+                nan_values=int(nan.sum()))
+
+
+def k1_on_p3_operands(codes_t, norms, q_pad, cb):
+    """K1's operands holding P3's scores: offset int8 codes, the norm row's
+    hi/lo split facing two unit lanes, and ``-2 q`` over the codeword lanes
+    (exact in bf16), so K1 scores ``norms - 2 <q, dec(row)>`` as P3 does."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+
+    m, npad = codes_t.shape
+    _, _, dsub = cb.shape
+    md = m * dsub
+    q_op = torch.zeros((q_pad.shape[0], adc.padded_depth(m, dsub)), dtype=torch.bfloat16,
+                       device=q_pad.device)
+    q_op[:, :md] = q_pad[:, :md] * -2.0
+    q_op[:, md:md + 2] = 1.0
+    return ((codes_t - 128).to(torch.int8).contiguous(), adc._split_hi_lo(norms[0]), q_op,
+            cb.contiguous())
+
+
+def _probe_path(shapes, p3_ops, p4_ops, stage_ops) -> dict:
+    """The probes' path, through the entry points a user calls: each P4
+    variant, each P3 variant at the headline shape, each P1 / P2 request on
+    both shapes and each cut of K1 on each of its operand sets, once, with
+    the launch counts set to 0 before and read after. Returns the counts
+    and the modes each request ran."""
+    import torch
+
+    from gulon_tpu_torch.probes import (adc_probes as ap, floor_probe as fp,
+                                        k1_stages as ks, kernel_probe as kp)
+
+    ap.adc_probe_kernel_launches = ap.adc_probe_pipe_kernel_launches = 0
+    kp.kernel_probe_kernel_launches = fp.floor_probe_kernel_launches = 0
+    ks.k1_stage_kernel_launches = 0
+    resolved = {}
+    for variant in fp.VARIANTS:
+        fp.floor_probe(variant, *p4_ops)
+    for variant in kp.VARIANTS:
+        kp.kernel_probe(variant, *p3_ops)
+    for label, raw in shapes.items():
+        for mode, natural, pipe in PROBE_REQUESTS:
+            ran = {}
+            ap.adc_scan_probe(**raw, k=10, center_scores=True, decode_mode=mode,
+                              natural=natural, pipe=pipe, resolved=ran)
+            resolved[(label, mode, natural, pipe)] = ran
+    for operands, nblk in stage_ops.values():
+        for stage in ks.STAGES:
+            ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
+    torch.cuda.synchronize()
+    return dict(
+        launches={"P1": ap.adc_probe_kernel_launches, "P2": ap.adc_probe_pipe_kernel_launches,
+                  "P3": kp.kernel_probe_kernel_launches, "P4": fp.floor_probe_kernel_launches,
+                  "K1 stages": ks.k1_stage_kernel_launches},
+        resolved=resolved,
+    )
+
+
+def _p4_cases(p4_ops) -> dict:
+    """Each P4 variant against its zeros, timed back to back over rotated
+    operands at the headline shape; then at ``P4_LOADS_SCALE`` times its
+    rows, where it may be no faster than its bytes over the memory rate
+    (a kernel that dropped its loads would be)."""
+    import torch
+
+    from gulon_tpu_torch.probes import floor_probe as fp
+
+    out = {}
+    big = fp.floor_operands(n=fp.HEADLINE["n"] * P4_LOADS_SCALE)
+    for variant in fp.VARIANTS:
+        got = fp.floor_probe(variant, *p4_ops)
+        moved = fp.bytes_moved(variant, *p4_ops)
+        case = dict(
+            ok=all(bool((g == 0).all()) for g in got), bytes_read=moved["read"],
+            bytes_written=moved["written"], max_abs_err=0.0,
+            ms=_kernel_ms(fp.rotated(variant, *p4_ops)),
+            plain_ms=_plain_ms(lambda: fp.plain(variant, *p4_ops)),
+            **bound(moved["read"] + moved["written"], 0, "bf16", 0), library_ms=None,
+        )
+        del got
+        big_moved = fp.bytes_moved(variant, *big)
+        big_ms = _kernel_ms(fp.rotated(variant, *big, copies=2, kept=2))
+        big_bound = (big_moved["read"] + big_moved["written"]) / HBM_BYTES_PER_S * 1e3
+        case["loads_check"] = dict(
+            rows=big[0].shape[1], bytes_read=big_moved["read"],
+            bytes_written=big_moved["written"], ms=big_ms, bytes_ms=big_bound,
+            no_faster_than_bytes=big_ms >= big_bound,
+        )
+        case["no_faster_than_bytes"] = (case["ms"] >= case["bound_parts_ms"]["HBM bytes"]
+                                        and big_ms >= big_bound)
+        case["ok"] = case["ok"] and case["no_faster_than_bytes"]
+        _emit({"phase": "probes", "kernel": "P4", "variant": variant, **case})
+        if not case["ok"]:
+            raise AssertionError(f"P4 {variant} failed: {case}")
+        out[variant] = case
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k1_stage_cases(label, operands, nblk, k1_ms) -> dict:
+    """Each cut of K1 on one operand set against its plain version, with
+    its ms and bound; K1 itself (``k1_ms``) closes the split."""
+    import torch
+
+    from gulon_tpu_torch.probes import k1_stages as ks
+
+    out = {}
+    for stage in ks.STAGES:
+        got = ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
+        torch.cuda.synchronize()
+        ref = ks.plain(*operands, stage=stage, nblk=nblk)
+        case = _k1_stage_check(stage, got, ref)
+        del got, ref
+        case.update(
+            **_ms_pair(lambda: ks.k1_stage_scan(*operands, stage=stage, nblk=nblk),
+                       lambda: ks.plain(*operands, stage=stage, nblk=nblk)),
+            **k1_stage_bound(operands, stage), k1_ms=k1_ms, library_ms=None,
+        )
+        _emit({"phase": "probes", "kernel": "K1 stages", "variant": f"{label} {stage}",
+               **case})
+        if not case["ok"]:
+            raise AssertionError(f"K1 cut after {stage} ({label}) disagrees: {case}")
+        out[stage] = case
+    return out
+
+
+def phase_probes(seed: int, smi: str) -> dict:
+    """P1-P4 and the cut K1 on the card: the path run (launch counts), then
+    each variant against its plain version with its ms, plain ms, bound and
+    bytes read, K1's ms on the same operands beside it, and the stage
+    splits: K1's own, and P3's."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.probes import adc_probes as ap, floor_probe as fp, kernel_probe as kp
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = {}
+    for label, (n, d, m, k_codes, q_n) in PROBE_SHAPES.items():
+        raw = k1_inputs(gen, n, d, m, k_codes, q_n, dev="cuda")
+        # pretransposed int8 codes, as the kernel phase hands them over
+        shapes[label] = dict(raw, codes=adc.pack_codes_t(raw["codes"], k_codes), num_rows=n)
+    hs = kp.shape_from_env({})  # the headline shape, whatever the environment says
+    p3_ops = kp.probe_operands(hs["n"], hs["m"], hs["k_codes"], hs["dsub"], hs["mdp"],
+                               hs["num_q"], hs["t"], seed=seed)
+    p4_ops = fp.floor_operands(seed=seed)
+    # K1's operand sets for its cut stages: P3's headline operands as K1
+    # scores them, and K1's own operands at both probe shapes
+    stage_ops = {"p3_headline": (k1_on_p3_operands(*p3_ops), hs["t"] // 128)}
+    for label, raw in shapes.items():
+        ops = ap.probe_scan_operands(**raw, center_scores=True)
+        stage_ops[label] = ((ops["codes_t"], ops["norms_hl"], ops["q_op"], ops["cb"]),
+                            ops["nblk"])
+    path = _probe_path(shapes, p3_ops, p4_ops, stage_ops)
+    out = dict(launches=path["launches"], p4=_p4_cases(p4_ops), p3={}, p1={}, p2={}, k1s={})
+
+    k1_ms = {label: _kernel_ms(lambda: adc.fused_block_scan(*ops_, winners=1, nblk=nblk))
+             for label, (ops_, nblk) in stage_ops.items()}
+    for label, (operands, nblk) in stage_ops.items():  # K1 cut stage by stage
+        for stage, case in _k1_stage_cases(label, operands, nblk, k1_ms[label]).items():
+            out["k1s"][f"{label} {stage}"] = case
+
+    dec = kp.decoded_rows(p3_ops[0], p3_ops[3], hs["mdp"])
+    for variant in kp.VARIANTS:  # P3 at the headline shape
+        run = kp.make(variant, *p3_ops, tile_rows=hs["t"], query_tile=hs["qt"])
+        got = run()
+        torch.cuda.synchronize()
+        ref = kp.plain(variant, *p3_ops, tile_rows=hs["t"], query_tile=hs["qt"])
+        stage, impl, _ = kp.spec(variant)
+        vdec = dec if impl != "i8" else kp.decoded_rows(
+            p3_ops[0], p3_ops[3], hs["mdp"], kp.quantize_codebooks(p3_ops[3]))
+        case = _p3_check(variant, got, ref, vdec, p3_ops[1], p3_ops[2])
+        del got, ref
+        codes_bytes = p3_ops[0].numel() * (1 if impl == "cmp8" else 4)
+        read = dec.numel() * 2 if impl == "cached" else codes_bytes + p3_ops[3].numel() * 2
+        case.update(
+            **_ms_pair(run, lambda: kp.plain(variant, *p3_ops, tile_rows=hs["t"],
+                                             query_tile=hs["qt"])),
+            **p3_bound(variant, p3_ops, read), k1_ms=k1_ms["p3_headline"],
+            library_ms=_kernel_ms(lambda: torch.matmul(p3_ops[2], dec.T))
+            if impl == "cached" else None,
+        )
+        _emit({"phase": "probes", "kernel": "P3", "variant": variant, **case})
+        if not case["ok"]:
+            raise AssertionError(f"P3 {variant} disagrees with its plain version: {case}")
+        out["p3"][variant] = case
+    del dec
+
+    for label, raw in shapes.items():  # P1 and P2 on K1's operands
+        done = set()
+        for mode, natural, pipe in PROBE_REQUESTS:
+            modes = path["resolved"][(label, mode, natural, pipe)]
+            key = (modes["decode_mode"], modes["natural"], modes["pipe"])
+            if key in done:
+                continue
+            done.add(key)
+            ops = ap.probe_scan_operands(**raw, center_scores=True, **dict(
+                decode_mode=mode, natural=natural, pipe=pipe))
+            operands = (ops["codes_t"], ops["norms_hl"], ops["q_op"], ops["cb"])
+            kw = dict(winners=1, nblk=ops["nblk"], decode_mode=modes["decode_mode"],
+                      natural=modes["natural"], pipe=modes["pipe"])
+            got = ap.probe_block_scan(*operands, **kw)
+            torch.cuda.synchronize()
+            ref = adc._block_scan_plain(*operands, winners=1, nblk=ops["nblk"])
+            case = compare_packed(got, ref)
+            del got, ref
+            rows = ap.probe_decode_rows(ops["codes_t"], ops["norms_hl"], ops["cb"],
+                                        width=ops["q_op"].shape[1],
+                                        decode_mode=modes["decode_mode"])
+            plain_rows = k1_decoded(operands)
+            case["decoded_rows_exact"] = bool(torch.equal(rows.view(torch.int16),
+                                                          plain_rows.view(torch.int16)))
+            del rows
+            case["ok"] = case["ok"] and case["decoded_rows_exact"]
+            case.update(
+                requested=dict(decode_mode=mode, natural=natural, pipe=pipe), ran=modes,
+                shape=[ops["q_op"].shape[0], ops["codes_t"].shape[1],
+                       ops["codes_t"].shape[0] * ops["cb"].shape[2]],
+                **_ms_pair(lambda: ap.probe_block_scan(*operands, **kw),
+                           lambda: adc._block_scan_plain(*operands, winners=1,
+                                                         nblk=ops["nblk"])),
+                k1_ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=1,
+                                                              nblk=ops["nblk"])),
+                library_ms=_kernel_ms(lambda: torch.matmul(ops["q_op"], plain_rows.T)),
+                library_call="torch.matmul(queries, decoded rows^T), contraction only",
+                bytes_read=sum(t.numel() * t.element_size() for t in operands),
+                **k1_bound(operands, 1),
+            )
+            del plain_rows
+            name = "P2" if modes["pipe"] else "P1"
+            tag = f"{label} {modes['decode_mode']}{' natural' if modes['natural'] else ''}"
+            _emit({"phase": "probes", "kernel": name, "variant": tag, **case})
+            if not case["ok"]:
+                raise AssertionError(f"{name} {tag} disagrees with its plain version: {case}")
+            out["p2" if modes["pipe"] else "p1"][tag] = case
+        torch.cuda.empty_cache()
+
+    # the stage splits: K1's own on each operand set (its cut stages, then
+    # K1 whole), from P4's floor up; and P3's tdec stages at its headline
+    # shape, with K1 on the same operands and the no-decode tdec_cached
+    floor = out["p4"][P3_STAGES[0][1]]["ms"]
+    split = {}
+    for label in stage_ops:
+        steps = [("floor", floor)] + [(stage, out["k1s"][f"{label} {stage}"]["ms"])
+                                      for stage in ("decode", "contraction", "block_min")]
+        steps.append(("selection", k1_ms[label]))
+        split[label] = {name: dict(ms=ms, added_ms=ms - steps[i - 1][1] if i else None)
+                        for i, (name, ms) in enumerate(steps)}
+        split[label]["full"] = dict(variant="K1 adc_scan", ms=k1_ms[label])
+    p3 = {name: dict(variant=variant, ms=(out["p4"] if name == "floor" else out["p3"])[
+        variant]["ms"]) for name, variant in P3_STAGES}
+    p3["full"] = dict(variant="K1 adc_scan on the same operands", ms=k1_ms["p3_headline"])
+    names = [name for name, _ in P3_STAGES] + ["full"]
+    for prev, name in zip(names, names[1:]):
+        p3[name]["added_ms"] = p3[name]["ms"] - p3[prev]["ms"]
+    p3["no_decode"] = dict(variant="tdec_cached", ms=out["p3"]["tdec_cached"]["ms"])
+    split["p3"] = p3
+    _emit({"stage_split": dict(
+        p3_shape=f"{hs['n']} rows (padded to {p3_ops[0].shape[1]}) x m {hs['m']} x K "
+                  f"{hs['k_codes']} x dsub {hs['dsub']}, mdp {hs['mdp']}, "
+                  f"{hs['num_q']} queries",
+        card=smi, phase_seconds=time.perf_counter() - t0, **split)})
+    out["stage_split"] = split
+    out["max_abs_err"] = {k: max(c["max_abs_err"] for c in out[k].values())
+                          for k in ("p1", "p2", "p3", "p4", "k1s")}
+    return out
+
+
 def _int_mm_refuses(q_n: int, n: int, dp: int) -> bool:
     """The shapes ``torch._int_mm(queries, rows^T)`` refuses by rule: more
     than 16 rows in its first operand and 8-multiples elsewhere."""
@@ -563,7 +977,7 @@ def _int_mm_refuses(q_n: int, n: int, dp: int) -> bool:
 
 
 def _library_ms(fn, refused_by_rule: bool = False):
-    """Median ms of ``fn`` (:func:`_cuda_ms`), or None where the library
+    """Device ms of ``fn`` (:func:`_kernel_ms`), or None where the library
     refuses the shape by rule; any other failure of the call raises."""
     try:
         fn()
@@ -571,7 +985,7 @@ def _library_ms(fn, refused_by_rule: bool = False):
         if refused_by_rule:
             return None
         raise
-    return _cuda_ms(fn)
+    return _kernel_ms(fn)
 
 
 def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch,
@@ -597,8 +1011,8 @@ def _dense_case(name, block_scan, plain, data, q_op, exact, launches_per_batch,
     case = dict(
         kernel=name, case=label, shape=[q_op.shape[0], data.shape[0], data.shape[1]],
         dtype=str(data.dtype).replace("torch.", ""), **case,
-        ms=_cuda_ms(lambda: block_scan(data, q_op)),
-        plain_ms=_cuda_ms(lambda: plain(data, q_op)),
+        ms=_kernel_ms(lambda: block_scan(data, q_op)),
+        plain_ms=_plain_ms(lambda: plain(data, q_op)),
         library_ms=_library_ms(
             lambda: library(q_op, data.T),
             exact and _int_mm_refuses(q_op.shape[0], *data.shape),
@@ -1060,9 +1474,9 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
     del got, ref, vk, ik, vp, ip, err, tol, scale, rows, codes_pal
     dec = k1_decoded(operands)
     case.update(
-        ms=_cuda_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
-        plain_ms=_cuda_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
-        library_ms=_cuda_ms(lambda: torch.matmul(operands[2], dec.T)),
+        ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
+        plain_ms=_plain_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
+        library_ms=_kernel_ms(lambda: torch.matmul(operands[2], dec.T)),
         library_call="torch.matmul(queries, decoded rows^T), contraction only",
         launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
@@ -2371,6 +2785,40 @@ def _kernel_entry(name, source, replaces, launches, max_abs_err, case, **extra) 
     )
 
 
+def _probe_entries(probes) -> list:
+    """The ``kernels`` entries of P1-P4 and the cut K1: launches on the probes' path, the
+    largest error against the plain versions, and the numbers of one
+    representative variant (the TPU probe's default decode, or its first
+    variant), every variant's beside it."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_resource", "library_ms",
+            "bytes_read", "k1_ms")
+    rows = (
+        ("adc_probe", "P1", "p1", "gulon_tpu_torch/csrc/adc_probes.cu",
+         "benchmarks/adc_probes.py:153", "glove100 base"),
+        ("adc_probe_pipe", "P2", "p2", "gulon_tpu_torch/csrc/adc_probes.cu",
+         "benchmarks/adc_probes.py:206", "glove100 base"),
+        ("kernel_probe", "P3", "p3", "gulon_tpu_torch/csrc/kernel_probe.cu",
+         "benchmarks/kernel_probe.py:49", "tdec_packed"),
+        ("floor_probe", "P4", "p4", "gulon_tpu_torch/csrc/floor_probe.cu",
+         "benchmarks/floor_probe.py:35", "codes+q, out v+i [32]"),
+        ("adc_scan_stage", "K1 stages", "k1s", "gulon_tpu_torch/csrc/adc_scan.cu",
+         "gulon_tpu/ops/pallas/adc.py:276 (K1, cut as benchmarks/kernel_probe.py:364 cuts it)",
+         "glove100 contraction"),
+    )
+    entries = []
+    for name, tag, group, source, replaces, rep in rows:
+        cases = probes[group]
+        case = cases[rep]
+        entries.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=probes["launches"][tag], max_abs_err=probes["max_abs_err"][group],
+            **{k: case.get(k) for k in keys}, variant=rep,
+            launches_by_path={"probes": probes["launches"][tag]},
+            variants={v: {k: c.get(k) for k in keys} for v, c in cases.items()},
+        ))
+    return entries
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2396,6 +2844,7 @@ def main(argv=None) -> int:
         return 0
     import gulon_tpu_torch as gt
     from gulon_tpu_torch.ops.cuda import _build, adc, dense
+    from gulon_tpu_torch.probes import adc_probes, floor_probe, kernel_probe
 
     smi = _nvidia_smi()
     _emit({
@@ -2405,10 +2854,14 @@ def main(argv=None) -> int:
     })
 
     t0 = time.perf_counter()
-    _build.build(["adc_scan", "dense_scan"])  # one nvcc each, in parallel
+    sources = ("adc_scan", "dense_scan", "adc_probes", "kernel_probe", "floor_probe")
+    _build.build(sources)  # one nvcc each, in parallel
     adc._kernel()
     dense._kernel()
-    for name in ("adc_scan", "dense_scan"):
+    adc_probes._kernel()
+    kernel_probe._kernel()
+    floor_probe._kernel()
+    for name in sources:
         seconds, report = _build.BUILD_INFO.get(name, (0.0, ""))
         _emit({
             "phase": "build", "kernel": name, "nvcc_seconds": seconds,
@@ -2424,6 +2877,11 @@ def main(argv=None) -> int:
     if main_path["launches"] == 0:
         raise AssertionError("the main path never launched K1")
     k1 = phase_kernel(args.seed, main_path["launches_per_batch"])
+    probes = phase_probes(args.seed, smi)
+    for name, count in probes["launches"].items():
+        if count == 0:
+            raise AssertionError(f"the probes' path never launched {name}")
+    torch.cuda.empty_cache()
     x2m = low_rank_corpus(args.seed, 2_000_000, 300)
     exact = phase_exact_path(args.seed, x2m)
     cached = phase_cached_path(glove)
@@ -2502,6 +2960,7 @@ def main(argv=None) -> int:
                               "aot": aot_l["K3"], "packed": packed_l["K3"],
                               "sharded": sh_all["K3"]},
         ),
+        *_probe_entries(probes),
     ]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {

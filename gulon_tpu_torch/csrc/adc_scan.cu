@@ -66,6 +66,14 @@
 // the one before. The codebook gathers bound this mode (each warp load
 // touches up to 32 lines), so it gathers up to 8 lanes a load.
 //
+// Stages. The kernel is templated on how far it goes (kStage), so that
+// K1's own time can be split: kDecode stages and decodes every row block
+// as the full kernel does, streams no queries and writes zeros; kContract
+// adds the query ring and the wgmma and writes each block's first row's
+// score; kMin adds the block minimum of the raw scores; kFull is K1. Only
+// kFull serves (gulon_adc_scan); gulon_adc_scan_stage runs the cut ones
+// for gulon_tpu_torch/probes, winners = 1.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (see gulon_tpu_torch/ops/cuda/_build.py).
 
@@ -74,18 +82,18 @@
 
 #include <algorithm>
 
+#include "adc_decode.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace adc_decode;
 
 constexpr int kConsumers = 256;              // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;    // + one producer warp
 constexpr int kMaxStages = 6;
 constexpr int kDecSlots = 3;  // decoded chunks of the streamed mode
-constexpr uint16_t kOneBf16 = 0x3F80;
-// decode-table kinds of the columns past the codewords
-constexpr int kNormHi = -1, kNormLo = -2, kOne = -3, kZero = -4;
-
+enum Stage { kDecode = 0, kContract = 1, kMin = 2, kFull = 3 };
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
 // Shared-memory offsets from the 1024-byte-aligned base: the decoded row
@@ -109,163 +117,7 @@ __host__ __device__ inline Layout layout(int nch, int nst, int m, int cb_bytes,
   return L;
 }
 
-// code of element idx of the [m, n_cols] code operand, -1 outside [0, K)
-__device__ __forceinline__ int load_code(const void* codes, int code_bytes, int64_t idx,
-                                         int k_codes) {
-  int code;
-  if (code_bytes == 1)  // K <= 256: offset-encoded int8 (code - 128)
-    code = static_cast<int>(__ldg(static_cast<const int8_t*>(codes) + idx)) + 128;
-  else if (code_bytes == 2)
-    code = __ldg(static_cast<const int16_t*>(codes) + idx);
-  else
-    code = __ldg(static_cast<const int32_t*>(codes) + idx);
-  return (code >= 0 && code < k_codes) ? code : -1;
-}
-
-// Streamed mode: chunk c (columns 64c .. 64c + 63) of the row block at
-// row0, decoded from the codes and norms in global memory into the
-// swizzled [128][64] tile dst. Thread t decodes four 16-byte groups of
-// row t % 128. Codewords are gathered VW lanes a load (VW = 8, 4, 2 or
-// 1, the largest dividing dsub): the gathers' L1 wavefronts, not their
-// bytes, set the decode's cost. All code loads are issued before the
-// codebook loads that depend on them, so a chunk costs two memory round
-// trips. Code is the code operand's element type.
-template <int VW> struct LanesOf;
-template <> struct LanesOf<8> { using T = uint4; };
-template <> struct LanesOf<4> { using T = uint2; };
-template <> struct LanesOf<2> { using T = uint32_t; };
-template <> struct LanesOf<1> { using T = uint16_t; };
-
-template <typename Code, int VW>
-__device__ __forceinline__ void decode_chunk(
-    uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
-    const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
-  using namespace hopper;
-  using Lanes = typename LanesOf<VW>::T;
-  constexpr int kGroups = 8 * kRows / kConsumers;  // 16-byte groups a thread
-  constexpr int kPer = 8 / VW;                     // gathers a group
-  constexpr int kOffset = sizeof(Code) == 1 ? 128 : 0;  // int8 holds code - 128
-  const int md = m * dsub;
-  const int r = tid & 127;
-  const int64_t row = row0 + r;
-  const int g0 = tid >> 7;  // group i of this thread is 2 i + g0
-  int code[kGroups * kPer];
-#pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int col = min(c * kChunk + 8 * (2 * i + g0), md - 1);
-    int sub = col / dsub, off = col - sub * dsub;
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      code[kPer * i + t] = __ldg(codes + static_cast<int64_t>(min(sub, m - 1)) * n_cols + row);
-      if ((off += VW) >= dsub) {
-        off -= dsub;
-        ++sub;
-      }
-    }
-  }
-  union {
-    Lanes v;
-    uint16_t h[VW];
-  } x[kGroups * kPer];
-#pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int col = c * kChunk + 8 * (2 * i + g0);
-    const int start = min(col, md - 1);
-    int sub = start / dsub, off = start - sub * dsub;
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int k = code[kPer * i + t] + kOffset;
-      const bool ok = col + VW * t < md && k >= 0 && k < k_codes;
-      const Lanes v = *reinterpret_cast<const Lanes*>(cb + (ok ? (sub * k_codes + k) * dsub + off : 0));
-      x[kPer * i + t].v = ok ? v : Lanes{};
-      if ((off += VW) >= dsub) {
-        off -= dsub;
-        ++sub;
-      }
-    }
-  }
-  const bool has_norms = (md >> 6) == c || ((md + 1) >> 6) == c;
-  const uint32_t n_hi = has_norms ? __ldg(norms + row) : 0u;
-  const uint32_t n_lo = has_norms ? __ldg(norms + n_cols + row) : 0u;
-#pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int g = 2 * i + g0;
-    uint32_t w[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t v[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lane = 2 * p + h;
-        const int col = c * kChunk + 8 * g + lane;
-        v[h] = col < md       ? x[kPer * i + lane / VW].h[lane % VW]
-               : col == md     ? n_hi
-               : col == md + 1 ? n_lo
-               : col < md + 4  ? kOneBf16
-                               : 0u;
-      }
-      w[p] = v[0] | (v[1] << 16);
-    }
-    *reinterpret_cast<uint4*>(dst + r * 128 + ((g ^ (r & 7)) << 4)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-template <typename Code>
-__device__ __forceinline__ void decode_chunk(
-    uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
-    const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
-  if (dsub % 8 == 0)
-    decode_chunk<Code, 8>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else if (dsub % 4 == 0)
-    decode_chunk<Code, 4>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else if (dsub % 2 == 0)
-    decode_chunk<Code, 2>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else
-    decode_chunk<Code, 1>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-}
-
-// Block held decoded: all nch chunks of the row block from its codes and
-// norms in shared memory, one 16-byte group (8 lanes) of one row a step,
-// lanes on consecutive rows; swizzled stores are bank-conflict free.
-__device__ __forceinline__ void decode_block(
-    uint8_t* dec, int nch, const int2* tab, const int16_t* codes_s, const uint16_t* norms_s,
-    const uint16_t* cb, const uint16_t* cb_s, int cb_smem, int dsub, int tid) {
-  using namespace hopper;
-  for (int task = tid; task < nch * 8 * kRows; task += kConsumers) {
-    const int g = task >> 7;
-    const int r = task & 127;
-    uint32_t w[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t v[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int2 t = tab[8 * g + 2 * p + h];
-        uint32_t x = 0;
-        if (t.x >= 0) {
-          const int code = codes_s[t.y + r];
-          if (code >= 0) {
-            const int i = t.x + code * dsub;
-            x = cb_smem ? cb_s[i] : __ldg(cb + i);
-          }
-        } else if (t.x == kNormHi) {
-          x = norms_s[r];
-        } else if (t.x == kNormLo) {
-          x = norms_s[kRows + r];
-        } else if (t.x == kOne) {
-          x = kOneBf16;
-        }
-        v[h] = x;
-      }
-      w[p] = v[0] | (v[1] << 16);
-    }
-    *reinterpret_cast<uint4*>(dec + (g >> 3) * kChunkBytes + r * 128 +
-                              (((g & 7) ^ (r & 7)) << 4)) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-template <bool kStreamed>
+template <bool kStreamed, int kStage>
 __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
     const __grid_constant__ CUtensorMap qmap,  // queries [num_q][depth] bf16
     const void* __restrict__ codes,            // [m, n_cols] of code_bytes each
@@ -295,7 +147,6 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   const int b1 = static_cast<int>(static_cast<int64_t>(n_blocks) * (blockIdx.x + 1) / gridDim.x);
   if (b0 >= b1) return;
   const int n_qt = (num_q + kRows - 1) / kRows;
-  const int md = m * dsub;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -309,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
 
   const int wg = warpgroup_index();
   if (wg == kConsumers / 128) {  // producer warp: the query chunks, block after block
-    if (tid == kConsumers) {
+    if (kStage != kDecode && tid == kConsumers) {
       int it = 0;
       for (int blk = b0; blk < b1; ++blk)
         for (int qt = 0; qt < n_qt; ++qt)
@@ -332,20 +183,8 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
       reinterpret_cast<uint4*>(cb_s)[i] = __ldg(reinterpret_cast<const uint4*>(cb) + i);
     for (int i = n16 * 8 + tid; i < cb_len; i += kConsumers) cb_s[i] = __ldg(cb + i);
   }
-  for (int col = tid; !kStreamed && col < nch * kChunk; col += kConsumers) {
-    int2 e = make_int2(kZero, 0);
-    if (col < md) {
-      const int s = col / dsub;
-      e = make_int2(s * k_codes * dsub + (col - s * dsub), s * kRows);
-    } else if (col == md) {
-      e.x = kNormHi;
-    } else if (col == md + 1) {
-      e.x = kNormLo;
-    } else if (col < md + 4) {
-      e.x = kOne;
-    }
-    tab[col] = e;
-  }
+  if (!kStreamed) column_table<kConsumers>(tab, nch, m, k_codes, dsub, tid);
+  bar_sync(1, kConsumers);  // the codebooks are staged before any decode reads them
 
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
@@ -357,19 +196,31 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
     const int64_t row0 = static_cast<int64_t>(blk) * kRows;
     if (!kStreamed) {
       bar_sync(1, kConsumers);  // every wgmma read of the last block is done
-      for (int e = tid; e < m * kRows; e += kConsumers) {
-        const int64_t idx = static_cast<int64_t>(e >> 7) * n_cols + row0 + (e & 127);
-        codes_s[e] = static_cast<int16_t>(load_code(codes, code_bytes, idx, k_codes));
-      }
-      norms_s[tid] = __ldg(norms + static_cast<int64_t>(tid >> 7) * n_cols + row0 + (tid & 127));
+      stage_block<kConsumers>(codes_s, norms_s, codes, code_bytes, norms, row0, n_cols, m,
+                              k_codes, tid);
       bar_sync(1, kConsumers);
-      decode_block(dec, nch, tab, codes_s, norms_s, cb, cb_s, cb_smem, dsub, tid);
+      decode_block<kConsumers>(dec, nch, tab, codes_s, norms_s, cb, cb_s, cb_smem, dsub, tid);
       fence_proxy_async();
       bar_sync(1, kConsumers);
     }
 
     const int col0 = (blk / nblk) * winners * nblk + (blk % nblk);
     for (int qt = 0; qt < n_qt; ++qt) {
+      const int q = qt * kRows + wg * 64 + warp * 16 + (lane >> 2);
+      if constexpr (kStage == kDecode) {  // the decode alone, then zeros
+        if (kStreamed)
+          for (int c = 0; c < nch; ++c) {
+            uint8_t* b = dec + (dk++ % kDecSlots) * kChunkBytes;
+            decode_chunk<kConsumers>(b, c, row0, codes, code_bytes, norms,
+                                     cb_smem ? cb_s : cb, n_cols, m, k_codes, dsub, tid);
+            fence_proxy_async();
+            bar_sync(1, kConsumers);
+          }
+        if ((lane & 3) == 0 && q < num_q) out[static_cast<int64_t>(q) * n_win + col0] = 0.f;
+        if ((lane & 3) == 1 && q + 8 < num_q)
+          out[static_cast<int64_t>(q + 8) * n_win + col0] = 0.f;
+        continue;
+      }
       // chunk c's wgmma group is issued before chunk c-1's stage is freed;
       // chunk 0 overwrites the accumulators. Streamed, chunk c is first
       // decoded into the slot that chunk c-3 read.
@@ -377,16 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
         uint8_t* b = dec + c * kChunkBytes;
         if (kStreamed) {
           b = dec + (dk++ % kDecSlots) * kChunkBytes;
-          const uint16_t* src = cb_smem ? cb_s : cb;
-          if (code_bytes == 1)
-            decode_chunk(b, c, row0, static_cast<const int8_t*>(codes), norms, src, n_cols, m,
-                         k_codes, dsub, tid);
-          else if (code_bytes == 2)
-            decode_chunk(b, c, row0, static_cast<const int16_t*>(codes), norms, src, n_cols, m,
-                         k_codes, dsub, tid);
-          else
-            decode_chunk(b, c, row0, static_cast<const int32_t*>(codes), norms, src, n_cols, m,
-                         k_codes, dsub, tid);
+          decode_chunk<kConsumers>(b, c, row0, codes, code_bytes, norms, cb_smem ? cb_s : cb,
+                                   n_cols, m, k_codes, dsub, tid);
           fence_proxy_async();
           bar_sync(1, kConsumers);
         }
@@ -413,8 +256,14 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
       release(&empty[prev], lane);
       fence_regs(acc);
 
-      pack_rows(acc, lane);
-      const int q = qt * kRows + wg * 64 + warp * 16 + (lane >> 2);
+      if constexpr (kStage == kContract) {  // row 0's scores (acc_row(0, 0, lane & ~3))
+        if ((lane & 3) == 0) {
+          if (q < num_q) out[static_cast<int64_t>(q) * n_win + col0] = acc[0];
+          if (q + 8 < num_q) out[static_cast<int64_t>(q + 8) * n_win + col0] = acc[2];
+        }
+        continue;
+      }
+      if constexpr (kStage == kFull) pack_rows(acc, lane);
       for (int w = 0; w < winners; ++w) {
         const float v0 = block_min<0>(acc, lane);
         const float v1 = block_min<1>(acc, lane);
@@ -428,19 +277,15 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   }
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes. Returns a cudaError_t (0 = launched).
-// Shapes and alignment are checked by the Python wrapper; this re-checks
-// what would make the launch read or write out of bounds. Any depth runs:
-// the row block is held decoded when it fits beside two ring stages, and
+// Launch of stage kStage. Returns a cudaError_t (0 = launched). Shapes
+// and alignment are checked by the Python wrapper; this re-checks what
+// would make the launch read or write out of bounds. Any depth runs: the
+// row block is held decoded when it fits beside two ring stages, and
 // streamed otherwise.
-extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
-                              const void* norms, const void* q,
-                              const void* cb, void* out, int n_cols,
-                              int num_q, int q_stride, int depth, int m,
-                              int k_codes, int dsub, int winners, int nblk,
-                              void* stream) {
+template <int kStage>
+int launch(const void* codes, int code_bytes, const void* norms, const void* q,
+           const void* cb, void* out, int n_cols, int num_q, int q_stride, int depth, int m,
+           int k_codes, int dsub, int winners, int nblk, void* stream) {
   using namespace hopper;
   const int64_t cb_len64 = static_cast<int64_t>(m) * k_codes * dsub;
   if (n_cols <= 0 || n_cols % kRows != 0 || num_q <= 0 || nblk <= 0 ||
@@ -475,7 +320,7 @@ extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
   CUtensorMap qmap;
   if (!sw128_map(&qmap, q, 2, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = streamed ? adc_scan_kernel<true> : adc_scan_kernel<false>;
+  auto kernel = streamed ? adc_scan_kernel<true, kStage> : adc_scan_kernel<false, kStage>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -484,4 +329,32 @@ extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
       static_cast<const uint16_t*>(cb), static_cast<float*>(out), n_cols, num_q,
       depth, m, k_codes, dsub, winners, nblk, nch, nst, cb_smem);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes.
+extern "C" int gulon_adc_scan(const void* codes, int code_bytes,
+                              const void* norms, const void* q,
+                              const void* cb, void* out, int n_cols,
+                              int num_q, int q_stride, int depth, int m,
+                              int k_codes, int dsub, int winners, int nblk,
+                              void* stream) {
+  return launch<kFull>(codes, code_bytes, norms, q, cb, out, n_cols, num_q, q_stride, depth,
+                       m, k_codes, dsub, winners, nblk, stream);
+}
+
+// K1 cut after its decode (stage 0), its contraction (1) or its block
+// minimum (2), one winner a block; the same operands and output shape.
+extern "C" int gulon_adc_scan_stage(const void* codes, int code_bytes,
+                                    const void* norms, const void* q,
+                                    const void* cb, void* out, int n_cols,
+                                    int num_q, int q_stride, int depth, int m,
+                                    int k_codes, int dsub, int nblk, int stage,
+                                    void* stream) {
+  auto run = stage == kDecode ? launch<kDecode> : stage == kContract ? launch<kContract>
+             : stage == kMin ? launch<kMin> : nullptr;
+  if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return run(codes, code_bytes, norms, q, cb, out, n_cols, num_q, q_stride, depth, m, k_codes,
+             dsub, 1, nblk, stream);
 }

@@ -154,13 +154,15 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keep the compiler from moving accumulator accesses across a wait
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= A[64 x 16] . B[128 x 16]^T, bf16 operands from shared memory, f32
@@ -218,6 +220,31 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
         "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
         "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
         "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The narrow forms the one-hot decodes of the probe kernels use: d (+)=
+// A[64 x k] . B[16 x k]^T, k = 16 bf16 (f32 accumulators) or 32 s8 (s32
+// accumulators); a thread's d[4j + 2i + h] is row 16 * warp + lane / 4 + 8 i
+// and column 8 j + 2 (lane % 4) + h, as for the wide forms.
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_m64n16k32_s8(int (&d)[8], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

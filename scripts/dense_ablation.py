@@ -18,9 +18,11 @@ Run from the root of a checkout: ``python3 scripts/dense_ablation.py
 ``gulon_tpu_torch`` under ``gulon_tpu_torch/_build/ablation/`` with one
 edit, built and timed in a process of its own; the variants run in turns,
 ``--rounds`` times. An edit names the kernel's source text it replaces and
-stops the script when that text has changed. Each timing is the median of 10 CUDA-event timings after 3 warm-ups
-(``chip_smoke._cuda_ms``). Prints one JSON line per variant and round, the
-card's name and power limit first.
+stops the script when that text has changed. Each timing is the card's
+time of one call, the median of 10 readings after 3 warm-ups
+(``gulon_tpu_torch.probes.median_ms``: back-to-back calls queued behind a
+sleep kernel). Prints one JSON line per variant and round, the card's
+name and power limit first.
 """
 
 from __future__ import annotations
@@ -90,15 +92,16 @@ def worker(root: str, label: str) -> None:
 
     import chip_smoke as cs
     from gulon_tpu_torch.ops.cuda import _build, dense
+    from gulon_tpu_torch.probes import median_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"variant": label}
     data, q = cs.k2_operands(gen, 2_000_000, 300, 1024, False, dev="cuda")
-    out["k2_2m_304"] = cs._cuda_ms(lambda: dense.dense_block_scan(data, q))
+    out["k2_2m_304"] = median_ms(lambda: dense.dense_block_scan(data, q))
     del data, q
     data = torch.randint(-127, 128, (2_000_000, 320), generator=gen, device="cuda").to(torch.int8)
     q = torch.randint(-127, 128, (1024, 320), generator=gen, device="cuda").to(torch.int8)
-    out["k3_2m_320"] = cs._cuda_ms(lambda: dense.dense_block_scan_i8(data, q))
+    out["k3_2m_320"] = median_ms(lambda: dense.dense_block_scan_i8(data, q))
     if label in EXACT:
         got = dense.dense_block_scan_i8(data, q)
         out["k3_equal"] = bool(torch.equal(got, dense._dense_block_scan_plain_i8(data, q)))

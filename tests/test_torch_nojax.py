@@ -4,10 +4,11 @@ adds and removes rows, trains OPQ, packs codes, saves and loads index
 files, reads word2vec files, builds from one as a stream, serves through
 ahead-of-time plans, shards indices over a mesh of logical CPU shards and
 builds over it (``gulon_tpu_torch.parallel``), drives the command line
-(``--mesh`` too) and answers a server request on the CPU, and never loads ``jax``, any module of the JAX package
-``gulon_tpu`` or ``google.protobuf`` (a GPU host need not have
-protobuf). The port's sources (and ``chip_smoke.py``) import none of
-them."""
+(``--mesh`` too), answers a server request and runs the probes P1-P4
+(``gulon_tpu_torch.probes``) on the CPU, and never loads ``jax``, any
+module of the JAX package ``gulon_tpu``, the TPU harness ``benchmarks``
+or ``google.protobuf`` (a GPU host need not have protobuf). The port's
+sources (and ``chip_smoke.py``) import none of them."""
 
 import pathlib
 import re
@@ -130,6 +131,26 @@ with socket.create_connection(srv.address, timeout=30) as sock:
     f.flush()
     assert len(json.loads(f.readline())["keys"][0]) == 2
 srv.shutdown()
+from gulon_tpu_torch.ops.pq import subspace_bounds
+from gulon_tpu_torch.probes import adc_probes, floor_probe, k1_stages, kernel_probe
+
+cb = rng.normal(size=(4, 16, 3)).astype(np.float32)
+codes = rng.integers(0, 16, size=(1200, 4)).astype(np.int32)
+norms = (cb[np.arange(4)[None], codes] ** 2).sum((1, 2)).astype(np.float32)
+ran = {}
+assert adc_probes.adc_scan_probe(x[:2], cb, codes, norms, bounds=subspace_bounds(12, 4), k=3,
+                                 pipe=True, device="cpu", resolved=ran)[1].shape == (2, 3)
+assert ran["pipe"] is True
+ops = kernel_probe.probe_operands(2048, 2, 16, 4, 8, 4, 1024, device="cpu")
+assert kernel_probe.kernel_probe("full", *ops, tile_rows=1024, device="cpu")[0].shape == (16, 4)
+f_ops = floor_probe.floor_operands(n=4096, device="cpu")
+assert floor_probe.floor_probe("q only, out v [8]", *f_ops, device="cpu")[0].shape == (8, 1024)
+s_ops = adc_probes.probe_scan_operands(*(torch.from_numpy(a) for a in (x[:2], cb, codes, norms)),
+                                       bounds=subspace_bounds(12, 4))
+assert k1_stages.k1_stage_scan(s_ops["codes_t"], s_ops["norms_hl"], s_ops["q_op"], s_ops["cb"],
+                               stage="block_min", nblk=s_ops["nblk"]).shape == (
+    2, s_ops["codes_t"].shape[1] // 128)
+assert not [m for m in sys.modules if m == "benchmarks" or m.startswith("benchmarks.")]
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 assert not [m for m in sys.modules if m.startswith("google.protobuf")]
 ref = sorted(m for m in sys.modules if m == "gulon_tpu" or m.startswith("gulon_tpu."))
@@ -152,6 +173,8 @@ def _sources():
     assert len(sources) > 10
     assert {"mesh.py", "ops.py", "index.py"} <= {
         p.name for p in sources if p.parent.name == "parallel"}
+    assert {"adc_probes.py", "kernel_probe.py", "floor_probe.py", "k1_stages.py"} <= {
+        p.name for p in sources if p.parent.name == "probes"}
     return sources
 
 
@@ -173,5 +196,13 @@ def test_port_sources_import_no_protobuf():
 
 def test_port_sources_import_no_jax_package():
     pattern = re.compile(r"^\s*(from|import)\s+gulon_tpu(\.|\s|$)", re.M)
+    offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_port_sources_import_no_benchmarks():
+    """The probes are the port's own: nothing in the port or in
+    ``chip_smoke.py`` imports the TPU harness under ``benchmarks/``."""
+    pattern = re.compile(r"^\s*(from|import)\s+benchmarks(\.|\s|$)", re.M)
     offenders = [str(p) for p in _sources() if pattern.search(p.read_text())]
     assert offenders == []

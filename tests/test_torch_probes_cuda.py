@@ -1,0 +1,168 @@
+"""The probe kernels P1-P4 on the card, each against its plain version at
+edge shapes: ragged row counts (padding rows past n), 1 to 1000 queries,
+K = 16, 256 and 1024, depths from 24 to 768 (held decoded and streamed),
+NaN rows and padding-only blocks.
+
+P1 and P2 hold K1's rule (``chip_smoke.compare_packed``: ids >= 99.5 %
+equal, values within ``2^-14 * max(|v|, 1)``, NaN winners on the same rows)
+and their decoded rows equal the plain gather bit for bit; P3 holds its
+variant's plain version (``chip_smoke._p3_check``: zeros exactly, values
+within ``2^-14 * max(|v|, 1)``, ids >= 99.5 % equal, every mismatch a
+near-tie); P4 writes zeros; K1 cut by stage (``k1_stages``) holds its
+plain version (``chip_smoke._k1_stage_check``: zeros exactly, NaN in the
+same places, values within ``2^-14 * max(|v|, 1)``). ``probes.median_ms``
+times a kernel on the card and refuses a function that synchronizes.
+Marked ``cuda``: they skip without a card.
+Run on the card with ``python -m pytest --noconftest -m cuda
+tests/test_torch_probes_cuda.py`` (this file imports no jax).
+"""
+
+import pytest
+import torch
+
+import chip_smoke as cs
+from gulon_tpu_torch.ops.cuda import adc
+from gulon_tpu_torch.probes import adc_probes as ap
+from gulon_tpu_torch.probes import floor_probe as fp
+from gulon_tpu_torch.probes import k1_stages as ks
+from gulon_tpu_torch.probes import kernel_probe as kp
+
+# (n, D, m, K, queries, winners, centered, extra) as chip_smoke.K1_EDGE_CASES
+P1_CASES = (
+    (8192, 24, 4, 16, 1, 1, True, None),
+    (9000, 24, 4, 16, 7, 2, False, None),
+    (16384, 100, 8, 256, 1000, 1, True, None),
+    (16384, 100, 8, 256, 129, 4, False, "nan"),
+    (9216, 60, 6, 256, 200, 3, True, "sentinel"),
+    (16384, 300, 19, 256, 129, 2, True, None),
+    (16384, 96, 12, 1024, 100, 2, True, None),
+    (8192, 768, 96, 256, 33, 1, False, None),
+)
+
+
+def _p1_id(case):
+    n, d, m, k_codes, q_n, w, centered, extra = case
+    return f"n{n}-d{d}-K{k_codes}-q{q_n}-w{w}-{'c' if centered else 'u'}-{extra}"
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the probe kernels run only on the card")
+    return "cuda"
+
+
+def _modes(k_codes, piped):
+    modes = [m for m in ap.DECODE_MODES if k_codes <= 256 or m == "base"]
+    return [(m, False) for m in modes] + ([] if piped else [(m, True) for m in modes])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipe", [False, True], ids=["P1", "P2"])
+@pytest.mark.parametrize("case", P1_CASES, ids=_p1_id)
+def test_adc_probe_on_the_card(cuda_device, case, pipe):
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    operands, nblk, real = cs.k1_operands(gen, *case, dev=cuda_device)
+    winners = case[5]
+    ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
+    for mode, natural in _modes(case[3], pipe):
+        counter = "adc_probe_pipe_kernel_launches" if pipe else "adc_probe_kernel_launches"
+        before = getattr(ap, counter)
+        got = ap.probe_block_scan(*operands, winners=winners, nblk=nblk, decode_mode=mode,
+                                  natural=natural, pipe=pipe)
+        torch.cuda.synchronize()
+        assert getattr(ap, counter) == before + 1
+        check = cs.compare_packed(got, ref)
+        assert check["ok"], (mode, natural, check)
+        if real is not None:
+            assert cs.winners_valid(got, real, winners, nblk), (mode, natural)
+        if not pipe:
+            rows = ap.probe_decode_rows(operands[0], operands[1], operands[3],
+                                        width=operands[2].shape[1], decode_mode=mode)
+            plain = ap._decode_rows_plain(operands[0], operands[1], operands[3],
+                                          operands[2].shape[1])
+            assert torch.equal(rows.view(torch.int16), plain.view(torch.int16)), mode
+
+
+@pytest.mark.cuda
+def test_adc_scan_probe_entry_point_on_the_card(cuda_device):
+    """The entry point on its default device: the card; top-k as K1's."""
+    from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    raw = cs.k1_inputs(gen, 20000, 100, 8, 256, 64, dev=cuda_device)
+    d_k, i_k = adc_scan_fused(**raw, k=10)
+    for mode, natural, pipe in (("take", False, False), ("base", False, True)):
+        resolved = {}
+        d_p, i_p = ap.adc_scan_probe(**raw, k=10, center_scores=True, decode_mode=mode,
+                                     natural=natural, pipe=pipe, resolved=resolved)
+        assert d_p.device.type == "cuda" and resolved["decode_mode"] == mode
+        assert float((i_p == i_k).float().mean()) >= 0.99
+        torch.testing.assert_close(d_p, d_k, rtol=1e-4, atol=1e-4)
+
+
+# (n, m, K, dsub, mdp, queries, t): ragged n, 1 to 1000 queries, K 16 to 256
+P3_SHAPES = (
+    (5000, 8, 256, 13, 128, 1000, 2048),
+    (3000, 4, 16, 8, 32, 1, 1024),
+    (20000, 12, 64, 8, 104, 129, 4096),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", P3_SHAPES, ids=lambda s: f"n{s[0]}-K{s[2]}-q{s[5]}")
+def test_kernel_probe_on_the_card(cuda_device, shape):
+    ops = kp.probe_operands(*shape, device=cuda_device)
+    t = shape[-1]
+    dec = kp.decoded_rows(ops[0], ops[3], shape[4])
+    for variant in kp.VARIANTS:
+        before = kp.kernel_probe_kernel_launches
+        got = kp.kernel_probe(variant, *ops, tile_rows=t, query_tile=512)
+        torch.cuda.synchronize()
+        assert kp.kernel_probe_kernel_launches == before + 1
+        ref = kp.plain(variant, *ops, tile_rows=t, query_tile=512)
+        i8 = kp.quantize_codebooks(ops[3]) if variant == "tdec_i8" else None
+        vdec = dec if i8 is None else kp.decoded_rows(ops[0], ops[3], shape[4], i8)
+        check = cs._p3_check(variant, got, ref, vdec, ops[1], ops[2])
+        assert check["ok"], (variant, check)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 401_408])
+def test_floor_probe_on_the_card(cuda_device, n):
+    codes, q = fp.floor_operands(n=n, device=cuda_device)
+    for variant in fp.VARIANTS:
+        got = fp.floor_probe(variant, codes, q)
+        torch.cuda.synchronize()
+        ref = fp.plain(variant, codes, q)
+        assert len(got) == len(ref)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", P1_CASES, ids=_p1_id)
+def test_k1_stages_on_the_card(cuda_device, case):
+    """Each cut of K1 at P1's edge shapes (held decoded and streamed,
+    K = 16 to 1024, NaN rows, padding rows), one winner a block."""
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    operands, nblk, _ = cs.k1_operands(gen, *case, dev=cuda_device)
+    for stage in ks.STAGES:
+        before = ks.k1_stage_kernel_launches
+        got = ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
+        torch.cuda.synchronize()
+        assert ks.k1_stage_kernel_launches == before + 1
+        check = cs._k1_stage_check(stage, got, ks.plain(*operands, stage=stage, nblk=nblk))
+        assert check["ok"], (stage, check)
+
+
+@pytest.mark.cuda
+def test_median_ms_times_the_card(cuda_device):
+    """Queued readings of a kernel are positive and below one call's host
+    round trip; a function that synchronizes is refused."""
+    from gulon_tpu_torch.probes import median_ms
+
+    x = torch.ones((1024, 1024), device=cuda_device)
+    ms = median_ms(lambda: x.add_(1.0))
+    assert 0.0 < ms < 0.05
+    with pytest.raises(RuntimeError, match="synchronizes"):
+        median_ms(lambda: x.sum().item(), warmup=1, reps=1)
