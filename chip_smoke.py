@@ -24,10 +24,12 @@ phases); any failure raises and the script exits non-zero:
    (400,000 rows, PQ 96x256: row blocks streamed, not held decoded); then
    at the edge shapes (:data:`K1_EDGE_CASES`: 1, 7, 129 and 1000 queries,
    1-4 winners centered and uncentered, depth 100, K=512 and K=1024 int16
-   codes, NaN rows, IVF padding rows, depths 304 to 1000). Ids >= 99.5 % equal, values within
-   ``2^-14 * max(|v|, 1)``, every id mismatch a near-tie, NaN winners in
-   the same places and rows, and with padding rows exactly ``min(W, real
-   rows)`` valid winners a block, all of them real rows;
+   codes, NaN rows, an all-+inf query, IVF padding rows, depths 304 to
+   1000). Ids >= 99.5 % equal, values within ``2^-14 * max(|v|, 1)``,
+   every id mismatch a near-tie, NaN winners in the same places and rows
+   (an all-+inf query's: each block's lowest row, as the plain version
+   states K1's rule), and with padding rows exactly ``min(W, real rows)``
+   valid winners a block, all of them real rows;
 5. probes: P1-P4 (``gulon_tpu_torch.probes``), the stage-ablation probes
    of K1, and K1's own kernel cut after its decode, its contraction and
    its block minimum (``k1_stages``). Their path first, through the entry
@@ -43,7 +45,9 @@ phases); any failure raises and the script exits non-zero:
    its bytes over 3.35 TB/s at the headline shape and at 16x its rows; P3
    zeros exactly, else values within ``2^-14 * max(|v|, 1)``, ids >=
    99.5 % equal and every mismatch a near-tie; P1 / P2 K1's rule, and
-   their decoded rows equal the plain gather bit for bit; the cut K1
+   their decoded rows equal the plain gather bit for bit but for the sign
+   of a zero (each decode also alone, ``probe_decode_rows``, timed beside
+   its bound at both shapes); the cut K1
    zeros exactly after its decode, else values within ``2^-14 * max(|v|,
    1)``. Each prints its ms (the card's time of one call, queued back to
    back: ``probes.median_ms``), plain ms, bound, bytes read and K1's ms
@@ -165,9 +169,10 @@ _INVALID_MIN = 1.0e38  # a block winner at/above this is padding
 _ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # K1 edge shapes: (rows, D, m, K, queries, winners, centered, extra);
-# extra "nan" puts NaN norm lanes on every 300th row, "sentinel" gives
-# block b only its first (37 b) % 129 rows and the IVF padding value
-# 2e38 on the others. The last seven are deep: m*dsub 304 (glove300's
+# extra "nan" puts NaN norm lanes on every 300th row, "infq" makes query
+# 0 all +inf (NaN against every row: each block's winner is the packed
+# NaN of its lowest row, K1's rule), "sentinel" gives block b only its
+# first (37 b) % 129 rows and the IVF padding value 2e38 on the others. The last seven are deep: m*dsub 304 (glove300's
 # width, 5 chunks) and 688 (11 chunks, two ring stages: the deepest row
 # block held decoded) are held decoded; 768, 1000 and 900 (codebooks in
 # shared memory), 800 (K = 1024) and 720 (dsub 1, 720 code rows) are
@@ -182,6 +187,7 @@ K1_EDGE_CASES = (
     (16384, 100, 8, 512, 1000, 4, False, None),
     (16384, 96, 12, 1024, 100, 2, True, None),
     (16384, 96, 12, 256, 200, 4, False, "nan"),
+    (16384, 96, 12, 256, 40, 2, True, "infq"),
     (16384, 96, 12, 256, 1000, 4, False, "sentinel"),
     (16384, 300, 19, 256, 129, 2, True, None),
     (8192, 688, 8, 256, 200, 2, False, None),
@@ -413,6 +419,8 @@ def k1_inputs(gen, n, d, m, k_codes, q_n, extra=None, *, dev) -> dict:
         pad = torch.arange(128, device=dev)[None, :] >= keep[:, None]
         norms = torch.where(pad.reshape(-1), torch.full_like(norms, 2e38), norms)
     queries = torch.randn((q_n, d), generator=gen, device=dev)
+    if extra == "infq":
+        queries[0] = float("inf")
     return dict(queries=queries, codebooks=cb, codes=codes, recon_norms=norms, bounds=bounds)
 
 
@@ -827,6 +835,48 @@ def _k1_stage_cases(label, operands, nblk, k1_ms) -> dict:
     return out
 
 
+def rows_equal_but_zero_sign(rows, plain) -> bool:
+    """Decoded rows against the plain gather: bit for bit, but for the sign
+    of a zero (the one-hot decode's f32 sum of one product and zero
+    products turns a -0.0 codeword into +0.0, ``onehot_rs.cuh``)."""
+    import torch
+
+    canon = [(t.float() + 0.0).to(torch.bfloat16).view(torch.int16) for t in (rows, plain)]
+    return bool(torch.equal(*canon))
+
+
+def _decode_case(raw, mode) -> dict:
+    """One decode alone (``probe_decode_rows``: the kernel writes the rows
+    it decodes) on a probe shape's K1 operands: against the plain gather,
+    its ms beside its bound (codes, norms and codebooks in, the rows out;
+    the one-hot's tensor-core work, K x lanes x 2 a row and piece)."""
+    import torch
+
+    from gulon_tpu_torch.probes import adc_probes as ap
+
+    ops = ap.probe_scan_operands(**raw, center_scores=True)
+    codes_t, norms_hl, cb = ops["codes_t"], ops["norms_hl"], ops["cb"]
+    width = ops["q_op"].shape[1]
+    m, n_cols = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    rows = ap.probe_decode_rows(codes_t, norms_hl, cb, width=width, decode_mode=mode)
+    torch.cuda.synchronize()
+    plain = ap._decode_rows_plain(codes_t, norms_hl, cb, width)
+    ok = rows_equal_but_zero_sign(rows, plain)
+    moved = sum(t.numel() * t.element_size() for t in (codes_t, norms_hl, cb))
+    moved += rows.numel() * rows.element_size()
+    del rows, plain
+    lanes, pieces = ap.onehot_lanes(dsub)
+    mma = 0 if mode == "take" else 2 * n_cols * m * pieces * lanes * (-(-k_codes // 64) * 64)
+    return dict(
+        ok=ok, decoded_rows_exact=ok, max_abs_err=0.0, rows=n_cols, width=width,
+        **_ms_pair(lambda: ap.probe_decode_rows(codes_t, norms_hl, cb, width=width,
+                                                decode_mode=mode),
+                   lambda: ap._decode_rows_plain(codes_t, norms_hl, cb, width)),
+        **bound(moved, mma, "bf16", 0), bytes_moved=moved, library_ms=None,
+    )
+
+
 def phase_probes(seed: int, smi: str) -> dict:
     """P1-P4 and the cut K1 on the card: the path run (launch counts), then
     each variant against its plain version with its ms, plain ms, bound and
@@ -856,7 +906,8 @@ def phase_probes(seed: int, smi: str) -> dict:
         stage_ops[label] = ((ops["codes_t"], ops["norms_hl"], ops["q_op"], ops["cb"]),
                             ops["nblk"])
     path = _probe_path(shapes, p3_ops, p4_ops, stage_ops)
-    out = dict(launches=path["launches"], p4=_p4_cases(p4_ops), p3={}, p1={}, p2={}, k1s={})
+    out = dict(launches=path["launches"], p4=_p4_cases(p4_ops), p3={}, p1={}, p2={}, k1s={},
+               decode={})
 
     k1_ms = {label: _kernel_ms(lambda: adc.fused_block_scan(*ops_, winners=1, nblk=nblk))
              for label, (ops_, nblk) in stage_ops.items()}
@@ -912,8 +963,9 @@ def phase_probes(seed: int, smi: str) -> dict:
                                         width=ops["q_op"].shape[1],
                                         decode_mode=modes["decode_mode"])
             plain_rows = k1_decoded(operands)
-            case["decoded_rows_exact"] = bool(torch.equal(rows.view(torch.int16),
-                                                          plain_rows.view(torch.int16)))
+            case["decoded_rows_exact"] = rows_equal_but_zero_sign(rows, plain_rows)
+            case["decoded_rows_bits_equal"] = bool(torch.equal(rows.view(torch.int16),
+                                                               plain_rows.view(torch.int16)))
             del rows
             case["ok"] = case["ok"] and case["decoded_rows_exact"]
             case.update(
@@ -937,6 +989,13 @@ def phase_probes(seed: int, smi: str) -> dict:
             if not case["ok"]:
                 raise AssertionError(f"{name} {tag} disagrees with its plain version: {case}")
             out["p2" if modes["pipe"] else "p1"][tag] = case
+        for mode in ("take", "base", "bf16cmp"):  # each decode alone, head to head
+            case = _decode_case(raw, mode)
+            _emit({"phase": "probes", "kernel": "P1 decode", "variant": f"{label} {mode}",
+                   **case})
+            if not case["ok"]:
+                raise AssertionError(f"P1 decode {label} {mode} disagrees: {case}")
+            out["decode"][f"{label} {mode}"] = case
         torch.cuda.empty_cache()
 
     # the stage splits: K1's own on each operand set (its cut stages, then
@@ -2816,6 +2875,9 @@ def _probe_entries(probes) -> list:
             launches_by_path={"probes": probes["launches"][tag]},
             variants={v: {k: c.get(k) for k in keys} for v, c in cases.items()},
         ))
+        if tag == "P1":  # each decode alone (probe_decode_rows), head to head
+            entries[-1]["decode_alone"] = {v: {k: c.get(k) for k in keys}
+                                           for v, c in probes["decode"].items()}
     return entries
 
 
@@ -2869,7 +2931,8 @@ def main(argv=None) -> int:
             "library": str(_build.library_path(name).name),
             "ptxas": sorted({
                 line.strip() for line in report.splitlines()
-                if "registers" in line or "spill" in line
+                if "registers" in line or "spill" in line or "wgmma" in line
+                or "arning" in line
             }),
         })
 

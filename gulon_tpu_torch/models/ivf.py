@@ -56,7 +56,7 @@ from gulon_tpu_torch.ops import scan as scan_ops
 from gulon_tpu_torch.ops.distance import nearest, normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
-from gulon_tpu_torch.ops.topk import smallest_k
+from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k, smallest_k_nan_last
 
 _INF = float("inf")
 
@@ -132,6 +132,7 @@ def _ivf_scan(
     k: int,
     tile_rows: int,
     precision: str = "default",
+    topk_impl: str = "approx",
 ):
     """The masked full scan: every row tile is decoded and scored, rows of
     unprobed partitions read +inf."""
@@ -150,7 +151,7 @@ def _ivf_scan(
         return torch.where(probe_mask[:, gid], d, _INF)
 
     return scan_ops._streaming_topk(
-        dist_tile, n, tile_rows, num_q, k, queries.device
+        dist_tile, n, tile_rows, num_q, k, queries.device, topk_impl=topk_impl
     )
 
 
@@ -304,9 +305,13 @@ def _entry_topk(
     qcap: int,
     kk: int,
     chunk: int,
+    topk_impl: str,
 ):
     """Score the entries chunk by chunk, then select ``kk`` per entry slot:
-    ``([E, qcap, kk] dists, [E, qcap, kk] global row ids)``."""
+    ``([E, qcap, kk] dists, [E, qcap, kk] global row ids)``; the selection
+    is ``lax.approx_min_k``'s (``approx_smallest_k``) where the JAX package
+    takes it (``topk_impl="approx"``, ``rcap >= 128``)."""
+    select = approx_smallest_k if topk_impl == "approx" and rcap >= 128 else smallest_k
     e_total = e_start.shape[0]
     chunks = [
         tuple(a[s : s + chunk] for a in schedule)
@@ -314,13 +319,13 @@ def _entry_topk(
     ]
     if e_total * qcap * rcap * 4 <= _FLAT_TOPK_BYTES:
         dist_all = torch.cat([dist_chunk_fn(*c) for c in chunks])
-        kv, kp = smallest_k(dist_all.reshape(e_total * qcap, rcap), kk)
+        kv, kp = select(dist_all.reshape(e_total * qcap, rcap), kk)
         ki = e_start[:, None, None] + kp.reshape(e_total, qcap, kk)
         return kv.reshape(e_total, qcap, kk), ki
     all_v, all_p = [], []
     for c in chunks:
         dist = dist_chunk_fn(*c)
-        kv, kp = smallest_k(dist.reshape(-1, rcap), kk)
+        kv, kp = select(dist.reshape(-1, rcap), kk)
         all_v.append(kv.reshape(-1, qcap, kk))
         all_p.append(kp.reshape(-1, qcap, kk))
     return torch.cat(all_v), e_start[:, None, None] + torch.cat(all_p)
@@ -342,6 +347,7 @@ def _scan_entries_codes(
     qcap: int,
     kk: int,
     precision: str = "default",
+    topk_impl: str = "approx",
 ):
     """Code-resident entry scan: each probed row chunk is decoded in flight
     (``m`` bytes a vector, the reference's ranged code scan,
@@ -373,6 +379,7 @@ def _scan_entries_codes(
         dist_chunk, (e_start, e_size, e_part, e_bucket), e_start,
         rcap=rcap, qcap=qcap, kk=kk,
         chunk=_entry_chunk(e_start.shape[0], rcap, qcap, q_pad.shape[1]),
+        topk_impl=topk_impl,
     )
 
 
@@ -387,6 +394,7 @@ def _scan_entries_cached(
     rcap: int,
     qcap: int,
     kk: int,
+    topk_impl: str = "approx",
 ):
     """Entry scan over the reconstruction cache (matmuls only; the queries
     are rounded to the cache's dtype, products summed in f32)."""
@@ -411,7 +419,7 @@ def _scan_entries_cached(
     return _entry_topk(
         dist_chunk, (e_start, e_size, e_bucket), e_start,
         rcap=rcap, qcap=qcap, kk=kk,
-        chunk=_entry_chunk(e_start.shape[0], rcap, qcap, d),
+        chunk=_entry_chunk(e_start.shape[0], rcap, qcap, d), topk_impl=topk_impl,
     )
 
 
@@ -457,6 +465,7 @@ def _ivf_scan_gathered(
     pmax: int,
     k: int,
     precision: str = "default",
+    topk_impl: str = "approx",
 ):
     """Sublinear probed scan: per query, its L partitions as contiguous
     ``pmax``-row slices, ``O(L * pmax)`` rows a query whatever the corpus
@@ -484,7 +493,10 @@ def _ivf_scan_gathered(
         gt = torch.gather(group_term, 1, p_safe)  # [Q, L]
         rcs = torch.where(valid, aux + gt[:, :, None], _INF).reshape(num_q, -1)
         dist = qn[:, None] + rcs - 2.0 * ip
-    dists, pos = smallest_k(dist, k)
+    # lax.approx_min_k where the JAX package takes it
+    select = (approx_smallest_k if topk_impl == "approx" and num_probe * pmax >= 256 * k
+              else smallest_k)
+    dists, pos = select(dist, k)
     ids = torch.gather(rows.reshape(num_q, -1), 1, pos.long()).to(torch.int32)
     return dists, torch.where(torch.isinf(dists), -1, ids)
 
@@ -540,7 +552,7 @@ def _pallas_ivf_query(
     d = torch.where(valid, bv + gt + qn[:, None], _INF)
     kk = min(k, d.shape[1])
     fetch = min(rescore * kk, d.shape[1]) if rescore else kk
-    best, pos = smallest_k(d, fetch)
+    best, pos = smallest_k_nan_last(d, fetch)
     pos = pos.long()
     win_rows = torch.gather(bi, 1, pos)
     if rescore:
@@ -783,6 +795,8 @@ class IVFIndex(Index):
         if strategy == "pallas":
             return self._query_pallas(q, qn, group_term, probe_mask, k_eff)
         if strategy in ("gathered", "bucketed"):
+            if q.shape[0] == 0:  # the JAX package's planners divide by Q
+                raise ValueError(f"the {strategy} strategy needs at least one query")
             return self._query_sublinear(
                 strategy, q, qn, group_term, cdist, probe_mask, k_eff
             )
@@ -795,6 +809,7 @@ class IVFIndex(Index):
             q, self.pq.codebooks, self.codes, self.row_const, self.group_ids,
             group_term, probe_mask, bounds=self.pq.bounds, k=k_eff,
             tile_rows=self.tile_rows, precision=self.precision,
+            topk_impl=self.topk_impl,
         )
 
     def _query_pallas(self, q, qn, group_term, probe_mask, k_eff: int):
@@ -843,6 +858,7 @@ class IVFIndex(Index):
                 cand_v, cand_i = _scan_entries_cached(
                     q, self.recon_cache, self.recon_norms_cache,
                     e_start, e_size, e_bucket, rcap=rcap, qcap=qcap, kk=kk,
+                    topk_impl=self.topk_impl,
                 )
             else:
                 codes_pad, rc_pad = self._code_operands()
@@ -850,6 +866,7 @@ class IVFIndex(Index):
                     self._q_subspace(q), qn, group_term, self.pq.codebooks,
                     codes_pad, rc_pad, e_start, e_size, e_part, e_bucket,
                     rcap=rcap, qcap=qcap, kk=kk, precision=self.precision,
+                    topk_impl=self.topk_impl,
                 )
             return _regroup_pairs(cand_v, cand_i, pair_slots, k=k_eff)
         # gathered: the candidate pool holds num_probe * pmax rows a query
@@ -860,6 +877,7 @@ class IVFIndex(Index):
             dists, ids = _ivf_scan_gathered(
                 q, qn, None, None, self.recon_cache, self.recon_norms_cache,
                 starts_t, sizes_t, probe_ids, mode="cached", pmax=pmax, k=k_g,
+                topk_impl=self.topk_impl,
             )
         else:
             codes_pad, rc_pad = self._code_operands()
@@ -867,6 +885,7 @@ class IVFIndex(Index):
                 self._q_subspace(q), qn, group_term, self.pq.codebooks,
                 codes_pad, rc_pad, starts_t, sizes_t, probe_ids,
                 mode="codes", pmax=pmax, k=k_g, precision=self.precision,
+                topk_impl=self.topk_impl,
             )
         if k_g < k_eff:  # pad to the requested width (inf / -1 slots)
             dists = torch.nn.functional.pad(dists, (0, k_eff - k_g), value=_INF)

@@ -43,7 +43,7 @@ import torch
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.pq import _lut, split_subspaces
 from gulon_tpu_torch.ops.precision import matmul
-from gulon_tpu_torch.ops.topk import smallest_k
+from gulon_tpu_torch.ops.topk import smallest_k_nan_last
 
 _BIG = 3.0e38
 _INVALID_MIN = 1.0e38  # values at/above this are padding, not real rows
@@ -222,6 +222,20 @@ def _check_operands(codes_t, norms_hl, q_op, cb, winners: int, nblk: int):
         raise ValueError(f"winners must be in 1..4, got {winners}")
 
 
+def _block_min_plain(packed: torch.Tensor) -> torch.Tensor:
+    """``[nb, 128, Q]`` lane-packed scores -> ``[nb, Q]`` block minima, by
+    K1's rule: a NaN wins its block (as with ``jnp.min``), and the winner
+    is the packed NaN of the block's lowest NaN row, its row bits intact.
+    (Which NaN's bits survive ``jnp.min`` is XLA's choice and no rule of
+    the reference: the JAX kernel in interpret mode gives the last row of
+    each block for an all-+inf query. Sorting or ``torch.amin`` over NaN
+    promises no row either, so neither is used on NaN.)"""
+    nan = torch.isnan(packed)
+    vmin = torch.amin(torch.where(nan, float("inf"), packed), dim=1)
+    first = nan.to(torch.uint8).argmax(dim=1, keepdim=True)  # lowest NaN row
+    return torch.where(nan.any(dim=1), torch.gather(packed, 1, first)[:, 0], vmin)
+
+
 def _block_scan_plain(
     codes_t: torch.Tensor,  # [m, N'] int8 (code - 128) / int16 / int32
     norms_hl: torch.Tensor,  # [2, N'] bf16
@@ -233,7 +247,8 @@ def _block_scan_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K1 on the same operands: gather-decode,
     bf16 values upcast to f32, one f32 matmul, lane pack, per-block min
-    (repeated with the winner masked for ``winners > 1``). Tiled over rows
+    (``_block_min_plain``; repeated with the winner masked for ``winners >
+    1``, where a NaN winner, equal to nothing, wins again). Tiled over rows
     so no more than ``_PLAIN_SCORE_BYTES`` of scores exist at once. Returns
     ``[Q, N'/128 * winners]`` f32 packed winners."""
     _check_operands(codes_t, norms_hl, q_op, cb, winners, nblk)
@@ -270,7 +285,7 @@ def _block_scan_plain(
         masked = packed.reshape(rows // _LANES, _LANES, num_q)
         blocks = torch.arange(start // _LANES, stop // _LANES, device=dev)
         for w in range(winners):
-            vmin = torch.amin(masked, dim=1)  # [nb, Q]
+            vmin = _block_min_plain(masked)  # [nb, Q]
             out[:, _winner_columns(blocks, w, winners, nblk)] = vmin.T
             if w + 1 < winners:
                 masked = torch.where(masked == vmin[:, None, :], _BIG, masked)
@@ -461,7 +476,7 @@ def finish_scan(
     m = codebooks.shape[0]
     bits_all = packed.view(torch.int32)
     vals_all = (bits_all & ~127).view(torch.float32)
-    best_v, pos = smallest_k(vals_all, kk)
+    best_v, pos = smallest_k_nan_last(vals_all, kk)
     pos = pos.long()
     lanes = torch.gather(bits_all & 127, 1, pos)
     best_ids = base_cols[pos] + lanes
@@ -485,7 +500,7 @@ def finish_scan(
         ].sum(dim=-1)  # [Q, kk]
         exact = torch.where(invalid, float("inf"), exact)
         best_ids = torch.where(invalid, -1, best_ids)
-        best_d, pos2 = smallest_k(exact, kk)
+        best_d, pos2 = smallest_k_nan_last(exact, kk)
         best_ids = torch.gather(best_ids, 1, pos2.long())
     else:
         # centered: the contraction already emitted the full distance

@@ -37,7 +37,7 @@ import torch
 
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.precision import matmul
-from gulon_tpu_torch.ops.topk import smallest_k
+from gulon_tpu_torch.ops.topk import smallest_k_nan_last
 
 _BIG = 3.0e38
 _INVALID_MIN = 1.0e38
@@ -337,7 +337,7 @@ def _pad_k(best_d, best_ids, k: int, kk: int):
 
 def _rerank(exact, best_ids, invalid, kk: int):
     exact = torch.where(invalid, float("inf"), exact)
-    best_d, pos2 = smallest_k(exact, kk)
+    best_d, pos2 = smallest_k_nan_last(exact, kk)
     best_ids = torch.gather(torch.where(invalid, -1, best_ids), 1, pos2.long())
     return best_d, best_ids
 
@@ -379,7 +379,7 @@ def dense_scan_fused(
     # scores keep the lowest column = block = earliest rows
     bits_all = packed.view(torch.int32)
     vals_all = (bits_all & ~127).view(torch.float32)
-    best_v, pos = smallest_k(vals_all, _fetch(kk, rescore, packed.shape[1]))
+    best_v, pos = smallest_k_nan_last(vals_all, _fetch(kk, rescore, packed.shape[1]))
     pos = pos.long()
     best_ids = pos.to(torch.int32) * _LANES + torch.gather(bits_all & 127, 1, pos)
     invalid = best_v >= _INVALID_MIN
@@ -443,7 +443,7 @@ def dense_scan_fused_i8(
     packed = dense_block_scan_i8(data_i8, q_aug)  # [Q, NB] int32
 
     vals_all = packed & ~127
-    best_v, pos = smallest_k(vals_all, _fetch(kk, rescore, packed.shape[1]))
+    best_v, pos = smallest_k_nan_last(vals_all, _fetch(kk, rescore, packed.shape[1]))
     pos = pos.long()
     best_ids = pos.to(torch.int32) * _LANES + torch.gather(packed & 127, 1, pos)
     invalid = best_ids >= n  # padding rows (no sentinel range in int32)

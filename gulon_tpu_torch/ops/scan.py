@@ -38,7 +38,7 @@ import torch
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.pq import split_subspaces
 from gulon_tpu_torch.ops.precision import matmul, resolve_precision
-from gulon_tpu_torch.ops.topk import smallest_k
+from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k, smallest_k_nan_last
 
 DEFAULT_TILE_ROWS = 16384
 
@@ -48,6 +48,9 @@ def _check_topk_impl(topk_impl: str) -> None:
         raise ValueError(f"unknown topk impl {topk_impl!r}")
 
 
+_STACK_BYTES = 64 * 1024 * 1024  # the JAX package's bound on stacked tile winners
+
+
 def _streaming_topk(
     dist_tile_fn: Callable[[int, int], torch.Tensor],
     n: int,
@@ -55,29 +58,71 @@ def _streaming_topk(
     num_queries: int,
     k: int,
     device,
+    *,
+    topk_impl: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold ``dist_tile_fn(start, stop) -> [Q, stop-start]`` over the rows,
-    keeping the k best (distance, global row id) per query. Equal
-    distances keep the lowest row; slots no finite row fills are
-    ``(inf, -1)``."""
-    best_d = torch.full((num_queries, k), float("inf"), device=device)
-    best_i = torch.full((num_queries, k), -1, dtype=torch.int32, device=device)
-    for start in range(0, n, tile_rows):
+    keeping the k best (distance, global row id) per query, ranked as the
+    JAX package's ``_streaming_topk`` ranks them
+    (``gulon_tpu/ops/scan.py:71-181``):
+
+    - ``"approx"``: each tile's ``min(k, tile_rows)`` winners by
+      ``approx_smallest_k`` (``lax.approx_min_k`` off the TPU, which
+      raises on k < 1), the last tile read as the JAX package pads it to
+      ``tile_rows`` (+inf rows; NaN in a row of NaN); the winners of
+      every tile stacked and ranked once (``smallest_k``), or, past 64 MB
+      of winners, merged tile by tile into ``(inf, -1)`` slots. Slots at
+      +inf become ``(inf, -1)``. A NaN distance survives only the stacked
+      route: the JAX package's slots outrank a positive NaN;
+    - ``"exact"``: every tile merged into ``(inf, -1)`` slots.
+
+    Equal distances keep the lowest row. A row of NaN keeps the JAX
+    package's positions in its padded last tile, which may pass ``n``:
+    whatever gathers by these ids clamps them, as the JAX package's
+    gathers do."""
+    n_tiles = -(-n // tile_rows)
+    kk = min(k, tile_rows)
+    approx = topk_impl == "approx"
+
+    def tile(start):
         stop = min(start + tile_rows, n)
         d = dist_tile_fn(start, stop)
+        if approx:
+            d, pos = approx_smallest_k(d, kk, length=tile_rows)
+            return d, start + pos
         rows = torch.arange(start, stop, dtype=torch.int32, device=device)
-        cand_d = torch.cat([best_d, d], dim=1)
-        cand_i = torch.cat([best_i, rows.expand(num_queries, -1)], dim=1)
-        best_d, pos = smallest_k(cand_d, k)
+        return d, rows.expand(num_queries, -1)
+
+    if approx and n_tiles * num_queries * kk * 8 <= _STACK_BYTES:
+        cand_d = torch.empty((num_queries, 0), device=device)
+        cand_i = torch.empty((num_queries, 0), dtype=torch.int32, device=device)
+        tiles = [tile(start) for start in range(0, n, tile_rows)]
+        if tiles:
+            cand_d = torch.cat([d for d, _ in tiles], dim=1)
+            cand_i = torch.cat([i for _, i in tiles], dim=1)
+        best_d, pos = smallest_k(cand_d, min(k, cand_d.shape[1]))
         best_i = torch.gather(cand_i, 1, pos.long())
-    best_i = torch.where(torch.isinf(best_d), -1, best_i)
-    return best_d, best_i
+        pad = k - best_d.shape[1]
+        best_d = torch.nn.functional.pad(best_d, (0, pad), value=float("inf"))
+        best_i = torch.nn.functional.pad(best_i, (0, pad), value=-1)
+    else:
+        best_d = torch.full((num_queries, k), float("inf"), device=device)
+        best_i = torch.full((num_queries, k), -1, dtype=torch.int32, device=device)
+        for start in range(0, n, tile_rows):
+            d, ids = tile(start)
+            cand_d = torch.cat([best_d, d], dim=1)
+            cand_i = torch.cat([best_i, ids], dim=1)
+            best_d, pos = smallest_k(cand_d, k)
+            best_i = torch.gather(cand_i, 1, pos.long())
+        if not approx:
+            return best_d, best_i
+    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
 
 
 def _q_pad(queries: torch.Tensor, bounds, dsub: int) -> torch.Tensor:
     """Queries in the padded subspace layout ``[Q, m*dsub]``."""
     qs = split_subspaces(queries, bounds, dsub)  # [m, Q, dsub]
-    return qs.permute(1, 0, 2).reshape(queries.shape[0], -1)
+    return qs.permute(1, 0, 2).reshape(queries.shape[0], qs.shape[0] * dsub)
 
 
 def decode_tile(codebooks: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
@@ -114,7 +159,7 @@ def unpack_tile(packed: torch.Tensor, m: int, width: int) -> torch.Tensor:
     per = 8 // width
     shifts = torch.arange(per, dtype=torch.int32, device=packed.device) * width
     cols = (packed.to(torch.int32)[:, :, None] >> shifts) & ((1 << width) - 1)
-    return cols.reshape(packed.shape[0], -1)[:, :m]
+    return cols.reshape(packed.shape[0], packed.shape[1] * per)[:, :m]
 
 
 def _tile_codes(codes: torch.Tensor, m: int, packed_width: int) -> torch.Tensor:
@@ -152,7 +197,9 @@ def adc_scan_decode(
         ip = matmul(q_pad, dec.T, precision)
         return qn[:, None] + recon_norms[None, start:stop] - 2.0 * ip
 
-    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, queries.device)
+    return _streaming_topk(
+        dist_tile, n, tile_rows, num_q, k, queries.device, topk_impl=topk_impl
+    )
 
 
 def adc_scan_lut(
@@ -180,7 +227,9 @@ def adc_scan_lut(
         d = acc.T
         return torch.where(valid_rows[None, start:stop], d, float("inf"))
 
-    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, lut.device)
+    return _streaming_topk(
+        dist_tile, n, tile_rows, num_q, k, lut.device, topk_impl=topk_impl
+    )
 
 
 def rescore_exact(
@@ -200,7 +249,9 @@ def rescore_exact(
     num_q, c = cand_ids.shape
     m, _, dsub = codebooks.shape
     cand_ids = cand_ids.to(torch.int32)
-    safe = torch.clamp(cand_ids, min=0).long()
+    # clamped as the JAX package's gather clamps: a NaN query row's ids
+    # may pass the last row (``_streaming_topk``)
+    safe = torch.clamp(cand_ids, 0, codes.shape[0] - 1).long()
     gathered = _tile_codes(codes[safe.reshape(-1)], m, packed_width)
     dec = decode_tile(codebooks, gathered).reshape(
         num_q, c, m * dsub
@@ -251,7 +302,7 @@ def ivf_block_rescore(
     ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, F]
     exact = q_norms[:, None] + rc[safe] + cand_gt - 2.0 * ip
     exact = torch.where(invalid, float("inf"), exact)
-    best, pos = smallest_k(exact, min(k, fetch))
+    best, pos = smallest_k_nan_last(exact, min(k, fetch))
     return best, torch.gather(cand_rows, 1, pos.long())
 
 
@@ -282,7 +333,9 @@ def cached_scan(
         ip = matmul(qc, decoded[start:stop].to(torch.float32).T, "highest")
         return qn[:, None] + recon_norms[None, start:stop] - 2.0 * ip
 
-    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, q_pad.device)
+    return _streaming_topk(
+        dist_tile, n, tile_rows, num_q, k, q_pad.device, topk_impl=topk_impl
+    )
 
 
 def exact_scan(
@@ -308,4 +361,6 @@ def exact_scan(
         ip = matmul(queries, data[start:stop].T, precision)
         return qn[:, None] + xn[None, start:stop] - 2.0 * ip
 
-    return _streaming_topk(dist_tile, n, tile_rows, num_q, k, queries.device)
+    return _streaming_topk(
+        dist_tile, n, tile_rows, num_q, k, queries.device, topk_impl=topk_impl
+    )

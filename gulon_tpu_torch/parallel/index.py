@@ -325,6 +325,7 @@ class ShardedIVFIndex(_Sharded):
                 self.row_const_sharded[r], self.group_ids_sharded[r],
                 group_term[r], probe_mask[r], bounds=base.pq.bounds,
                 k=k_eff, tile_rows=base.tile_rows, precision=base.precision,
+                topk_impl=base.topk_impl,
             )
             return d, self._global_rows(r, ids)
 
@@ -332,7 +333,10 @@ class ShardedIVFIndex(_Sharded):
 
     def _global_rows(self, r: int, ids: torch.Tensor) -> torch.Tensor:
         l2g = self.loc2glob_sharded[r]
-        return torch.where(ids >= 0, l2g[torch.clamp(ids.long(), min=0)], -1)
+        # clamped as the JAX package's gather clamps: a NaN query row's
+        # local ids may pass the shard's last row (``_streaming_topk``)
+        safe = torch.clamp(ids.long(), 0, l2g.shape[0] - 1)
+        return torch.where(ids >= 0, l2g[safe], -1)
 
     def _pallas_shard_operands(self) -> list:
         """Per-shard partition-padded K1 layouts (built once), as
@@ -439,6 +443,7 @@ class ShardedIVFIndex(_Sharded):
                 self.codes_sharded[r], self.row_const_sharded[r],
                 e_start, e_size, e_part, e_bucket,
                 rcap=rcap, qcap=qcap, kk=kk, precision=base.precision,
+                topk_impl=base.topk_impl,
             )
             d, ids = _regroup_pairs(cand_v, cand_i, pair_slots, k=k_eff)
             return d, self._global_rows(r, ids)

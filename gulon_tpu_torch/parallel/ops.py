@@ -185,7 +185,9 @@ def sharded_exact_scan(
             return qn[:, None] + xn[None, start:stop] - 2.0 * ip
 
         tr = min(tile_rows, max(local_n, 1))
-        return scan_ops._streaming_topk(dist_tile, local_n, tr, num_q, k, dev)
+        return scan_ops._streaming_topk(
+            dist_tile, local_n, tr, num_q, k, dev, topk_impl=topk_impl
+        )
 
     return scan_and_merge(mesh, k, shard_fn, local_n)
 

@@ -6,15 +6,23 @@ of ``csrc/adc_probes.cu`` replace the TPU probes
 (``ops/cuda/adc.py``) with the in-kernel formulation selectable, so that a
 variant's time against K1's is exactly the cost of that formulation:
 
-- ``decode_mode``: ``"take"`` gathers codewords from shared memory (K1's
-  own decode, the anchor); ``"base"`` contracts a one-hot of the codes
-  against the codebooks on the tensor cores (the TPU's decode);
-  ``"bf16cmp"`` builds that one-hot with compares on packed bf16 pairs;
+- ``decode_mode``: ``"take"`` gathers codewords (K1's own decode, the
+  anchor); ``"base"`` contracts a one-hot of the codes against the
+  codebook slices on the tensor cores (the TPU's decode), the one-hot
+  built straight into the register A operand of ``wgmma``
+  (``csrc/onehot_rs.cuh``; :func:`onehot_decode_rows_plain` emulates it
+  register by register); ``"bf16cmp"`` builds that one-hot with compares
+  on packed bf16 pairs;
 - ``natural``: corpus rows on the tensor cores' M side and queries on N,
   the block minimum taken across warps;
-- ``pipe``: a decode warpgroup fills a two-slot ring of decoded rows while
-  the consumers contract the other slot; pairs of row tiles, as the TPU's
-  schedule laid out its output.
+- ``pipe``: two decode warpgroups fill a ring of decoded 64-column chunks
+  while the consumers contract the chunks already there; pairs of row
+  tiles, as the TPU's schedule laid out its output.
+
+The kernels' shared-memory layout (held or streamed, decoded slots,
+query-ring stages, the one-hot's lanes and where its slices live) is
+:func:`probe_plan`'s, computed here and checked again by the kernel's C
+entry; ``resolved`` reports it beside the modes.
 
 The modes resolve as the TPU's do (``adc_probes.py:302-309`` and
 ``:446-449``), and the caller learns what ran: ``bf16cmp`` becomes
@@ -35,6 +43,7 @@ as it is, so no new carrier is needed.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -101,6 +110,129 @@ def cb_transposed(cb: torch.Tensor, multiple: int = 64) -> torch.Tensor:
     return out
 
 
+_CHUNK = 64  # bf16 lanes of a 128-byte row: one decoded chunk
+_CHUNK_BYTES = 128 * 128  # one [128 rows][64] bf16 chunk
+_SMEM_LIMIT = 232_448  # dynamic shared memory of a block (227 KB)
+_MAX_STAGES = 6
+_DECODE_WGS = 2  # P2's decode warpgroups
+PLAN_FIELDS = (
+    "streamed", "stages", "slots", "lanes", "pieces", "kc", "resident", "chunk_subs", "bufs",
+    "decode_wgs", "cb_smem",
+)
+
+
+def onehot_lanes(dsub: int) -> Tuple[int, int]:
+    """``(N, pieces)`` of the one-hot decode: a subspace's lanes in
+    ``pieces`` of at most 32, each rounded up to a multiple of 8 (the
+    wgmma N): n8 at dsub 8, n16 at dsub 13, two n24 at dsub 33."""
+    pieces = -(-dsub // 32)
+    return _round_up(-(-dsub // pieces), 8), pieces
+
+
+def chunk_subspaces(c: int, m: int, dsub: int) -> int:
+    """Subspaces whose codeword lanes fall in decoded chunk ``c``."""
+    md = m * dsub
+    c0, c1 = _CHUNK * c, min(_CHUNK * (c + 1), md)
+    return 0 if c0 >= c1 else (c1 - 1) // dsub - c0 // dsub + 1
+
+
+def _r16(x: int) -> int:
+    return _round_up(x, 16)
+
+
+def plan_bytes(plan: dict, *, m: int, k_codes: int, dsub: int, code_bytes: int,
+               decode_mode: str, natural: bool = False, pipe: bool = False,
+               decode_only: bool = False) -> int:
+    """Dynamic shared memory of a plan, as ``adc_probes.cu`` lays it out
+    (``layout`` and ``read_plan``, with the 1024 bytes of base alignment)."""
+    onehot = decode_mode != "take"
+    nch = -(-(m * dsub + 4) // _CHUNK)
+    slice_bytes = plan["pieces"] * plan["kc"] * plan["lanes"] * 128
+    bufs = plan["bufs"]
+    slices = (m if plan["resident"] else bufs * plan["chunk_subs"]) * slice_bytes if onehot else 0
+    codes = bufs * _r16(plan["chunk_subs"] * 128 * code_bytes) if onehot else 0
+    if decode_only:
+        return 1024 + _CHUNK_BYTES + slices + codes
+    take_held = not onehot and not plan["streamed"] and not pipe
+    total = (plan["slots"] + plan["stages"]) * _CHUNK_BYTES + slices + codes
+    total += _r16(m * k_codes * dsub * 2) if (not onehot and plan["cb_smem"]) else 0
+    if take_held:
+        total += _r16(m * 128 * 2) + 2 * 128 * 2 + nch * _CHUNK * 8
+    total = _r16(_r16(total) + (2 * plan["stages"] + 2 * plan["slots"]) * 8)
+    return 1024 + total + (9 * 128 * 4 if natural else 0)
+
+
+def probe_plan(*, m: int, k_codes: int, dsub: int, code_bytes: int, decode_mode: str,
+               natural: bool = False, pipe: bool = False, decode_only: bool = False) -> dict:
+    """The first layout that fits a block's 227 KB, in order: the row block
+    held decoded before streamed (a chunk decoded per query tile); the
+    one-hot's codebook slices resident for the whole kernel before staged
+    per chunk (the gather's codebooks in shared memory before global); the
+    one-hot's copies (a chunk's codes, and its slices unless resident)
+    double-buffered, one item ahead, before single; for P2, the most
+    decoded slots (a held block's chunks twice over, to
+    decode one block ahead); then the most query-ring stages. P1 holds one
+    block (``nch`` slots) or, streamed, 2 slots (3 for the gather, which
+    has no barrier before its decode). ``decode_only``: the decoded-rows
+    kernel (one chunk tile, slices as the scan). Returns the fields of
+    ``PLAN_FIELDS`` and ``bytes``."""
+    onehot = decode_mode != "take"
+    lanes, pieces = onehot_lanes(dsub)
+    nch = -(-(m * dsub + 4) // _CHUNK)
+    base = dict(
+        streamed=0, stages=0, slots=0, lanes=lanes, pieces=pieces,
+        kc=-(-k_codes // _CHUNK), resident=1,
+        chunk_subs=max(chunk_subspaces(c, m, dsub) for c in range(nch)), bufs=2,
+        decode_wgs=_DECODE_WGS if pipe else 0, cb_smem=0,
+    )
+    size = functools.partial(
+        plan_bytes, m=m, k_codes=k_codes, dsub=dsub, code_bytes=code_bytes,
+        decode_mode=decode_mode, natural=natural, pipe=pipe, decode_only=decode_only,
+    )
+    if decode_only:
+        for resident in ((1, 0) if onehot else (0,)):
+            for bufs in (2, 1):
+                plan = dict(base, resident=resident, bufs=bufs)
+                if size(plan) <= _SMEM_LIMIT:
+                    return dict(plan, bytes=size(plan))
+        raise ValueError("no decode plan fits 227 KB of shared memory")
+    for streamed in (0, 1):
+        if pipe:
+            slot_options = range(2 * nch, nch - 1, -1) if not streamed else range(6, 1, -1)
+        else:
+            slot_options = (nch,) if not streamed else ((2,) if onehot else (3,))
+        for held_operand in (1, 0):
+            for bufs in (2, 1):
+                for slots in slot_options:
+                    for stages in range(_MAX_STAGES, 1, -1):
+                        plan = dict(base, streamed=streamed, stages=stages, slots=slots,
+                                    bufs=bufs)
+                        if onehot:
+                            plan["resident"] = held_operand
+                        else:
+                            plan["resident"] = 0
+                            plan["cb_smem"] = held_operand
+                        if size(plan) <= _SMEM_LIMIT:
+                            return dict(plan, bytes=size(plan))
+    raise ValueError("no probe plan fits 227 KB of shared memory")
+
+
+def cb_slices(cb: torch.Tensor, lanes: int, pieces: int) -> torch.Tensor:
+    """``[m, K, dsub] -> [m, pieces, K/64, lanes, 64]`` (K to 64, lanes
+    past dsub zero): the codebook slices of the one-hot decode (P1 / P2),
+    each ``[lanes][64 codes]`` the K-major B tile of one 64-code chunk of
+    one piece, so that a subspace's slices are one contiguous copy."""
+    m, k_codes, dsub = cb.shape
+    kc = -(-k_codes // _CHUNK)
+    t = torch.zeros((m, kc * _CHUNK, pieces * lanes), dtype=cb.dtype, device=cb.device)
+    t[:, :k_codes, :dsub] = cb
+    return t.reshape(m, kc, _CHUNK, pieces, lanes).permute(0, 3, 1, 4, 2).contiguous()
+
+
+def _plan_array(plan: dict):
+    return (ctypes.c_int * len(PLAN_FIELDS))(*(int(plan[f]) for f in PLAN_FIELDS))
+
+
 _LIB = None
 
 
@@ -114,29 +246,29 @@ def _kernel():
         fn = lib.gulon_adc_probe
         fn.argtypes = (
             [ctypes.c_void_p, ctypes.c_int]  # codes, code bytes
-            + [ctypes.c_void_p] * 5  # norms, queries, cb, cbT, out
-            + [ctypes.c_int] * 13  # n_cols num_q q_stride depth m K dsub kpad W nblk decode natural pipe
-            + [ctypes.c_void_p]  # stream
+            + [ctypes.c_void_p] * 5  # norms, queries, cb, slices, out
+            + [ctypes.c_int] * 12  # n_cols num_q q_stride depth m K dsub W nblk decode natural pipe
+            + [ctypes.c_void_p] * 2  # plan, stream
         )
         fn.restype = ctypes.c_int
         fn = lib.gulon_adc_probe_decode
         fn.argtypes = (
             [ctypes.c_void_p, ctypes.c_int]  # codes, code bytes
-            + [ctypes.c_void_p] * 4  # norms, cb, cbT, rows
-            + [ctypes.c_int] * 8  # n_cols width depth m K dsub kpad decode
-            + [ctypes.c_void_p]  # stream
+            + [ctypes.c_void_p] * 4  # norms, cb, slices, rows
+            + [ctypes.c_int] * 7  # n_cols width depth m K dsub decode
+            + [ctypes.c_void_p] * 2  # plan, stream
         )
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _cuda_operands(codes_t, norms_hl, cb, decode_mode):
+def _cuda_operands(codes_t, norms_hl, cb, plan, decode_mode):
     codes_t, norms_hl, cb = (t.contiguous() for t in (codes_t, norms_hl, cb))
-    cb_t = None if decode_mode == "take" else cb_transposed(cb)
-    if cb.data_ptr() % 16 or (cb_t is not None and cb_t.data_ptr() % 16):
-        raise ValueError("codebooks must be 16-byte aligned")
-    return codes_t, norms_hl, cb, cb_t
+    slices = None if decode_mode == "take" else cb_slices(cb, plan["lanes"], plan["pieces"])
+    if cb.data_ptr() % 16 or codes_t.data_ptr() % 16:
+        raise ValueError("codes and codebooks must be 16-byte aligned")
+    return codes_t, norms_hl, cb, slices
 
 
 def probe_block_scan(
@@ -154,6 +286,7 @@ def probe_block_scan(
     """Packed block winners ``[Q, N'/128 * winners]`` of P1 (P2 with
     ``pipe``) on K1's operands (``adc.fused_block_scan`` documents them),
     with the modes as given: resolve them first (:func:`resolve_modes`).
+    The kernel's layout is :func:`probe_plan`'s.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take K1's plain version, the probes' shared contract."""
@@ -175,7 +308,9 @@ def probe_block_scan(
     num_q = q_op.shape[0]
     if num_q == 0:
         raise ValueError("need at least one query")
-    codes_t, norms_hl, cb, cb_t = _cuda_operands(codes_t, norms_hl, cb, decode_mode)
+    plan = probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=codes_t.element_size(),
+                      decode_mode=decode_mode, natural=natural, pipe=pipe)
+    codes_t, norms_hl, cb, slices = _cuda_operands(codes_t, norms_hl, cb, plan, decode_mode)
     q_op = q_op.contiguous()
     if q_op.data_ptr() % 16 or q_op.shape[1] % 8:
         raise ValueError("queries must be 16-byte aligned rows")
@@ -186,10 +321,10 @@ def probe_block_scan(
         )
         err = lib.gulon_adc_probe(
             codes_t.data_ptr(), codes_t.element_size(), norms_hl.data_ptr(),
-            q_op.data_ptr(), cb.data_ptr(), 0 if cb_t is None else cb_t.data_ptr(),
+            q_op.data_ptr(), cb.data_ptr(), 0 if slices is None else slices.data_ptr(),
             out.data_ptr(), n_cols, num_q, q_op.shape[1], m * dsub + 4, m, k_codes, dsub,
-            0 if cb_t is None else cb_t.shape[2], winners, nblk, _DECODE_IDS[decode_mode],
-            int(natural), int(pipe), torch.cuda.current_stream().cuda_stream,
+            winners, nblk, _DECODE_IDS[decode_mode], int(natural), int(pipe),
+            _plan_array(plan), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"adc_probes kernel launch failed: cudaError_t {err}")
@@ -217,13 +352,94 @@ def _decode_rows_plain(codes_t, norms_hl, cb, width: int) -> torch.Tensor:
     ], dim=1)
 
 
+def _pair_bits(code: torch.Tensor, k: torch.Tensor, decode_mode: str) -> torch.Tensor:
+    """One A register: the one-hot bits of (code == k, code == k + 1) as a
+    bf16 pair, low half first (``onehot_rs.cuh`` pair_int / pair_bf16)."""
+    if decode_mode == "bf16cmp":  # compares of bf16-rounded values
+        c = code.to(torch.bfloat16)
+        lo = c == k.to(torch.bfloat16)
+        hi = c == (k + 1).to(torch.bfloat16)
+    else:
+        lo, hi = code == k, code == k + 1
+    return lo.to(torch.int64) * 0x3F80 | hi.to(torch.int64) * 0x3F80_0000
+
+
+def onehot_decode_rows_plain(
+    codes_t: torch.Tensor, norms_hl: torch.Tensor, cb: torch.Tensor, *, width: int,
+    decode_mode: str = "base",
+) -> torch.Tensor:
+    """A plain emulation of the one-hot decode of P1 / P2
+    (``onehot_rs.cuh``), register by register: for each 64-row group, warp
+    w, lane and k-step, the four A registers of wgmma m64nNk16 (rows 16 w
+    + lane / 4 and + 8, k columns 2 (lane % 4) + {0, 1} and + 8) from the
+    rows' codes, placed by that map into the one-hot, multiplied in f32 by
+    the ``cb_slices`` tiles chunk by chunk, and stored through the
+    accumulator map (row 16 w + lane / 4 + 8 i, lane 8 j + 2 (lane % 4) +
+    h) under the kernel's chunk, subspace and piece loop. ``[N', width]``
+    bf16, as :func:`_decode_rows_plain`: equal to it bit for bit but for
+    the sign of a zero (a -0.0 codeword may decode to +0.0: the f32 sum of
+    its one product and the zero products is +0.0 once any term is)."""
+    m, n_cols = codes_t.shape
+    _, k_codes, dsub = cb.shape
+    lanes, pieces = onehot_lanes(dsub)
+    slices = cb_slices(cb, lanes, pieces).to(torch.float32)  # [m, P, kc, N, 64]
+    kc = slices.shape[2]
+    md = m * dsub
+    c = codes_t.to(torch.int64) + (128 if codes_t.dtype == torch.int8 else 0)
+    c = torch.where((c >= 0) & (c < k_codes), c, -1).reshape(m, n_cols // 64, 64)
+    lane = torch.arange(32)
+    g, tq = lane // 4, lane % 4
+    warp = torch.arange(4)[:, None]
+    reg = torch.arange(4)
+    # [warp, lane, reg]: the row (of 64) and the k column (of a k-step) of
+    # register reg's low half
+    row_of = (16 * warp + g)[..., None] + 8 * (reg % 2)
+    col_of = (2 * tq)[None, :, None] + 8 * (reg // 2) + 0 * warp[..., None]
+    out = _decode_rows_plain(codes_t, norms_hl, cb, width).clone()
+    out[:, :md] = 0
+    dec = out.view(n_cols // 64, 64, width)
+    groups = torch.arange(n_cols // 64)[:, None, None, None]
+    done = torch.zeros(md, dtype=torch.int64)
+    for ch in range(-(-md // _CHUNK)):
+        c0, c1 = _CHUNK * ch, min(_CHUNK * (ch + 1), md)
+        for s_ in range(c0 // dsub, (c1 - 1) // dsub + 1):
+            code = c[s_][groups, row_of]  # [G, warp, lane, reg]
+            for p in range(pieces):
+                lo, hi = s_ * dsub + p * lanes, min(s_ * dsub + (p + 1) * lanes, (s_ + 1) * dsub)
+                if lo >= hi or hi <= c0 or lo >= c1:
+                    continue
+                acc = None
+                for kch in range(kc):
+                    a = torch.zeros((n_cols // 64, 64, _CHUNK), dtype=torch.float32)
+                    for ks in range(4):
+                        k = 64 * kch + 16 * ks + col_of
+                        bits = _pair_bits(code, k, decode_mode)
+                        for half in range(2):
+                            v = ((bits >> (16 * half)) & 0xFFFF).to(torch.int16)
+                            a[groups, row_of, (k - 64 * kch + half).expand_as(row_of)] = (
+                                v.view(torch.bfloat16).to(torch.float32)
+                            )
+                    prod = a @ slices[s_, p, kch].T
+                    acc = prod if acc is None else acc + prod
+                n = torch.arange(lanes)
+                col = s_ * dsub + p * lanes + n
+                ok = (p * lanes + n < dsub) & (col >= c0) & (col < c1)
+                dec[:, :, col[ok]] = acc[:, :, ok].to(torch.bfloat16)
+                done[col[ok]] += 1
+    if not bool((done == 1).all()):
+        raise AssertionError("every codeword column is written exactly once")
+    return out
+
+
 def probe_decode_rows(
     codes_t: torch.Tensor, norms_hl: torch.Tensor, cb: torch.Tensor, *, width: int,
     decode_mode: str = "base",
 ) -> torch.Tensor:
-    """The rows P1 decodes, ``[N', width]`` bf16, through the decode of
-    ``decode_mode``: on the card for holding a formulation against the
-    gather bit for bit, the plain gather on the CPU."""
+    """The rows P1 and P2 decode, ``[N', width]`` bf16, through the decode
+    of ``decode_mode``: on the card for holding a formulation against the
+    gather bit for bit but for the sign of a zero (a -0.0 codeword may come
+    out of the one-hot as +0.0, ``onehot_rs.cuh``), the plain gather on
+    the CPU."""
     global adc_probe_decode_launches
     if not codes_t.is_cuda:
         return _decode_rows_plain(codes_t, norms_hl, cb, width)
@@ -231,15 +447,19 @@ def probe_decode_rows(
     _, k_codes, dsub = cb.shape
     if width % 8 or width < m * dsub + 4 or n_cols % _LANES:
         raise ValueError(f"width {width} must be a multiple of 8 >= depth {m * dsub + 4}")
-    codes_t, norms_hl, cb, cb_t = _cuda_operands(codes_t, norms_hl, cb, decode_mode)
+    if decode_mode == "bf16cmp" and k_codes > 256:
+        raise ValueError("bf16cmp needs K <= 256")
+    plan = probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=codes_t.element_size(),
+                      decode_mode=decode_mode, decode_only=True)
+    codes_t, norms_hl, cb, slices = _cuda_operands(codes_t, norms_hl, cb, plan, decode_mode)
     lib = _kernel()
     with torch.cuda.device(codes_t.device):
         rows = torch.empty((n_cols, width), dtype=torch.bfloat16, device=codes_t.device)
         err = lib.gulon_adc_probe_decode(
             codes_t.data_ptr(), codes_t.element_size(), norms_hl.data_ptr(), cb.data_ptr(),
-            0 if cb_t is None else cb_t.data_ptr(), rows.data_ptr(), n_cols, width,
-            m * dsub + 4, m, k_codes, dsub, 0 if cb_t is None else cb_t.shape[2],
-            _DECODE_IDS[decode_mode], torch.cuda.current_stream().cuda_stream,
+            0 if slices is None else slices.data_ptr(), rows.data_ptr(), n_cols, width,
+            m * dsub + 4, m, k_codes, dsub, _DECODE_IDS[decode_mode], _plan_array(plan),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"adc_probes decode launch failed: cudaError_t {err}")
@@ -254,7 +474,8 @@ def probe_scan_operands(
 ) -> dict:
     """K1's operands for a probe call with the modes resolved: the pair
     padding of the piped schedule applied (codes with zeros, norms with
-    ``_BIG``, as ``adc_probes.py:448-451``), and the winner geometry."""
+    ``_BIG``, as ``adc_probes.py:448-451``), the winner geometry, and the
+    kernel's layout (``modes["plan"]``, :func:`probe_plan`)."""
     ops = adc.prepare_scan_operands(
         queries, codebooks, codes, recon_norms, bounds=bounds, tile_rows=tile_rows,
         num_rows=num_rows, winners=winners, center_scores=center_scores,
@@ -273,6 +494,11 @@ def probe_scan_operands(
     wn = winners * nblk
     cols = np.arange(codes_t.shape[1] // t * wn, dtype=np.int64)
     base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
+    modes["plan"] = probe_plan(
+        m=ops["m"], k_codes=ops["k_codes"], dsub=codebooks.shape[2],
+        code_bytes=codes_t.element_size(), decode_mode=modes["decode_mode"],
+        natural=modes["natural"], pipe=modes["pipe"],
+    )
     return dict(
         codes_t=codes_t,
         norms_hl=adc._split_hi_lo(norms, ops["center"]),
@@ -306,7 +532,8 @@ def adc_scan_probe(
     adc_scan_probe``): ``adc_scan_fused``'s semantics with the in-kernel
     formulation selectable. Returns ``([Q, k] dists ascending, [Q, k]
     ids)``; ``resolved``, when given, receives the modes that ran
-    (``decode_mode``, ``natural``, ``pipe``, ``tile_rows``). Inputs go to
+    (``decode_mode``, ``natural``, ``pipe``, ``tile_rows``) and the
+    kernel's layout (``plan``: :func:`probe_plan`). Inputs go to
     ``device`` (default: the card)."""
     if not 1 <= winners <= 4:
         raise ValueError(f"winners must be in 1..4, got {winners}")

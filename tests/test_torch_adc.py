@@ -270,3 +270,35 @@ def test_kernel_matches_plain_on_the_card(cuda_device, winners, centered, k_code
     vk, ik = (a.cpu().numpy() for a in tadc.unpack_block_winners(got, base))
     vp, ip = (a.cpu().numpy() for a in tadc.unpack_block_winners(ref, base))
     _winners_close(vp, ip, vk, ik, min_equal=0.995)
+
+
+@pytest.mark.parametrize("winners", [1, 2])
+def test_nan_block_winner_is_the_lowest_nan_row(winners):
+    """An all-+inf query row scores NaN against every row. Both packages
+    let the NaN win every block; which NaN's row bits survive is XLA's
+    choice in the JAX kernel (its ``jnp.min``; interpret mode leaves
+    another row than the first) and no rule of the reference. The port's
+    twin states K1's rule: the packed NaN of the block's lowest NaN row,
+    here row 0 of every block, for every winner."""
+    bounds, cb, codes, norms, q = _problem(64, seed=3)
+    q[1] = np.inf
+    ct_j = jadc.pack_codes_t(codes, 64)
+    ct_t = tadc.pack_codes_t(_t(codes.astype(np.int32)), 64)
+    pj = jadc._block_scan(
+        jnp.asarray(q), jnp.asarray(cb), ct_j, jnp.asarray(norms),
+        bounds=bounds, tile_rows=0, interpret=True, num_rows=N, winners=winners,
+    )
+    pt = tadc._block_scan(
+        _t(q), _t(cb), ct_t, _t(norms), bounds=bounds, tile_rows=0, num_rows=N,
+        winners=winners,
+    )
+    bj = np.asarray(pj[0]).view(np.int32)
+    bt = pt[0].numpy().view(np.int32)
+    vj = (bj & ~127).view(np.float32)
+    vt = (bt & ~127).view(np.float32)
+    np.testing.assert_array_equal(np.isnan(vt), np.isnan(vj))
+    assert np.isnan(vt[1]).all()
+    assert (bt[1] & 127 == 0).all()
+    others = np.ones(Q, bool)
+    others[1] = False
+    _winners_close(vj[others], bj[others] & 127, vt[others], bt[others] & 127)

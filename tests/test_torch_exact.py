@@ -212,3 +212,30 @@ def test_from_reference_same_ids(data):
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         interop.exact_index_from_numpy(keys[:3], x[:4], device="cpu")
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_xla_route_nan_row_zero_queries_and_k0_match_jax(data, k):
+    """The ``xla`` route: a NaN query row gives NaN distances and the JAX
+    package's ids, zero queries give ``[0, k]``, and k = 0 raises as
+    ``lax.approx_min_k`` does."""
+    keys, x = data
+    jx = dataclasses.replace(jexact.build_exact_index(keys, x), scan_strategy="xla")
+    port = interop.from_reference(jx, device="cpu")
+    q = x[:3].copy()
+    q[0, 2] = np.nan
+    if k == 0:
+        with pytest.raises(ValueError, match="k must be positive"):
+            jx.query_arrays(0, q)
+        with pytest.raises(ValueError, match="k must be positive"):
+            port.query_arrays(0, q)
+        return
+    dj, ij = jx.query_arrays(k, q)
+    dt, it = port.query_arrays(k, q)
+    assert np.isnan(np.asarray(dj)[0]).all() and np.isnan(dt.numpy()[0]).all()
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+    q0 = np.zeros((0, x.shape[1]), np.float32)
+    dj, ij = jx.query_arrays(k, q0)
+    dt, it = port.query_arrays(k, q0)
+    assert dt.shape == np.asarray(dj).shape == (0, k) and it.shape == (0, k)

@@ -288,3 +288,159 @@ def test_cached_strategy_runs_k2_on_the_card(cuda_device, data, jax_index):
     assert port.decoded_cache is None and port._cache_aug is not None
     decode = dataclasses.replace(port, scan_strategy="decode")
     assert _recall10(port, data) >= 0.97 * _recall10(decode, data)
+
+
+def _outcome(fn):
+    """``(dists, ids)`` as numpy arrays, or the exception type raised."""
+    try:
+        d, i = fn()
+    except Exception as e:  # noqa: BLE001 - the type is the outcome
+        return type(e)
+    return np.asarray(d), np.asarray(i)
+
+
+def _served_pair(jax_index, strategy):
+    """The JAX index with ``strategy`` (and its cache for ``cached``) and
+    the port serving the same arrays."""
+    jx = dataclasses.replace(jax_index, scan_strategy=strategy)
+    if strategy == "cached":
+        jx.enable_cache()  # f32 on the CPU
+    return jx, interop.from_reference(jx, device="cpu")
+
+
+def _assert_same_outcome(ref, got, raises):
+    """Both raise (a ValueError on the JAX side is a ValueError here too;
+    the JAX package's ZeroDivisionError may be any error), or both give
+    equal shapes, ids and distances (NaN where the JAX package has NaN)."""
+    if raises:
+        assert isinstance(ref, type) and issubclass(ref, raises), ref
+        assert isinstance(got, type) and issubclass(
+            got, ValueError if raises is ValueError else Exception
+        ), got
+        return
+    assert not isinstance(ref, type) and not isinstance(got, type), (ref, got)
+    (dj, ij), (dt, it) = ref, got
+    assert dt.shape == dj.shape and it.shape == ij.shape
+    np.testing.assert_array_equal(it, ij)
+    np.testing.assert_allclose(dt, dj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "strategy,raises",
+    [("decode", None), ("lut", None), ("cached", None), ("pallas", ZeroDivisionError)],
+)
+def test_zero_queries_match_jax(data, jax_index, strategy, raises):
+    """A batch of zero queries: ``[0, 10]`` arrays where the JAX package
+    gives them (and an empty ``batch_query``), a refusal where it raises
+    (the fused scan's planner divides by Q)."""
+    x = data[0]
+    jx, port = _served_pair(jax_index, strategy)
+    q0 = np.zeros((0, x.shape[1]), np.float32)
+    _assert_same_outcome(
+        _outcome(lambda: jx.query_arrays(10, q0)),
+        _outcome(lambda: port.query_arrays(10, q0)), raises,
+    )
+    if raises is None:
+        assert port.batch_query(10, q0) == jx.batch_query(10, q0) == []
+
+
+@pytest.mark.parametrize(
+    "strategy,raises",
+    [("decode", ValueError), ("lut", ValueError), ("cached", ValueError), ("pallas", None)],
+)
+def test_k0_matches_jax(data, jax_index, strategy, raises):
+    """k = 0: the streaming scans refuse it as ``lax.approx_min_k`` does
+    ("k must be positive"); the fused scan gives ``[Q, 0]``."""
+    x = data[0]
+    jx, port = _served_pair(jax_index, strategy)
+    q = x[:3]
+    _assert_same_outcome(
+        _outcome(lambda: jx.query_arrays(0, q)), _outcome(lambda: port.query_arrays(0, q)),
+        raises,
+    )
+    if raises:
+        with pytest.raises(ValueError, match="k must be positive"):
+            port.query_arrays(0, q)
+
+
+@pytest.mark.parametrize("strategy", ["decode", "lut", "cached"])
+def test_nan_query_row_ranks_as_jax(data, jax_index, strategy):
+    """A query row with a NaN lane scores NaN against every row: the JAX
+    package returns NaN distances and the ids its CPU sort leaves
+    (``incomparable_order``), not ``(inf, -1)``; the other rows are
+    untouched."""
+    x = data[0]
+    jx, port = _served_pair(jax_index, strategy)
+    q = x[:3].copy()
+    q[1, 5] = np.nan
+    dj, ij = jx.query_arrays(3, q)
+    dt, it = port.query_arrays(3, q)
+    assert np.isnan(np.asarray(dj)[1]).all() and np.isnan(dt.numpy()[1]).all()
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("strategy", ["cached", "pallas"])
+def test_nan_query_row_with_rerank_matches_jax(data, jax_index, strategy):
+    """rerank 4: a NaN-lane row's over-fetched candidates, rescored by
+    ``rescore_exact``, give the JAX package's NaN distances and ids."""
+    x = data[0]
+    jx = dataclasses.replace(jax_index, scan_strategy=strategy, rerank_factor=4)
+    if strategy == "cached":
+        jx.enable_cache()
+    port = interop.from_reference(jx, device="cpu")
+    assert port.size < port.tile_rows
+    q = x[:3].copy()
+    q[1, 5] = np.nan
+    dj, ij = map(np.asarray, jx.query_arrays(3, q))
+    dt, it = port.query_arrays(3, q)
+    np.testing.assert_array_equal(np.isnan(dt.numpy()), np.isnan(dj))
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-4, atol=1e-4)
+
+
+def _rescore_past_the_last_row(jax_index, device):
+    """``rescore_exact`` of candidates past the last row (a NaN row's
+    positions in a padded last tile can be): both packages gather them
+    clamped to the last row and keep their ids; -1 stays an empty slot
+    (``test_torch_kernel_edges.py`` holds the card to the CPU here)."""
+    n = jax_index.size
+    q = np.random.default_rng(5).normal(size=(2, 24)).astype(np.float32)
+    q[1, 3] = np.nan
+    cand = np.array([[0, 7, n - 1, n, n + 9, 2 * n], [-1, 3, n + 1, n - 1, 5, 9]], np.int32)
+    args = (jax_index.pq.codebooks, jax_index.codes, jax_index.recon_norms)
+    dj, ij = map(np.asarray, jscan.rescore_exact(
+        jnp.asarray(q), *args, jnp.asarray(cand), bounds=jax_index.pq.bounds, k=4))
+    dt, it = tscan.rescore_exact(
+        torch.from_numpy(q).to(device),
+        *(torch.from_numpy(np.array(a)).to(device) for a in args),
+        torch.from_numpy(cand).to(device), bounds=jax_index.pq.bounds, k=4)
+    np.testing.assert_array_equal(it.cpu().numpy(), ij)
+    np.testing.assert_allclose(dt.cpu().numpy(), dj, rtol=1e-4, atol=1e-4)
+    assert (ij[0] >= n).any()
+
+
+def test_rescore_exact_clamps_ids_past_the_last_row(jax_index):
+    _rescore_past_the_last_row(jax_index, "cpu")
+
+
+@pytest.mark.parametrize("topk_impl", ["approx", "exact"])
+def test_tiled_scan_with_a_nan_row_matches_jax(data, jax_index, topk_impl):
+    """The decode scan over 1024-row tiles (the last one short, which the
+    JAX package pads): ids and distances equal, a NaN-lane query's row
+    included (NaN and the JAX package's ids on the stacked route, the
+    ``(inf, -1)`` slots on the exact one)."""
+    x = data[0]
+    q = x[:4].copy()
+    q[2, 1] = np.nan
+    args = (jax_index.pq.codebooks, jax_index.codes, jax_index.recon_norms)
+    dj, ij = map(np.asarray, jscan.adc_scan_decode(
+        jnp.asarray(q), *args, bounds=jax_index.pq.bounds, k=5, tile_rows=1024,
+        precision="highest", topk_impl=topk_impl))
+    dt, it = tscan.adc_scan_decode(
+        torch.from_numpy(q), *(torch.from_numpy(np.array(a)) for a in args),
+        bounds=jax_index.pq.bounds, k=5, tile_rows=1024, precision="highest",
+        topk_impl=topk_impl)
+    assert np.isnan(dj[2]).all() == (topk_impl == "approx")
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-4, atol=1e-4)

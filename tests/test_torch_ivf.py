@@ -542,3 +542,63 @@ def test_kernel_w4_on_ivf_operands_on_the_card(cuda_device, data, jax_index):
     before = tadc.adc_scan_kernel_launches
     _, ids = port.query_arrays(10, q)
     assert tadc.adc_scan_kernel_launches == before + 1 and ids.is_cuda
+
+
+@pytest.mark.parametrize(
+    "strategy,raises",
+    [("masked", None), ("pallas", ZeroDivisionError), ("gathered", ZeroDivisionError),
+     ("bucketed", ZeroDivisionError), ("auto", ZeroDivisionError)],
+)
+def test_zero_queries_match_jax(data, jax_index, strategy, raises):
+    """A batch of zero queries: ``masked`` gives ``[0, 10]`` arrays in both
+    packages; the fused and sublinear strategies (and ``auto``, which
+    picks a sublinear one for a small batch) refuse it in both: the JAX
+    package's planners divide by Q."""
+    x = data[0]
+    jx = _jax_variant(jax_index, scan_strategy=strategy)
+    port = interop.from_reference(jx, device="cpu")
+    q0 = np.zeros((0, x.shape[1]), np.float32)
+    if raises:
+        with pytest.raises(raises):
+            jx.query_arrays(10, q0)
+        with pytest.raises(Exception):
+            port.query_arrays(10, q0)
+        return
+    dj, ij = jx.query_arrays(10, q0)
+    dt, it = port.query_arrays(10, q0)
+    assert dt.shape == it.shape == np.asarray(dj).shape == np.asarray(ij).shape == (0, 10)
+    assert port.batch_query(10, q0) == jx.batch_query(10, q0) == []
+
+
+@pytest.mark.parametrize("strategy", ["masked", "pallas", "gathered", "bucketed", "auto"])
+def test_k0_matches_jax(data, jax_index, strategy):
+    """k = 0: the masked and sublinear scans refuse it as
+    ``lax.approx_min_k`` does (``auto`` picks a sublinear one for this
+    small batch); the fused strategy gives ``[Q, 0]`` in both packages."""
+    q = data[2][:4]
+    jx = _jax_variant(jax_index, scan_strategy=strategy)
+    port = interop.from_reference(jx, device="cpu")
+    if strategy != "pallas":
+        for index in (jx, port):
+            with pytest.raises(ValueError, match="k must be positive"):
+                index.query_arrays(0, q)
+        return
+    dj, ij = jx.query_arrays(0, q)
+    dt, it = port.query_arrays(0, q)
+    assert dt.shape == it.shape == np.asarray(dj).shape == np.asarray(ij).shape == (4, 0)
+
+
+@pytest.mark.parametrize("strategy", ["masked", "pallas", "gathered", "bucketed"])
+def test_nan_query_row_matches_jax(data, jax_index, strategy):
+    """A query row with a NaN lane: each strategy gives the JAX package's
+    distances (NaN or the +inf of empty slots) and ids, the sublinear
+    selections ordering a row of NaN as ``lax.approx_min_k`` does on the
+    CPU; the other rows are untouched."""
+    q = data[2][:3].copy()
+    q[1, 4] = np.nan
+    jx = _jax_variant(jax_index, scan_strategy=strategy)
+    port = interop.from_reference(jx, device="cpu")
+    dj, ij = map(np.asarray, jx.query_arrays(3, q))
+    dt, it = port.query_arrays(3, q)
+    np.testing.assert_array_equal(it.numpy(), ij)
+    np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-4, atol=1e-4)

@@ -2,7 +2,8 @@
 (int8 dense block scan) at their edge shapes: 1, 7, 129 and 1000
 queries, ragged row counts, depth 100 (not a multiple of 16), 1-4
 winners centered and uncentered, K = 512 and K = 1024 int16 codes, NaN
-rows, IVF padding rows, K1 at depths from 304 to 1000, held decoded and
+rows, an all-+inf query (each block's winner the packed NaN of its
+lowest row), IVF padding rows, K1 at depths from 304 to 1000, held decoded and
 streamed, and K3 at Dp 32 to 1600 (every ragged last chunk, a 128-query
 tile, streamed query chunks), all-+-127 lanes and a last block won by a
 padding row (the cases of ``chip_smoke.py``).
@@ -68,6 +69,9 @@ def test_k1_edge_plain_on_cpu(case):
     vals = (got.view(torch.int32) & ~127).view(torch.float32)
     if extra == "nan":
         assert int(torch.isnan(vals).sum()) > 0
+    if extra == "infq":  # every block's winner is its lowest NaN row
+        assert bool(torch.isnan(vals[0]).all()) and bool((got[0].view(torch.int32) & 127 == 0).all())
+        assert not bool(torch.isnan(vals[1:]).any())
     if extra == "sentinel":
         assert int(real.min()) == 0 and int(real.max()) == 128
         assert cs.winners_valid(got, real, winners, nblk)
@@ -228,3 +232,29 @@ def test_k2_edge_on_the_card(cuda_device, case):
     ref = dense._dense_block_scan_plain(data, q_op)
     result = cs.compare_packed(got, ref, cs.dense_scale(data, q_op, ref))
     assert result["ok"], result
+
+
+@pytest.mark.cuda
+def test_rescore_exact_past_the_last_row_on_the_card(cuda_device):
+    """``rescore_exact`` of candidates past the last row, which a NaN query
+    row's positions in a padded last tile can be: gathered clamped on the
+    card as on the CPU (whose result ``test_torch_flat.py`` holds to the
+    JAX package), where an unclamped gather would end the CUDA context."""
+    from gulon_tpu_torch.ops import scan
+
+    gen = torch.Generator().manual_seed(5)
+    n, m, k_codes, dsub = 300, 4, 16, 6
+    cb = torch.randn(m, k_codes, dsub, generator=gen)
+    codes = torch.randint(0, k_codes, (n, m), generator=gen, dtype=torch.int32).to(torch.uint8)
+    norms = torch.rand(n, generator=gen)
+    q = torch.randn(2, m * dsub, generator=gen)
+    q[1, 3] = float("nan")
+    cand = torch.tensor([[0, 7, n - 1, n, n + 9, 2 * n], [-1, 3, n + 1, n - 1, 5, 9]],
+                        dtype=torch.int32)
+    bounds = [(s * dsub, dsub) for s in range(m)]
+    args = (q, cb, codes, norms, cand)
+    d_cpu, i_cpu = scan.rescore_exact(*args, bounds=bounds, k=4)
+    d_gpu, i_gpu = scan.rescore_exact(*(a.to(cuda_device) for a in args), bounds=bounds, k=4)
+    torch.cuda.synchronize()
+    assert torch.equal(i_gpu.cpu(), i_cpu) and bool((i_cpu[0] >= n).any())
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=1e-4, atol=1e-4, equal_nan=True)

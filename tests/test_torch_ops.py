@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gulon_tpu.ops import distance as jdist
@@ -89,6 +90,59 @@ def test_smallest_k_keeps_lax_top_k_tie_order(k):
     assert it.dtype == torch.int32
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+
+
+def test_smallest_k_ranks_on_the_total_order():
+    """NaN of either sign, infinities and signed zeros rank as lax.top_k of
+    the negated values ranks them: -NaN first, +NaN after +inf."""
+    nan = np.float32(np.nan)
+    d = np.array([[1.0, nan, np.inf, -0.0, 0.0, -nan, -np.inf, 0.0, -0.0, 2.0]], np.float32)
+    vj, ij = jtopk.smallest_k(jnp.asarray(d), d.shape[1])
+    vt, it = ttopk.smallest_k(_t(d), d.shape[1])
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy().view(np.int32), np.asarray(vj).view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_smallest_k_nan_last_ranks_kernel_winners_as_jax(dtype):
+    """The kernels' epilogues rank lane-stripped block winners (f32 for
+    K1 / K2, int32 for K3) with the plain stable sort: on such rows (ties,
+    +inf and _BIG padding, an all-NaN row of one NaN) it gives lax.top_k's
+    order, as ``smallest_k`` does; a NaN of either sign goes last."""
+    rng = np.random.default_rng(3)
+    d = rng.integers(-50, 50, size=(4, 300)).astype(dtype)  # many ties
+    if dtype == np.float32:
+        d[1, ::7] = np.inf
+        d[2, ::5] = np.float32(3.0e38)
+        d[3] = np.float32(np.nan)
+    vj, ij = jtopk.smallest_k(jnp.asarray(d), 40)
+    for fn in (ttopk.smallest_k_nan_last, ttopk.smallest_k):
+        vt, it = fn(_t(d), 40)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    nan = np.float32(np.nan)
+    _, it = ttopk.smallest_k_nan_last(_t(np.array([[nan, 1.0, -nan, np.inf]], np.float32)), 4)
+    np.testing.assert_array_equal(it.numpy(), [[1, 3, 0, 2]])
+
+
+@pytest.mark.parametrize("n", [5, 16, 17, 100, 1000, 6000, 16384])
+def test_approx_smallest_k_orders_a_nan_row_as_the_cpu_sort(n):
+    """A row of NaN (either sign): ``lax.approx_min_k`` on the CPU leaves
+    libstdc++'s introsort order of incomparable elements, which
+    ``incomparable_order`` computes from the length alone; a row with a
+    finite value keeps ``smallest_k``'s order; k < 1 raises."""
+    rng = np.random.default_rng(n)
+    k = min(n, 7)
+    d = np.full((3, n), np.nan, np.float32)
+    d[1] = np.where(rng.random(n) < 0.5, d[1], -d[1])
+    d[2] = rng.normal(size=n).astype(np.float32)
+    _, ij = jax.lax.approx_min_k(jnp.asarray(d[:2]), k)
+    vt, it = ttopk.approx_smallest_k(_t(d), k)
+    np.testing.assert_array_equal(it.numpy()[:2], np.asarray(ij))
+    assert np.isnan(vt.numpy()[:2]).all()
+    np.testing.assert_array_equal(it.numpy()[2], np.argsort(d[2], kind="stable")[:k])
+    with pytest.raises(ValueError, match="k must be positive"):
+        ttopk.approx_smallest_k(_t(d), 0)
 
 
 def test_merge_topk():

@@ -330,6 +330,29 @@ def test_sharded_ivf_index_matches_jax(meshes, big, strategy, probe):
     _same_topk(dt, it, dj, ij)
 
 
+def test_sharded_ivf_global_rows_clamp_as_jax(meshes, big):
+    """A shard's local ids past its last row (a NaN query row's positions
+    in a padded last tile can be) map through the row map clamped, as
+    the JAX package's gather does; -1 stays an empty slot."""
+    jm, tm = meshes
+    keys, x, _ = big
+    jx = jbuild_ivf(
+        keys[:4096], x[:4096],
+        pq_config=JPQConfig(num_clusters=16, num_quantizers=4, max_iters=6),
+        num_partitions=8, strategy=JLimitGroups(4), coarse_max_iters=6,
+    )
+    js = jpar.shard_index(jx, jm)
+    ts = tpar.shard_index(interop.from_reference(jx, device="cpu"), tm)
+    l2g = np.asarray(js.loc2glob_sharded)
+    n_loc = l2g.shape[1]
+    ids = np.array([[-1, 0, n_loc - 1, n_loc, n_loc + 17, 3 * n_loc]], np.int32)
+    for r in range(l2g.shape[0]):
+        ref = jnp.where(ids >= 0, jnp.asarray(l2g[r])[jnp.maximum(ids, 0)], -1)
+        np.testing.assert_array_equal(
+            ts._global_rows(r, torch.from_numpy(ids)).numpy(), np.asarray(ref)
+        )
+
+
 @pytest.mark.parametrize("exact_rescore", [True, False])
 @pytest.mark.parametrize("strategy", ["xla", "pallas"])
 def test_sharded_exact_index_matches_jax(meshes, big, strategy, exact_rescore):

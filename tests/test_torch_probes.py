@@ -136,7 +136,10 @@ def test_p2_pipe_plain_matches_jax_probe(winners):
     resolved = {}
     d_t, i_t = tp.adc_scan_probe(q, cb, codes.astype(np.int32), norms, device="cpu",
                                  resolved=resolved, **kw)
-    assert resolved == dict(decode_mode="base", natural=False, pipe=True, tile_rows=1024)
+    plan = tp.probe_plan(m=6, k_codes=256, dsub=4, code_bytes=4, decode_mode="base",
+                         pipe=True)  # [N, m] codes: the int32 operand
+    assert resolved == dict(decode_mode="base", natural=False, pipe=True, tile_rows=1024,
+                            plan=plan)
     np.testing.assert_array_equal(i_t.numpy(), i_j)
     np.testing.assert_allclose(d_t.numpy(), d_j, rtol=1e-4, atol=1e-4)
     ops = tp.probe_scan_operands(
@@ -177,7 +180,11 @@ def test_resolved_modes_equal_the_jax_probes(monkeypatch, k_codes, mode, natural
     resolved = {}
     tp.adc_scan_probe(q, cb, codes.astype(np.int32), norms, device="cpu", resolved=resolved,
                       **kw)
-    assert resolved == port
+    plan = tp.probe_plan(m=m, k_codes=k_codes, dsub=cb.shape[2],
+                         code_bytes=4,  # [N, m] codes: the int32 operand
+                         decode_mode=port["decode_mode"], natural=port["natural"],
+                         pipe=port["pipe"])
+    assert resolved == dict(port, plan=plan)
 
 
 def test_probe_decode_rows_plain_is_the_gather():
@@ -197,6 +204,111 @@ def test_probe_decode_rows_plain_is_the_gather():
                                   cb[np.arange(6)[None], codes].reshape(1000, 24))
     assert bool((rows[1000:, :24].view(torch.int16) == 0).all())
     assert bool((rows[:, 26:28] == 1).all()) and bool((rows[:, 28:] == 0).all())
+
+
+# (D, m, K, code bytes): chip_smoke.PROBE_SHAPES (glove100, deep768), the
+# card tests' shapes, dsub 33 (two pieces) and 86 (three), K = 1024
+PLAN_SHAPES = [
+    (100, 8, 256, 1), (768, 96, 256, 1), (24, 4, 16, 1), (60, 6, 256, 1), (300, 19, 256, 1),
+    (96, 12, 1024, 2), (132, 4, 256, 1), (688, 8, 256, 1), (720, 720, 16, 1),
+    (800, 100, 1024, 4),
+]
+
+
+@pytest.mark.parametrize(
+    "d,m,k_codes,code_bytes,mode",
+    [(*shape, mode) for shape in PLAN_SHAPES for mode in tp.DECODE_MODES
+     if mode != "bf16cmp" or shape[2] <= 256],  # bf16cmp resolves to base above 256
+)
+def test_every_probe_plan_fits(d, m, k_codes, code_bytes, mode):
+    """P1 (both orientations), P2 and the decoded-rows kernel: each plan
+    fits 227 KB as the kernel lays it out; P1 holds a block in nch slots
+    (or streams through 2, 3 for the gather), P2 keeps at least one held
+    block's chunks (or 2) in its ring and decodes with two warpgroups; the
+    one-hot's pieces cover dsub in widths of 8 to 32; staged slices cover
+    every chunk's subspaces; glove100 holds its block and every slice
+    resident, deep768 streams."""
+    dsub = -(-d // m)
+    nch = -(-(m * dsub + 4) // 64)
+    for natural, pipe in ((False, False), (True, False), (False, True)):
+        plan = tp.probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=code_bytes,
+                             decode_mode=mode, natural=natural, pipe=pipe)
+        assert set(plan) == set(tp.PLAN_FIELDS) | {"bytes"}
+        size = tp.plan_bytes(plan, m=m, k_codes=k_codes, dsub=dsub, code_bytes=code_bytes,
+                             decode_mode=mode, natural=natural, pipe=pipe)
+        assert plan["bytes"] == size <= tp._SMEM_LIMIT
+        assert 2 <= plan["stages"] <= 6
+        if pipe:
+            assert plan["decode_wgs"] == 2
+            assert plan["slots"] >= (2 if plan["streamed"] else nch)
+        else:
+            assert plan["slots"] == (nch if not plan["streamed"] else 3 if mode == "take" else 2)
+        if mode != "take":
+            assert plan["lanes"] in (8, 16, 24, 32) and plan["lanes"] % 8 == 0
+            assert plan["pieces"] * plan["lanes"] >= dsub > (plan["pieces"] - 1) * plan["lanes"]
+            assert 64 * plan["kc"] >= k_codes
+            assert plan["chunk_subs"] == max(tp.chunk_subspaces(c, m, dsub) for c in range(nch))
+    plan = tp.probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=code_bytes,
+                         decode_mode=mode, decode_only=True)
+    assert plan["bytes"] <= tp._SMEM_LIMIT
+    if (d, m, k_codes) == (100, 8, 256):  # glove100
+        for pipe in (False, True):
+            plan = tp.probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=1,
+                                 decode_mode=mode, pipe=pipe)
+            assert plan["streamed"] == 0 and (mode == "take" or plan["resident"] == 1)
+            assert (plan["lanes"], plan["pieces"]) == (16, 1)
+    if (d, m) == (768, 96):  # deep768
+        plan = tp.probe_plan(m=m, k_codes=k_codes, dsub=dsub, code_bytes=1, decode_mode=mode,
+                             pipe=True)
+        assert plan["streamed"] == 1 and (mode == "take" or plan["resident"] == 0)
+        assert (plan["lanes"], plan["pieces"]) == (8, 1)
+
+
+# (D, m, K, code bytes): dsub 13 and 8 (glove100's and deep768's one-hot
+# widths), odd dsub 33 in two pieces, dsub 86 in three, K 16 to 1024
+EMULATION_CASES = [
+    (52, 4, 16, 1), (64, 8, 64, 1), (104, 8, 256, 1), (96, 12, 256, 2), (66, 2, 1024, 2),
+    (172, 2, 64, 4),
+]
+
+
+@pytest.mark.parametrize("d,m,k_codes,code_bytes", EMULATION_CASES)
+def test_onehot_register_map_decodes_the_gather(d, m, k_codes, code_bytes):
+    """The one-hot decode emulated register by register (the RS A fragment
+    and the accumulator map of ``onehot_rs.cuh``) equals the plain gather
+    bit for bit, but for the sign of a zero: codes outside [0, K) and
+    padding rows decode to +0, a -0.0 codeword to +0.0 (its lane's other
+    codewords are not all negative). A wrong register map would put the
+    ones in the wrong k columns or rows and miss here."""
+    rng = np.random.default_rng(d + k_codes)
+    dsub = d // m
+    cb = torch.from_numpy(rng.normal(size=(m, k_codes, dsub)).astype(np.float32))
+    cb = cb.to(torch.bfloat16)
+    cb[0, 5, 2] = -0.0
+    n = 384
+    codes = torch.from_numpy(rng.integers(0, k_codes, size=(m, n)))
+    codes[0, :7] = 5  # the -0.0 codeword
+    if code_bytes == 1:
+        codes_t = (codes - 128).to(torch.int8)
+        if k_codes < 256:
+            codes_t[1, 7:11] = 127  # code 255: no code at this K
+    else:
+        codes_t = codes.to(torch.int16 if code_bytes == 2 else torch.int32)
+        codes_t[1, 7:11] = -1
+        codes_t[0, 11] = k_codes  # past K
+    norms = torch.from_numpy(rng.normal(size=(2, n)).astype(np.float32)).to(torch.bfloat16)
+    width = -(-(m * dsub + 4) // 8) * 8 + 8
+    plain = tp._decode_rows_plain(codes_t, norms, cb, width)
+    canon = lambda x: (x.float() + 0.0).to(torch.bfloat16).view(torch.int16)  # noqa: E731
+    for mode in ("base", "bf16cmp") if k_codes <= 256 else ("base",):
+        emu = tp.onehot_decode_rows_plain(codes_t, norms, cb, width=width, decode_mode=mode)
+        assert torch.equal(canon(emu), canon(plain)), mode
+        differ = emu.view(torch.int16) != plain.view(torch.int16)
+        assert bool((plain[differ] == 0).all()) and bool((emu[differ].view(torch.int16) == 0).all())
+        assert int(plain[0, 2].view(torch.int16)) == -32768  # -0.0 gathered
+        assert int(emu[0, 2].view(torch.int16)) == 0  # +0.0 from the one-hot
+        if k_codes < 256 or code_bytes > 1:
+            assert bool((emu[7:11, dsub:2 * dsub].view(torch.int16) == 0).all())
 
 
 def test_probe_block_scan_rejects_bad_requests():

@@ -4,8 +4,12 @@ K = 16, 256 and 1024, depths from 24 to 768 (held decoded and streamed),
 NaN rows and padding-only blocks.
 
 P1 and P2 hold K1's rule (``chip_smoke.compare_packed``: ids >= 99.5 %
-equal, values within ``2^-14 * max(|v|, 1)``, NaN winners on the same rows)
-and their decoded rows equal the plain gather bit for bit; P3 holds its
+equal, values within ``2^-14 * max(|v|, 1)``, NaN winners on the same rows),
+held decoded and streamed, 1-4 winners, on a grid of fewer blocks than
+the card has SMs, and their decoded rows equal the plain gather bit for
+bit but for the sign of a zero (``probe_decode_rows`` at K 16 to 1024,
+dsub 8 to 86, code bytes 1, 2 and 4, a -0.0 codeword, invalid codes; the
+one-hot also bit for bit against its register-map emulation); P3 holds its
 variant's plain version (``chip_smoke._p3_check``: zeros exactly, values
 within ``2^-14 * max(|v|, 1)``, ids >= 99.5 % equal, every mismatch a
 near-tie); P4 writes zeros; K1 cut by stage (``k1_stages``) holds its
@@ -37,6 +41,9 @@ P1_CASES = (
     (16384, 300, 19, 256, 129, 2, True, None),
     (16384, 96, 12, 1024, 100, 2, True, None),
     (8192, 768, 96, 256, 33, 1, False, None),
+    (8192, 768, 96, 256, 200, 3, True, None),
+    (16384, 96, 12, 256, 40, 2, True, "infq"),
+    (2560, 100, 8, 256, 300, 2, True, None),  # 20 blocks: fewer than the card's SMs
 )
 
 
@@ -81,7 +88,54 @@ def test_adc_probe_on_the_card(cuda_device, case, pipe):
                                         width=operands[2].shape[1], decode_mode=mode)
             plain = ap._decode_rows_plain(operands[0], operands[1], operands[3],
                                           operands[2].shape[1])
-            assert torch.equal(rows.view(torch.int16), plain.view(torch.int16)), mode
+            assert cs.rows_equal_but_zero_sign(rows, plain), mode
+
+
+# (n, D, m, K, code bytes): dsub 13, 8, 33 (two pieces) and 86 (three); K
+# 16 to 1024; int8, int16 and int32 codes
+DECODE_CASES = (
+    (1024, 52, 4, 16, 1), (2048, 64, 8, 64, 1), (4096, 104, 8, 256, 1),
+    (2048, 96, 12, 256, 2), (1024, 66, 2, 1024, 2), (1024, 172, 2, 64, 4),
+    (2048, 768, 96, 256, 1),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: f"n{c[0]}-d{c[1]}-K{c[3]}-b{c[4]}")
+def test_decoded_rows_exact_on_the_card(cuda_device, case):
+    """Every decode mode writes the plain gather's rows, bit for bit but for
+    the sign of a zero, with a -0.0 codeword, codes outside [0, K) and
+    padding rows (+0); the one-hot equals its register-map emulation."""
+    n, d, m, k_codes, code_bytes = case
+    gen = torch.Generator(device=cuda_device).manual_seed(n + k_codes)
+    dsub = d // m
+    cb = torch.randn((m, k_codes, dsub), generator=gen, device=cuda_device).to(torch.bfloat16)
+    cb[0, 5, 2] = -0.0
+    codes = torch.randint(0, k_codes, (m, n), generator=gen, device=cuda_device)
+    codes[0, :7] = 5
+    if code_bytes == 1:
+        codes_t = (codes - 128).to(torch.int8)
+        if k_codes < 256:
+            codes_t[1, 7:11] = 127  # code 255: no code at this K
+    else:
+        codes_t = codes.to(torch.int16 if code_bytes == 2 else torch.int32)
+        codes_t[1, 7:11] = -1
+        codes_t[0, 11] = k_codes
+    norms = torch.randn((2, n), generator=gen, device=cuda_device).to(torch.bfloat16)
+    width = -(-(m * dsub + 4) // 8) * 8
+    plain = ap._decode_rows_plain(codes_t, norms, cb, width)
+    for mode in ap.DECODE_MODES:
+        if mode == "bf16cmp" and k_codes > 256:
+            continue
+        before = ap.adc_probe_decode_launches
+        rows = ap.probe_decode_rows(codes_t, norms, cb, width=width, decode_mode=mode)
+        torch.cuda.synchronize()
+        assert ap.adc_probe_decode_launches == before + 1
+        assert cs.rows_equal_but_zero_sign(rows, plain), mode
+        if mode != "take" and n <= 2048 and m <= 12:
+            emu = ap.onehot_decode_rows_plain(codes_t.cpu(), norms.cpu(), cb.cpu(), width=width,
+                                              decode_mode=mode)
+            assert torch.equal(rows.cpu().view(torch.int16), emu.view(torch.int16)), mode
 
 
 @pytest.mark.cuda
