@@ -50,8 +50,13 @@ phases); any failure raises and the script exits non-zero:
    its bound at both shapes); the cut K1
    zeros exactly after its decode, else values within ``2^-14 * max(|v|,
    1)``. Each prints its ms (the card's time of one call, queued back to
-   back: ``probes.median_ms``), plain ms, bound, bytes read and K1's ms
-   on the same operands; then one ``stage_split`` line: for each of K1's
+   back: ``probes.median_ms``), plain ms, bound, bytes read, K1's ms on
+   the same operands and its library call (``library_ms``,
+   ``library_call``): for a decode-only cut (P3's grid variants, each
+   decode alone, K1 cut after its decode) one
+   ``torch.nn.functional.embedding`` over the flattened codebook
+   (``embedding_decode``), for a scored one the contraction's
+   ``torch.matmul``; then one ``stage_split`` line: for each of K1's
    operand sets floor (P4), decode, + contraction, + block min, +
    selection (K1 whole), full; and P3's own split (its tdec stages, K1
    on its operands, the no-decode ``tdec_cached``);
@@ -132,8 +137,9 @@ rate, whichever is largest, named in ``bound_resource``), ``library_ms``
 (one bare ``torch.matmul`` / ``torch._int_mm`` of the same operands:
 the contraction only, without the selection, writing the whole score
 matrix the kernels never materialise; for K1 on the operand decoded
-beforehand; null where ``torch._int_mm`` refuses the shape: 16 queries
-or fewer, a row count not a multiple of 8) and ``launches_per_batch``
+beforehand; a decode-only probe one ``embedding``; null where
+``torch._int_mm`` refuses the shape: 16 queries or fewer, a row count
+not a multiple of 8; ``library_call`` names it) and ``launches_per_batch``
 (launches per 1024-query batch on the path that runs that shape). Each
 path is driven with the launch counts set to 0 just before it and read
 just after; the comparisons of kernels with their plain versions run
@@ -167,6 +173,10 @@ PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 _INVALID_MIN = 1.0e38  # a block winner at/above this is padding
 _ROOT = os.path.dirname(os.path.abspath(__file__))
+# the library calls timed beside the kernels (``library_call``)
+MATMUL_CALL = "torch.matmul(queries, decoded rows^T), contraction only"
+EMBEDDING_CALL = ("torch.nn.functional.embedding(codes + s K, codebook [m K, dsub]), "
+                  "the decode only")
 
 # K1 edge shapes: (rows, D, m, K, queries, winners, centered, extra);
 # extra "nan" puts NaN norm lanes on every 300th row, "infq" makes query
@@ -559,7 +569,7 @@ def _k1_case(label, operands, winners, nblk, real, launches_per_batch,
         ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
         plain_ms=_plain_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
         library_ms=_kernel_ms(lambda: torch.matmul(q_op, dec.T)),
-        library_call="torch.matmul(queries, decoded rows^T), contraction only",
+        library_call=MATMUL_CALL,
         launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
     return case
@@ -666,6 +676,45 @@ def k1_stage_bound(operands, stage: str) -> dict:
     pairs = n_cols * q_n
     return dict(bound(moved, 2 * pairs * (m * dsub + 4) if level else 0, "bf16",
                       pairs if level == 2 else 0), bytes_read=moved - q_n * (n_cols // 128) * 4)
+
+
+def embedding_decode(codes_t, cb):
+    """The library call that decodes rows, for ``library_ms``: one
+    ``torch.nn.functional.embedding`` over the codebook flattened to ``[m
+    K, dsub]``, each subspace's codes offset by ``s K`` (prepared here,
+    outside the timed call), ``[N', m, dsub]`` out. Offset int8 codes are
+    K1's (code - 128). No path of the port calls it."""
+    import torch
+
+    m, k_codes, dsub = cb.shape
+    c = codes_t.to(torch.int64) + (128 if codes_t.dtype == torch.int8 else 0)
+    idx = (c.clamp(0, k_codes - 1)
+           + k_codes * torch.arange(m, device=c.device)[:, None]).T.contiguous()
+    flat = cb.reshape(m * k_codes, dsub).contiguous()
+    return lambda: torch.nn.functional.embedding(idx, flat)
+
+
+def _library(fn, call) -> dict:
+    """``library_ms`` (the device ms of ``fn``) and ``library_call``."""
+    return dict(library_ms=_kernel_ms(fn), library_call=call)
+
+
+def _p3_library(variant, p3_ops, dec) -> dict:
+    """The library call beside a P3 variant: none for noop; the decode
+    (``embedding_decode``) for the decode-only cuts; the contraction
+    (``torch.matmul`` of the queries and ``dec``, the decoded rows the
+    variant scores: tdec_i8's s8-decoded ones) for the scored stages."""
+    import torch
+
+    from gulon_tpu_torch.probes import kernel_probe as kp
+
+    stage, impl, _ = kp.spec(variant)
+    if stage == "noop":
+        return dict(library_ms=None, library_call=None)
+    if stage == "grid":
+        return _library(embedding_decode(p3_ops[0], p3_ops[3]), EMBEDDING_CALL)
+    call = MATMUL_CALL + (" (the s8-decoded rows)" if impl == "i8" else "")
+    return _library(lambda: torch.matmul(p3_ops[2], dec.T), call)
 
 
 def _p3_check(variant, got, ref, dec, norms, q_pad) -> dict:
@@ -816,6 +865,7 @@ def _k1_stage_cases(label, operands, nblk, k1_ms) -> dict:
     from gulon_tpu_torch.probes import k1_stages as ks
 
     out = {}
+    rows = k1_decoded(operands)  # the contraction's library yardstick
     for stage in ks.STAGES:
         got = ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
         torch.cuda.synchronize()
@@ -825,7 +875,10 @@ def _k1_stage_cases(label, operands, nblk, k1_ms) -> dict:
         case.update(
             **_ms_pair(lambda: ks.k1_stage_scan(*operands, stage=stage, nblk=nblk),
                        lambda: ks.plain(*operands, stage=stage, nblk=nblk)),
-            **k1_stage_bound(operands, stage), k1_ms=k1_ms, library_ms=None,
+            **k1_stage_bound(operands, stage), k1_ms=k1_ms,
+            **(_library(embedding_decode(operands[0], operands[3]), EMBEDDING_CALL)
+               if stage == "decode" else
+               _library(lambda: torch.matmul(operands[2], rows.T), MATMUL_CALL)),
         )
         _emit({"phase": "probes", "kernel": "K1 stages", "variant": f"{label} {stage}",
                **case})
@@ -873,7 +926,8 @@ def _decode_case(raw, mode) -> dict:
         **_ms_pair(lambda: ap.probe_decode_rows(codes_t, norms_hl, cb, width=width,
                                                 decode_mode=mode),
                    lambda: ap._decode_rows_plain(codes_t, norms_hl, cb, width)),
-        **bound(moved, mma, "bf16", 0), bytes_moved=moved, library_ms=None,
+        **bound(moved, mma, "bf16", 0), bytes_moved=moved,
+        **_library(embedding_decode(codes_t, cb), EMBEDDING_CALL),
     )
 
 
@@ -932,8 +986,7 @@ def phase_probes(seed: int, smi: str) -> dict:
             **_ms_pair(run, lambda: kp.plain(variant, *p3_ops, tile_rows=hs["t"],
                                              query_tile=hs["qt"])),
             **p3_bound(variant, p3_ops, read), k1_ms=k1_ms["p3_headline"],
-            library_ms=_kernel_ms(lambda: torch.matmul(p3_ops[2], dec.T))
-            if impl == "cached" else None,
+            **_p3_library(variant, p3_ops, vdec),
         )
         _emit({"phase": "probes", "kernel": "P3", "variant": variant, **case})
         if not case["ok"]:
@@ -978,7 +1031,7 @@ def phase_probes(seed: int, smi: str) -> dict:
                 k1_ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=1,
                                                               nblk=ops["nblk"])),
                 library_ms=_kernel_ms(lambda: torch.matmul(ops["q_op"], plain_rows.T)),
-                library_call="torch.matmul(queries, decoded rows^T), contraction only",
+                library_call=MATMUL_CALL,
                 bytes_read=sum(t.numel() * t.element_size() for t in operands),
                 **k1_bound(operands, 1),
             )
@@ -1536,7 +1589,7 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
         ms=_kernel_ms(lambda: adc.fused_block_scan(*operands, winners=winners, nblk=nblk)),
         plain_ms=_plain_ms(lambda: adc._block_scan_plain(*operands, winners=winners, nblk=nblk)),
         library_ms=_kernel_ms(lambda: torch.matmul(operands[2], dec.T)),
-        library_call="torch.matmul(queries, decoded rows^T), contraction only",
+        library_call=MATMUL_CALL,
         launches_per_batch=launches_per_batch, **k1_bound(operands, winners),
     )
     _emit({"phase": phase, **case})
@@ -2850,7 +2903,7 @@ def _probe_entries(probes) -> list:
     representative variant (the TPU probe's default decode, or its first
     variant), every variant's beside it."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_resource", "library_ms",
-            "bytes_read", "k1_ms")
+            "library_call", "bytes_read", "k1_ms")
     rows = (
         ("adc_probe", "P1", "p1", "gulon_tpu_torch/csrc/adc_probes.cu",
          "benchmarks/adc_probes.py:153", "glove100 base"),
@@ -2923,17 +2976,18 @@ def main(argv=None) -> int:
     adc_probes._kernel()
     kernel_probe._kernel()
     floor_probe._kernel()
+    sys.path.insert(0, os.path.join(_ROOT, "scripts"))
+    from onehot_ab import ptxas_by_kernel
+
     for name in sources:
         seconds, report = _build.BUILD_INFO.get(name, (0.0, ""))
         _emit({
             "phase": "build", "kernel": name, "nvcc_seconds": seconds,
             "seconds": time.perf_counter() - t0,
             "library": str(_build.library_path(name).name),
-            "ptxas": sorted({
-                line.strip() for line in report.splitlines()
-                if "registers" in line or "spill" in line or "wgmma" in line
-                or "arning" in line
-            }),
+            # registers, spill bytes and serialization warnings (C751x) of
+            # each kernel instantiation
+            "ptxas": ptxas_by_kernel(report),
         })
 
     main_path, glove = phase_main_path(args.seed)

@@ -98,18 +98,6 @@ def resolve_modes(
     return dict(decode_mode=decode_mode, natural=natural, pipe=pipe, tile_rows=t)
 
 
-def cb_transposed(cb: torch.Tensor, multiple: int = 64) -> torch.Tensor:
-    """``[m, K, dsub] -> [m, dpad, kpad]`` (dsub to 16, K to ``multiple``),
-    zero padded: the codebook slices the one-hot decodes (P1-P3) contract."""
-    m, k_codes, dsub = cb.shape
-    out = torch.zeros(
-        (m, _round_up(dsub, 16), _round_up(k_codes, multiple)), dtype=cb.dtype,
-        device=cb.device,
-    )
-    out[:, :dsub, :k_codes] = cb.transpose(1, 2)
-    return out
-
-
 _CHUNK = 64  # bf16 lanes of a 128-byte row: one decoded chunk
 _CHUNK_BYTES = 128 * 128  # one [128 rows][64] bf16 chunk
 _SMEM_LIMIT = 232_448  # dynamic shared memory of a block (227 KB)
@@ -217,16 +205,18 @@ def probe_plan(*, m: int, k_codes: int, dsub: int, code_bytes: int, decode_mode:
     raise ValueError("no probe plan fits 227 KB of shared memory")
 
 
-def cb_slices(cb: torch.Tensor, lanes: int, pieces: int) -> torch.Tensor:
-    """``[m, K, dsub] -> [m, pieces, K/64, lanes, 64]`` (K to 64, lanes
-    past dsub zero): the codebook slices of the one-hot decode (P1 / P2),
-    each ``[lanes][64 codes]`` the K-major B tile of one 64-code chunk of
-    one piece, so that a subspace's slices are one contiguous copy."""
+def cb_slices(cb: torch.Tensor, lanes: int, pieces: int, chunk: int = _CHUNK) -> torch.Tensor:
+    """``[m, K, dsub] -> [m, pieces, K/chunk, lanes, chunk]`` (K to
+    ``chunk``, lanes past dsub zero): the codebook slices of the one-hot
+    decodes (P1-P3), each ``[lanes][chunk codes]`` the K-major B tile of one
+    chunk of codes of one piece (128 bytes a row: 64 bf16 codes, or 128 for
+    P3's s8 codewords), so that a subspace's slices are one contiguous
+    copy."""
     m, k_codes, dsub = cb.shape
-    kc = -(-k_codes // _CHUNK)
-    t = torch.zeros((m, kc * _CHUNK, pieces * lanes), dtype=cb.dtype, device=cb.device)
+    kc = -(-k_codes // chunk)
+    t = torch.zeros((m, kc * chunk, pieces * lanes), dtype=cb.dtype, device=cb.device)
     t[:, :k_codes, :dsub] = cb
-    return t.reshape(m, kc, _CHUNK, pieces, lanes).permute(0, 3, 1, 4, 2).contiguous()
+    return t.reshape(m, kc, chunk, pieces, lanes).permute(0, 3, 1, 4, 2).contiguous()
 
 
 def _plan_array(plan: dict):
@@ -352,37 +342,59 @@ def _decode_rows_plain(codes_t, norms_hl, cb, width: int) -> torch.Tensor:
     ], dim=1)
 
 
-def _pair_bits(code: torch.Tensor, k: torch.Tensor, decode_mode: str) -> torch.Tensor:
-    """One A register: the one-hot bits of (code == k, code == k + 1) as a
-    bf16 pair, low half first (``onehot_rs.cuh`` pair_int / pair_bf16)."""
-    if decode_mode == "bf16cmp":  # compares of bf16-rounded values
-        c = code.to(torch.bfloat16)
-        lo = c == k.to(torch.bfloat16)
-        hi = c == (k + 1).to(torch.bfloat16)
-    else:
-        lo, hi = code == k, code == k + 1
-    return lo.to(torch.int64) * 0x3F80 | hi.to(torch.int64) * 0x3F80_0000
+def _register_bits(code: torch.Tensor, k: torch.Tensor, recipe: str) -> torch.Tensor:
+    """The one-hot bits of one A register, ``[..., per]`` (0 / 1): whether
+    the code matches each of the register's columns ``k + e``, computed as
+    ``onehot_rs.cuh`` builds them: an int compare (``base``; ``pair_int``),
+    bf16 pair compares (``bf16cmp``), the hi-nibble match of the pair
+    ANDed with the lo-nibble one (``nib``; k even), offset int8 bytes
+    compared (``cmp8``), and four s8 columns a register (``i8``)."""
+    per = 4 if recipe == "i8" else 2
+    cols = k[..., None] + torch.arange(per)
+    code = code[..., None]
+    if recipe == "bf16cmp":
+        return code.to(torch.bfloat16) == cols.to(torch.bfloat16)
+    if recipe == "nib":
+        return ((code >> 4) == (k[..., None] >> 4)) & ((code & 15) == (k[..., None] & 15) + (
+            cols - k[..., None]))
+    if recipe == "cmp8":
+        return ((code - 128) & 0xFF) == ((cols - 128) & 0xFF)
+    return code == cols
 
 
 def onehot_decode_rows_plain(
     codes_t: torch.Tensor, norms_hl: torch.Tensor, cb: torch.Tensor, *, width: int,
-    decode_mode: str = "base",
+    decode_mode: str = "base", lanes: Optional[int] = None, i8=None,
 ) -> torch.Tensor:
-    """A plain emulation of the one-hot decode of P1 / P2
+    """A plain emulation of the one-hot decode of P1 - P3
     (``onehot_rs.cuh``), register by register: for each 64-row group, warp
     w, lane and k-step, the four A registers of wgmma m64nNk16 (rows 16 w
     + lane / 4 and + 8, k columns 2 (lane % 4) + {0, 1} and + 8) from the
     rows' codes, placed by that map into the one-hot, multiplied in f32 by
-    the ``cb_slices`` tiles chunk by chunk, and stored through the
+    the ``cb_slices`` tiles group by group, and stored through the
     accumulator map (row 16 w + lane / 4 + 8 i, lane 8 j + 2 (lane % 4) +
     h) under the kernel's chunk, subspace and piece loop. ``[N', width]``
     bf16, as :func:`_decode_rows_plain`: equal to it bit for bit but for
     the sign of a zero (a -0.0 codeword may decode to +0.0: the f32 sum of
-    its one product and the zero products is +0.0 once any term is)."""
+    its one product and the zero products is +0.0 once any term is).
+
+    ``decode_mode`` is the recipe: P1 / P2's
+    ``base`` and ``bf16cmp``, P3's ``nib`` and ``cmp8`` (bf16 one-hots),
+    and ``i8``: the A fragment of m64nNk32 (k columns 4 (lane % 4) + {0 ..
+    3} and + 16, 128 codes a group) against the s8 codewords of ``i8 =
+    (cb_i8 [m, K, dsub], scale [m])``, the exact sum times its subspace's
+    scale rounded to bf16. ``lanes``: the piece width (P1 / P2's
+    :func:`onehot_lanes` by default; P3 takes 16)."""
     m, n_cols = codes_t.shape
     _, k_codes, dsub = cb.shape
-    lanes, pieces = onehot_lanes(dsub)
-    slices = cb_slices(cb, lanes, pieces).to(torch.float32)  # [m, P, kc, N, 64]
+    s8 = decode_mode == "i8"
+    if lanes is None:
+        lanes, pieces = onehot_lanes(dsub)
+    else:
+        pieces = -(-dsub // lanes)
+    group = 2 * _CHUNK if s8 else _CHUNK  # codes a commit group covers
+    per, step = (4, 32) if s8 else (2, 16)  # columns a register, codes a k-step
+    slices = cb_slices(i8[0] if s8 else cb, lanes, pieces, group).to(torch.float32)
     kc = slices.shape[2]
     md = m * dsub
     c = codes_t.to(torch.int64) + (128 if codes_t.dtype == torch.int8 else 0)
@@ -391,10 +403,10 @@ def onehot_decode_rows_plain(
     g, tq = lane // 4, lane % 4
     warp = torch.arange(4)[:, None]
     reg = torch.arange(4)
-    # [warp, lane, reg]: the row (of 64) and the k column (of a k-step) of
-    # register reg's low half
+    # [warp, lane, reg]: the row (of 64) and the first k column (of a
+    # k-step) of register reg
     row_of = (16 * warp + g)[..., None] + 8 * (reg % 2)
-    col_of = (2 * tq)[None, :, None] + 8 * (reg // 2) + 0 * warp[..., None]
+    col_of = (per * tq)[None, :, None] + (step // 2) * (reg // 2) + 0 * warp[..., None]
     out = _decode_rows_plain(codes_t, norms_hl, cb, width).clone()
     out[:, :md] = 0
     dec = out.view(n_cols // 64, 64, width)
@@ -410,21 +422,22 @@ def onehot_decode_rows_plain(
                     continue
                 acc = None
                 for kch in range(kc):
-                    a = torch.zeros((n_cols // 64, 64, _CHUNK), dtype=torch.float32)
+                    a = torch.zeros((n_cols // 64, 64, group), dtype=torch.float32)
                     for ks in range(4):
-                        k = 64 * kch + 16 * ks + col_of
-                        bits = _pair_bits(code, k, decode_mode)
-                        for half in range(2):
-                            v = ((bits >> (16 * half)) & 0xFFFF).to(torch.int16)
-                            a[groups, row_of, (k - 64 * kch + half).expand_as(row_of)] = (
-                                v.view(torch.bfloat16).to(torch.float32)
-                            )
+                        k = group * kch + step * ks + col_of
+                        bits = _register_bits(code, k, decode_mode)
+                        for e in range(per):
+                            a[groups, row_of, (k - group * kch + e).expand_as(row_of)] = (
+                                bits[..., e].to(torch.float32))
                     prod = a @ slices[s_, p, kch].T
                     acc = prod if acc is None else acc + prod
                 n = torch.arange(lanes)
                 col = s_ * dsub + p * lanes + n
                 ok = (p * lanes + n < dsub) & (col >= c0) & (col < c1)
-                dec[:, :, col[ok]] = acc[:, :, ok].to(torch.bfloat16)
+                vals = acc[:, :, ok]
+                if s8:
+                    vals = vals * i8[1][s_].to(torch.float32)
+                dec[:, :, col[ok]] = vals.to(torch.bfloat16)
                 done[col[ok]] += 1
     if not bool((done == 1).all()):
         raise AssertionError("every codeword column is written exactly once")

@@ -25,9 +25,15 @@ norm row, no hi/lo lanes. Variants (:data:`VARIANTS`):
   ``min_only``, ``full`` (min, then the lowest row), ``packed_lane`` (the
   sign-folded key).
 
-:func:`make` prepares a variant's operands once (the int8 codes, the s8
-codebooks and scales, the decoded operand), as the TPU probe did outside
-its timed loop, and returns the launch; :func:`kernel_probe` is one call.
+:func:`make` prepares a variant's operands once (the int8 codes, the
+one-hot's codebook slices, bf16 or s8 with their scales, the decoded
+operand), as the TPU probe did outside its timed loop, and returns the
+launch; :func:`kernel_probe` is one call. On the card the one-hot is
+built in ``wgmma``'s register operand by decode warpgroups beside the
+contraction (``csrc/kernel_probe.cu`` says how), with the codebook slices
+resident in shared memory: a shape whose slices, two decoded 128-row
+blocks and two query stages do not fit 227 KB is refused (a
+``RuntimeError`` from the launch).
 CUDA tensors launch the kernel (or raise); CPU tensors take the variant's
 plain version. Operands come from numpy (:func:`probe_operands`, seed 0):
 ``jax.random.key(0)`` cannot be replayed here, so no new carrier is
@@ -49,10 +55,11 @@ import torch
 from gulon_tpu_torch.ops.cuda.adc import _LANES, _round_up
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.probes import median_ms
-from gulon_tpu_torch.probes.adc_probes import cb_transposed
+from gulon_tpu_torch.probes.adc_probes import cb_slices
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 _INT_BIG = 2**30
+_ONEHOT_LANES = 16  # P3's one-hot pieces (wgmma N): ceil(dsub / 16) of them
 _STAGES = ("noop", "grid", "noselect", "min", "match", "packed")
 _IMPLS = {"": 0, "nib": 2, "cmp8": 3, "i8": 4, "cached": 5}
 _TDEC = {f"tdec_{s}": s for s in _STAGES}
@@ -207,13 +214,22 @@ def _kernel():
         fn.argtypes = (
             [ctypes.c_int] * 3  # stage, impl, natural
             + [ctypes.c_void_p, ctypes.c_int]  # codes, code bytes
-            + [ctypes.c_void_p] * 7  # norms, queries, cbT, scale, cache, vals, ids
-            + [ctypes.c_int] * 9  # n_cols num_q mdp m K kpad dsub nblk qt
+            + [ctypes.c_void_p] * 7  # norms, queries, slices, scale, cache, vals, ids
+            + [ctypes.c_int] * 9  # n_cols num_q mdp m K dsub pieces nblk qt
             + [ctypes.c_void_p]  # stream
         )
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _slices(cb, chunk: int) -> torch.Tensor:
+    """P3's one-hot slices (``adc_probes.cb_slices``): pieces of 16 lanes,
+    K padded with zero codewords to an even count of ``chunk``-code chunks
+    (the kernel's decode groups take two chunks)."""
+    k_codes = cb.shape[1]
+    cb = torch.nn.functional.pad(cb, (0, 0, 0, -k_codes % (2 * chunk)))
+    return cb_slices(cb, _ONEHOT_LANES, -(-cb.shape[2] // _ONEHOT_LANES), chunk)
 
 
 def make(
@@ -257,13 +273,12 @@ def make(
     else:
         codes = codes_t.to(torch.int32).contiguous()
     cache = decoded_rows(codes_t, cb, mdp).contiguous() if impl == "cached" else None
-    if impl == "i8":
-        cb_t = cb_transposed(i8[0], 128).contiguous()
-        scale = i8[1].contiguous()
+    if impl == "i8":  # s8 codewords, 128 codes a slice row
+        slices, scale = _slices(i8[0], 128), i8[1].contiguous()
     elif impl != "cached":
-        cb_t, scale = cb_transposed(cb, 64).contiguous(), None
+        slices, scale = _slices(cb, 64), None
     else:
-        cb_t = scale = None
+        slices = scale = None
     if q_pad.data_ptr() % 16:
         raise ValueError("queries must be 16-byte aligned")
     lib = _kernel()
@@ -278,9 +293,9 @@ def make(
             ids = torch.empty((npad // _LANES, num_q), dtype=torch.int32, device=device)
             err = lib.gulon_kernel_probe(
                 _STAGES.index(stage), _IMPLS[impl], int(natural), codes.data_ptr(),
-                codes.element_size(), norms.data_ptr(), q_pad.data_ptr(), ptr(cb_t),
+                codes.element_size(), norms.data_ptr(), q_pad.data_ptr(), ptr(slices),
                 ptr(scale), ptr(cache), vals.data_ptr(), ids.data_ptr(), npad, num_q, mdp, m,
-                k_codes, 0 if cb_t is None else cb_t.shape[2], dsub, nblk, query_tile,
+                k_codes, dsub, -(-dsub // _ONEHOT_LANES), nblk, query_tile,
                 torch.cuda.current_stream().cuda_stream,
             )
         if err != 0:

@@ -440,6 +440,48 @@ def test_p3_plain_matches_the_tpu_variant(p3_operands, variant):
         assert not vals.any() and not ids.any()
 
 
+# (n, m, K, dsub): P3's headline widths (dsub 13: one piece of 16), dsub 8,
+# 24 and 32 (two pieces), K 16 to 1024; cmp8 and i8 take K <= 256
+P3_EMULATION_CASES = [(256, 8, 256, 13), (256, 4, 16, 8), (128, 3, 64, 24), (128, 2, 256, 32),
+                      (128, 2, 1024, 13)]
+P3_RECIPES = {"int": "base", "nib": "nib", "cmp8": "cmp8", "i8": "i8"}
+
+
+@pytest.mark.parametrize("case,recipe", [
+    (case, recipe) for case in P3_EMULATION_CASES for recipe in P3_RECIPES
+    if case[2] <= 256 or recipe in ("int", "nib")
+], ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_p3_onehot_register_map_decodes_the_gather(case, recipe):
+    """P3's one-hot recipes (``onehot_rs.cuh``: an int compare, nibble
+    matches ANDed, offset int8 bytes compared four at a time, an s8
+    one-hot against s8 codewords in the k32 fragment) emulated register by
+    register at P3's piece width 16 equal ``kernel_probe.decoded_rows`` bit
+    for bit but for the sign of a zero: a -0.0 codeword comes out of a bf16
+    one-hot as +0.0; the s8 sum is exact, so ``i8`` matches bit for bit."""
+    n, m, k_codes, dsub = case
+    rng = np.random.default_rng(n + k_codes + dsub)
+    cb = torch.from_numpy(rng.normal(size=(m, k_codes, dsub)).astype(np.float32))
+    cb = cb.to(torch.bfloat16)
+    cb[0, 5, 2] = -0.0
+    codes_t = torch.from_numpy(rng.integers(0, k_codes, size=(m, n)).astype(np.int32))
+    codes_t[0, :7] = 5  # the -0.0 codeword
+    md = m * dsub
+    mdp = -(-md // 8) * 8
+    i8 = kp.quantize_codebooks(cb) if recipe == "i8" else None
+    emu = tp.onehot_decode_rows_plain(
+        codes_t, torch.zeros((2, n), dtype=torch.bfloat16), cb, width=-(-(md + 4) // 8) * 8,
+        decode_mode=P3_RECIPES[recipe], lanes=16, i8=i8)[:, :md]
+    ref = kp.decoded_rows(codes_t, cb, mdp, i8)[:, :md]
+    canon = lambda x: (x.float() + 0.0).to(torch.bfloat16).view(torch.int16)  # noqa: E731
+    assert torch.equal(canon(emu), canon(ref))
+    bits = emu.view(torch.int16) == ref.view(torch.int16)
+    if recipe == "i8":
+        assert bool(bits.all())
+    else:
+        assert not bool(bits[:7, 2].any())  # -0.0 gathered, +0.0 from the one-hot
+        assert bool(bits[:, 3:].all()) and int(emu[0, 2].view(torch.int16)) == 0
+
+
 def test_p3_rejects_bad_shapes(p3_operands):
     with pytest.raises(ValueError, match="unknown"):
         kp.kernel_probe("tdec_fast", *p3_operands, tile_rows=1024, device="cpu")
