@@ -789,10 +789,11 @@ def _probe_path(shapes, p3_ops, p4_ops, stage_ops) -> dict:
 
     from gulon_tpu_torch.probes import (adc_probes as ap, floor_probe as fp,
                                         k1_stages as ks, kernel_probe as kp)
+    from gulon_tpu_torch.utils import tracing
 
-    ap.adc_probe_kernel_launches = ap.adc_probe_pipe_kernel_launches = 0
-    kp.kernel_probe_kernel_launches = fp.floor_probe_kernel_launches = 0
-    ks.k1_stage_kernel_launches = 0
+    names = {"P1": "p1", "P2": "p2", "P3": "p3", "P4": "p4", "K1 stages": "k1_stages"}
+    for name in names.values():
+        tracing.set_counter(f"probe.{name}.launches", 0)
     resolved = {}
     for variant in fp.VARIANTS:
         fp.floor_probe(variant, *p4_ops)
@@ -809,9 +810,8 @@ def _probe_path(shapes, p3_ops, p4_ops, stage_ops) -> dict:
             ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
     torch.cuda.synchronize()
     return dict(
-        launches={"P1": ap.adc_probe_kernel_launches, "P2": ap.adc_probe_pipe_kernel_launches,
-                  "P3": kp.kernel_probe_kernel_launches, "P4": fp.floor_probe_kernel_launches,
-                  "K1 stages": ks.k1_stage_kernel_launches},
+        launches={label: tracing.counter(f"probe.{name}.launches")
+                  for label, name in names.items()},
         resolved=resolved,
     )
 
@@ -1275,14 +1275,14 @@ def phase_main_path(seed: int):
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.utils import tracing
 
     n, d, batch, k = 400_000, 100, 1024, 10
     x = low_rank_corpus(seed, n, d)
     keys = np.array([f"w{i:07d}" for i in range(n)], dtype=object)
     rng = np.random.default_rng(seed + 1)
 
-    adc.adc_scan_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = gt.build_flat_index(
@@ -1304,18 +1304,18 @@ def phase_main_path(seed: int):
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
     for rows in batches:
         fused_ms.append(_serve_checked(index, x, rows, k))
-        before = adc.adc_scan_kernel_launches
+        before = tracing.counter("k1.launches")
         decode_ms.append(_serve(decode, x, rows, k)[0])
-        if adc.adc_scan_kernel_launches != before:
+        if tracing.counter("k1.launches") != before:
             raise AssertionError("the decode strategy launched K1")
-    launches_serve = adc.adc_scan_kernel_launches
+    launches_serve = tracing.counter("k1.launches")
 
     truth = gt.sample_ground_truth(
         keys, x, num_samples=1000, ks=(1, 10), device="cuda"
     )
     rec_fused = gt.recall_of(index, truth, x, keys)
     rec_decode = gt.recall_of(decode, truth, x, keys)
-    launches = adc.adc_scan_kernel_launches
+    launches = tracing.counter("k1.launches")
     ratio = rec_fused[10].mean / max(rec_decode[10].mean, 1e-12)
     out = dict(
         n=n, d=d, pq="8x256", batch=batch, k=k, build_s=build_s,
@@ -1344,7 +1344,7 @@ def phase_exact_path(seed: int, x) -> dict:
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import dense
+    from gulon_tpu_torch.utils import tracing
 
     n, d = x.shape
     batch, k = 1024, 10
@@ -1352,8 +1352,8 @@ def phase_exact_path(seed: int, x) -> dict:
     rng = np.random.default_rng(seed + 2)
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
 
-    dense.dense_scan_kernel_launches = 0
-    dense.dense_scan_i8_kernel_launches = 0
+    tracing.set_counter("k2.launches", 0)
+    tracing.set_counter("k3.launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = gt.build_exact_index(keys, x, device="cuda")
@@ -1370,10 +1370,10 @@ def phase_exact_path(seed: int, x) -> dict:
     truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10), device="cuda")
     out = dict(n=n, d=d, batch=batch, k=k, build_s=build_s, strategy=strategy)
     for name, idx in routes.items():
-        before = (dense.dense_scan_kernel_launches, dense.dense_scan_i8_kernel_launches)
+        before = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
         ms = [_serve_checked(idx, x, rows, k) for rows in batches]
-        served = (dense.dense_scan_kernel_launches - before[0],
-                  dense.dense_scan_i8_kernel_launches - before[1])
+        served = (tracing.counter("k2.launches") - before[0],
+                  tracing.counter("k3.launches") - before[1])
         rec = gt.recall_of(idx, truth, x, keys)
         out[name] = dict(
             ms_per_batch=ms, launches_k2_k3=list(served),
@@ -1381,8 +1381,8 @@ def phase_exact_path(seed: int, x) -> dict:
             recall={1: rec[1].mean, 10: rec[10].mean},
         )
     out["resolved_operand_int8"] = routes["int8"].resolved_operand
-    out["launches_k2"] = dense.dense_scan_kernel_launches
-    out["launches_k3"] = dense.dense_scan_i8_kernel_launches
+    out["launches_k2"] = tracing.counter("k2.launches")
+    out["launches_k3"] = tracing.counter("k3.launches")
     xla10 = max(out["xla"]["recall"][10], 1e-12)
     out["recall10_ratio"] = {
         "bf16": out["bf16"]["recall"][10] / xla10,
@@ -1410,12 +1410,12 @@ def phase_cached_path(glove) -> dict:
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import dense
+    from gulon_tpu_torch.utils import tracing
 
     index, x, keys = glove["index"], glove["x"], glove["keys"]
     batch, k = 1024, 10
     rng = np.random.default_rng(4)
-    dense.dense_scan_kernel_launches = 0
+    tracing.set_counter("k2.launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index.enable_cache()
@@ -1430,11 +1430,11 @@ def phase_cached_path(glove) -> dict:
     batches = [rng.choice(len(x), batch, replace=False) for _ in range(4)]
     for rows in batches:
         cached_ms.append(_serve_checked(index, x, rows, k))
-        before = dense.dense_scan_kernel_launches
+        before = tracing.counter("k2.launches")
         pallas_ms.append(_serve(pallas, x, rows, k)[0])
-        if dense.dense_scan_kernel_launches != before:
+        if tracing.counter("k2.launches") != before:
             raise AssertionError("the pallas strategy launched K2")
-    launches_serve = dense.dense_scan_kernel_launches
+    launches_serve = tracing.counter("k2.launches")
     rec = gt.recall_of(index, glove["truth"], x, keys)
     rec_decode = glove["rec_decode"]
     out = dict(
@@ -1442,7 +1442,7 @@ def phase_cached_path(glove) -> dict:
         cache_dtype=cache_dtype,
         cached_ms_per_batch=cached_ms, pallas_ms_per_batch=pallas_ms,
         launches_serve=launches_serve, launches_per_batch=launches_serve / len(batches),
-        launches=dense.dense_scan_kernel_launches,
+        launches=tracing.counter("k2.launches"),
         recall_cached={1: rec[1].mean, 10: rec[10].mean},
         recall_decode={1: rec_decode[1].mean, 10: rec_decode[10].mean},
         recall10_ratio=rec[10].mean / max(rec_decode[10].mean, 1e-12),
@@ -1611,7 +1611,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import adc
+    from gulon_tpu_torch.utils import tracing
 
     d, batch, k = 96, 1024, 10
     x = low_rank_corpus(seed, n, d, intrinsic=24, n_clusters=4096)
@@ -1619,7 +1619,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
     rng = np.random.default_rng(seed + 5)
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
 
-    adc.adc_scan_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = gt.build_ivf_index(
@@ -1659,13 +1659,13 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
         build_s=build_s, layout_s=layout_s, strategy=strategy, rebuild=rebuild,
     )
     for name, idx in routes.items():
-        before = adc.adc_scan_kernel_launches
+        before = tracing.counter("k1.launches")
         out[name] = dict(
             ms_per_batch=[_serve_checked(idx, x, rows, k) for rows in batches],
-            launches=adc.adc_scan_kernel_launches - before,
+            launches=tracing.counter("k1.launches") - before,
         )
         out[name]["launches_per_batch"] = out[name]["launches"] / len(batches)
-    launches_serve = adc.adc_scan_kernel_launches
+    launches_serve = tracing.counter("k1.launches")
 
     # small batches go sublinear and return the masked scan's distances
     # (all three at full f32, so only summation order differs)
@@ -1703,7 +1703,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
         for name in ("pallas_w4", "pallas_w2_rescore4", "pallas_w2")
     }
     out["launches_serve"] = launches_serve
-    out["launches"] = adc.adc_scan_kernel_launches
+    out["launches"] = tracing.counter("k1.launches")
     _emit({"phase": "ivf_path", **out})
     if min(out[name]["launches"] for name in routes if name != "masked") < 4:
         raise AssertionError(f"K1 launched too rarely on the IVF routes: {out}")
@@ -1806,17 +1806,17 @@ class _Cli:
 
     def __call__(self, label, argv, stdin=None) -> str:
         from gulon_tpu_torch import cli
-        from gulon_tpu_torch.ops.cuda import adc, dense
+        from gulon_tpu_torch.utils import tracing
 
-        before = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
-                  dense.dense_scan_i8_kernel_launches)
+        before = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
+                  tracing.counter("k3.launches"))
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
         self.seconds[label] = time.perf_counter() - t0
-        after = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
-                 dense.dense_scan_i8_kernel_launches)
+        after = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
+                 tracing.counter("k3.launches"))
         for name, b, a in zip(("K1", "K2", "K3"), before, after):
             self.launches[name] += a - b
         if rc != 0:
@@ -1923,9 +1923,8 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import adc, dense
     from gulon_tpu_torch.parallel import make_mesh, shard_index
-    from gulon_tpu_torch.utils import native
+    from gulon_tpu_torch.utils import native, tracing
 
     d, batch, k = 100, 1024, 10
     x = low_rank_corpus(seed, n, d)
@@ -1935,9 +1934,9 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
     q_keys = np.array([f"q{i:04d}" for i in range(batch)], dtype=object)
     new_x = rng.standard_normal((1000, d), dtype=np.float32)  # off the corpus
     new_keys = np.array([f"new{i:04d}" for i in range(1000)], dtype=object)
-    adc.adc_scan_kernel_launches = 0
-    dense.dense_scan_kernel_launches = 0
-    dense.dense_scan_i8_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
+    tracing.set_counter("k2.launches", 0)
+    tracing.set_counter("k3.launches", 0)
     run = _Cli()
     out = dict(n=n, d=d, card=smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2240,7 +2239,7 @@ def _streaming_child(path: str, train_sample: int) -> dict:
     import gulon_tpu_torch as gt
     from gulon_tpu_torch.models.streaming import _DEFAULT_CHUNK
     from gulon_tpu_torch.ops.cuda import adc
-    from gulon_tpu_torch.utils import native
+    from gulon_tpu_torch.utils import native, tracing
 
     torch.cuda.init()
     adc._kernel()  # the library the parent built
@@ -2316,22 +2315,22 @@ def _streaming_child(path: str, train_sample: int) -> dict:
 
     rng = np.random.default_rng(31)
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
-    adc.adc_scan_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
     strategy = index.resolve_strategy(batch, k)
     ms = [_serve_checked(index, x, rows, k) for rows in batches]
-    launches = adc.adc_scan_kernel_launches
+    launches = tracing.counter("k1.launches")
     truth = gt.sample_ground_truth(keys, x, num_samples=1000, ks=(1, 10))
     rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in (
         ("fused", index), ("decode", dataclasses.replace(index, scan_strategy="decode")))}
     out["flat"] = dict(strategy=strategy, ms_per_batch=ms, recall10=rec,
                        recall10_ratio=rec["fused"] / max(rec["decode"], 1e-12))
     # the comparison's launches are not the path's
-    counted = adc.adc_scan_kernel_launches
+    counted = tracing.counter("k1.launches")
     out["flat"]["kernel"] = _flat_kernel_check(
         index, index._prepare_queries(x[batches[0]]), launches / len(batches),
         "streaming_flat_kernel",
     )
-    adc.adc_scan_kernel_launches = counted
+    tracing.set_counter("k1.launches", counted)
     del index
     torch.cuda.empty_cache()
 
@@ -2348,9 +2347,9 @@ def _streaming_child(path: str, train_sample: int) -> dict:
     equal["codebooks"] = bool(torch.equal(ivf.pq.codebooks, again.pq.codebooks))
     del again, ivf_runs
     strategy = ivf.resolve_strategy(batch, k)
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     ms = [_serve_checked(ivf, x, rows, k) for rows in batches]
-    ivf_serve_launches = adc.adc_scan_kernel_launches - before
+    ivf_serve_launches = tracing.counter("k1.launches") - before
     rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in (
         ("pallas", ivf), ("masked", dataclasses.replace(ivf, scan_strategy="masked")))}
     out["ivf"] = dict(
@@ -2359,7 +2358,7 @@ def _streaming_child(path: str, train_sample: int) -> dict:
         recall10=rec, recall10_ratio=rec["pallas"] / max(rec["masked"], 1e-12),
         rebuild_bit_equal=equal,
     )
-    out["launches"] = adc.adc_scan_kernel_launches
+    out["launches"] = tracing.counter("k1.launches")
     out["ivf"]["kernel"] = _ivf_kernel_check(
         ivf, torch.from_numpy(x[batches[0]]).cuda(), ivf_serve_launches / len(batches),
         "streaming_ivf_kernel",
@@ -2429,15 +2428,15 @@ def phase_packed(glove, smi: str) -> dict:
     import torch
 
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.utils import tracing
 
     x, keys = glove["x"], glove["keys"]
     batch, k = 1024, 10
     rng = np.random.default_rng(12)
     batches = [rng.choice(len(x), batch, replace=False) for _ in range(4)]
     out = dict(n=len(x), d=x.shape[1], card=smi)
-    before = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
-              dense.dense_scan_i8_kernel_launches)
+    before = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
+              tracing.counter("k3.launches"))
     with tempfile.TemporaryDirectory() as tmp:
         for clusters, width in ((16, 4), (4, 2)):
             plain = gt.build_flat_index(keys, x, pq_config=gt.PQConfig(
@@ -2464,8 +2463,8 @@ def phase_packed(glove, smi: str) -> dict:
                 ms_per_batch=ms, unpacked_decode_ms_per_batch=ms_plain, results_equal=equal,
                 file_bytes_equal=pathlib.Path(a).read_bytes() == pathlib.Path(b).read_bytes(),
             )
-    after = (adc.adc_scan_kernel_launches, dense.dense_scan_kernel_launches,
-             dense.dense_scan_i8_kernel_launches)
+    after = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
+             tracing.counter("k3.launches"))
     out["launches"] = [a - b for a, b in zip(after, before)]
     _emit({"phase": "packed", **out})
     bad = [w for w in ("4bit", "2bit") if not (
@@ -2544,6 +2543,7 @@ def _mesh_child(rank: int, port: int, work: str, backend: str) -> dict:
     import gulon_tpu_torch as gt
     from gulon_tpu_torch.ops.cuda import adc
     from gulon_tpu_torch.parallel import distributed_init, make_mesh, shard_index
+    from gulon_tpu_torch.utils import tracing
 
     dev = torch.device("cuda", rank if torch.cuda.device_count() >= 2 else 0)
     distributed_init(devices=[dev], backend=backend, world_size=2, rank=rank,
@@ -2563,13 +2563,13 @@ def _mesh_child(rank: int, port: int, work: str, backend: str) -> dict:
     index = gt.load_index(os.path.join(work, "glove.pb"), device=dev)
     q = np.load(os.path.join(work, "q.npy"))
     sharded = shard_index(index, mesh)
-    adc.adc_scan_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
     d, ids = sharded.query_arrays(10, q)
     torch.cuda.synchronize()
     np.savez(os.path.join(work, f"rank{rank}.npz"), d=d.cpu().numpy(), ids=ids.cpu().numpy())
     out = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
                shards=mesh.shape["rows"], local_rows=mesh.local_rows,
-               k1_launches=adc.adc_scan_kernel_launches, gloo_all_gather_cuda=gloo_cuda)
+               k1_launches=tracing.counter("k1.launches"), gloo_all_gather_cuda=gloo_cuda)
     dist.destroy_process_group()
     return out
 
@@ -2636,13 +2636,14 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     import gulon_tpu_torch as gt
     from gulon_tpu_torch.models.build import _encode_chunked
     from gulon_tpu_torch.ops import scan as scan_ops
-    from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.ops.cuda import dense
     from gulon_tpu_torch.parallel import make_mesh, shard_index
+    from gulon_tpu_torch.utils import tracing
 
     d, batch, k = 96, 1024, 10
-    adc.adc_scan_kernel_launches = 0
-    dense.dense_scan_kernel_launches = 0
-    dense.dense_scan_i8_kernel_launches = 0
+    tracing.set_counter("k1.launches", 0)
+    tracing.set_counter("k2.launches", 0)
+    tracing.set_counter("k3.launches", 0)
     t0 = time.perf_counter()
     x = low_rank_corpus(seed, n, d, intrinsic=24, n_clusters=10_000)
     keys = np.array([f"d{i:08d}" for i in range(n)], dtype=object)  # sorted: row i is key i
@@ -2727,12 +2728,12 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     out["profile_flat_auto"] = _profile(flat_m, x, batches, k)
     q0 = torch.from_numpy(x[batches[0]]).to(device)
     lpb = routes["flat_auto"][f"mesh{shards}"]["launches"] / len(batches)
-    counted = adc.adc_scan_kernel_launches  # the comparison's launches are not the path's
+    counted = tracing.counter("k1.launches")  # the comparison's launches are not the path's
     k1_shard = _k1_flat_check(
         index.pq, flat_m.codes_t_sharded[0], flat_m.norms_sharded[0],
         index.resolved_pallas_winners(), q0, lpb, "sharded_k1",
     )
-    adc.adc_scan_kernel_launches = counted
+    tracing.set_counter("k1.launches", counted)
     del flat_m
 
     index.enable_cache()
@@ -2747,13 +2748,13 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     drive("cached", index, "K2", make_cached)
     aug0 = sharded_cached[shards].cache_aug_sharded[0]
     q_pad = scan_ops._q_pad(q0, index.pq.bounds, index.pq.pad_width)
-    counted = dense.dense_scan_kernel_launches
+    counted = tracing.counter("k2.launches")
     k2_shard = _dense_case(
         "K2", dense.dense_block_scan, dense._dense_block_scan_plain, aug0,
         dense_queries(q_pad, aug0.shape[1]), False,
         routes["cached"][f"mesh{shards}"]["launches"] / len(batches), label="deep10m_shard",
     )
-    dense.dense_scan_kernel_launches = counted
+    tracing.set_counter("k2.launches", counted)
     del sharded_cached, aug0, index
     torch.cuda.empty_cache()
 
@@ -2815,10 +2816,10 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
 
 
 def _launch_counts() -> dict:
-    from gulon_tpu_torch.ops.cuda import adc, dense
+    from gulon_tpu_torch.utils import tracing
 
-    return {"K1": adc.adc_scan_kernel_launches, "K2": dense.dense_scan_kernel_launches,
-            "K3": dense.dense_scan_i8_kernel_launches}
+    return {"K1": tracing.counter("k1.launches"), "K2": tracing.counter("k2.launches"),
+            "K3": tracing.counter("k3.launches")}
 
 
 def _aot_check(p, q, plain_out, batch, k) -> dict:

@@ -34,6 +34,7 @@ from gulon_tpu_torch.ops.opq import train_opq
 from gulon_tpu_torch.ops.pq import PQConfig, ProductQuantizer, train_product_quantizer
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.parallel.mesh import check_mesh
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 from gulon_tpu_torch.utils.word2vec import WordVectors
 
@@ -82,38 +83,43 @@ def build_flat_index(
     0`` a rotation is learned first and the codes quantize ``x @
     rotation`` (``gulon_tpu/models/build.py:86-111``); queries rotate
     inside the index."""
-    check_mesh(mesh)
-    x = np.asarray(vectors, np.float32)
-    keys = np.asarray(keys, dtype=object)
-    if len(keys) != len(x):
-        raise ValueError("keys and vectors must have equal length")
-    if metric.normalized:
-        x = _normalize_np(x)
+    with tracing.span("gulon.build"):
+        check_mesh(mesh)
+        with tracing.span("gulon.build.host"):
+            x = np.asarray(vectors, np.float32)
+            keys = np.asarray(keys, dtype=object)
+            if len(keys) != len(x):
+                raise ValueError("keys and vectors must have equal length")
+            if metric.normalized:
+                x = _normalize_np(x)
 
-    order = np.argsort(keys, kind="stable")
-    keys = keys[order]
-    x = x[order]
+            order = np.argsort(keys, kind="stable")
+            keys = keys[order]
+            x = x[order]
 
-    rotation = None
-    if opq_iters > 0:
-        rotation, pq = train_opq(
-            x, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+        rotation = None
+        with tracing.span("gulon.build.train"):
+            if opq_iters > 0:
+                rotation, pq = train_opq(
+                    x, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+                )
+                x = matmul(torch.from_numpy(x).to(device), rotation, "highest")
+            else:
+                pq = train_product_quantizer(
+                    x, pq_config, None if mesh is not None else report_fn, mesh=mesh,
+                    device=device,
+                )
+        with tracing.span("gulon.build.encode"):
+            codes = _encode_chunked(pq, x, encode_chunk, mesh)
+            recon_norms = pq.reconstruction_norms(codes)
+        return FlatIndex(
+            _key_index=SortedKeyIndex(keys),
+            pq=pq,
+            codes=codes,
+            recon_norms=recon_norms,
+            metric=metric,
+            rotation=rotation,
         )
-        x = matmul(torch.from_numpy(x).to(device), rotation, "highest")
-    else:
-        pq = train_product_quantizer(
-            x, pq_config, None if mesh is not None else report_fn, mesh=mesh, device=device
-        )
-    codes = _encode_chunked(pq, x, encode_chunk, mesh)
-    recon_norms = pq.reconstruction_norms(codes)
-    return FlatIndex(
-        _key_index=SortedKeyIndex(keys),
-        pq=pq,
-        codes=codes,
-        recon_norms=recon_norms,
-        metric=metric,
-        rotation=rotation,
-    )
 
 
 def _balanced_split(
@@ -238,67 +244,80 @@ def build_ivf_index(
     assignment exact (``gulon_tpu/models/build.py:284-300``). With
     ``mesh`` the coarse k-means, the PQ training and the encode run
     distributed over its devices."""
-    check_mesh(mesh)
-    x = np.asarray(vectors, np.float32)
-    keys = np.asarray(keys, dtype=object)
-    if len(keys) != len(x):
-        raise ValueError("keys and vectors must have equal length")
-    if metric.normalized:
-        x = _normalize_np(x)
-    if num_partitions is None:
-        num_partitions = default_num_partitions(len(x))
-    if strategy is None:
-        strategy = LimitGroups(default_limit(num_partitions))
+    with tracing.span("gulon.build"):
+        check_mesh(mesh)
+        with tracing.span("gulon.build.host"):
+            x = np.asarray(vectors, np.float32)
+            keys = np.asarray(keys, dtype=object)
+            if len(keys) != len(x):
+                raise ValueError("keys and vectors must have equal length")
+            if metric.normalized:
+                x = _normalize_np(x)
+        if num_partitions is None:
+            num_partitions = default_num_partitions(len(x))
+        if strategy is None:
+            strategy = LimitGroups(default_limit(num_partitions))
 
-    # coarse clustering over the full vectors (CommandUtils.scala:127-133)
-    coarse_cfg = KMeansConfig(
-        k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed, init=coarse_init,
-    )
-    if mesh is not None:
-        from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
+        # coarse clustering over the full vectors (CommandUtils.scala:127-133)
+        coarse_cfg = KMeansConfig(
+            k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed, init=coarse_init,
+        )
+        with tracing.span("gulon.build.train"):
+            if mesh is not None:
+                from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
 
-        coarse = sharded_fit_kmeans(x, coarse_cfg, mesh)
-    else:
-        coarse = fit_kmeans(torch.as_tensor(x, device=device), coarse_cfg, report_fn)
-    coarse_cents = coarse.centroids.cpu().numpy()
-    coarse_assign = coarse.assignments.cpu().numpy()
-    if max_partition_size is not None:
-        if max_partition_size < 1:
-            raise ValueError("max_partition_size must be >= 1")
-        coarse_assign, coarse_cents = _split_oversized_partitions(
-            lambda rows: x[rows], coarse_assign, coarse_cents,
-            max_partition_size, coarse_seed,
-        )
-    grouped = WordVectors(keys, x).grouped(coarse_cents, coarse_assign)
+                coarse = sharded_fit_kmeans(x, coarse_cfg, mesh)
+            else:
+                with tracing.span("gulon.wait.upload_rows"):
+                    xd = torch.as_tensor(x, device=device)
+                coarse = fit_kmeans(xd, coarse_cfg, report_fn)
+                del xd  # the rows leave the device with the k-means
+            with tracing.span("gulon.wait.coarse_result"):
+                coarse_cents = coarse.centroids.cpu().numpy()
+                coarse_assign = coarse.assignments.cpu().numpy()
+        with tracing.span("gulon.build.host"):
+            if max_partition_size is not None:
+                if max_partition_size < 1:
+                    raise ValueError("max_partition_size must be >= 1")
+                coarse_assign, coarse_cents = _split_oversized_partitions(
+                    lambda rows: x[rows], coarse_assign, coarse_cents,
+                    max_partition_size, coarse_seed,
+                )
+            grouped = WordVectors(keys, x).grouped(coarse_cents, coarse_assign)
+            residuals = grouped.residuals()
 
-    residuals = grouped.residuals()
-    centroids = torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device)
-    rotation = None
-    if opq_iters > 0:
-        rotation, pq = train_opq(
-            residuals, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+        with tracing.span("gulon.wait.upload_centroids"):
+            centroids = torch.from_numpy(np.array(grouped.centroids, np.float32)).to(device)
+        rotation = None
+        with tracing.span("gulon.build.train"):
+            if opq_iters > 0:
+                rotation, pq = train_opq(
+                    residuals, pq_config, opq_iters=opq_iters, mesh=mesh, device=device
+                )
+                residuals = matmul(torch.from_numpy(residuals).to(device), rotation, "highest")
+                centroids = matmul(centroids, rotation, "highest")
+            else:
+                pq = train_product_quantizer(
+                    residuals, pq_config, None if mesh is not None else report_fn, mesh=mesh,
+                    device=device,
+                )
+        with tracing.span("gulon.build.encode"):
+            codes = _encode_chunked(pq, residuals, encode_chunk, mesh)
+            # per-row constant of the expanded residual distance,
+            # ||r^||^2 + 2<c_g, r^>, by per-partition LUT gathers
+            row_const = pq.reconstruction_norms(codes) + 2.0 * pq.centroid_code_dot(
+                codes, centroids, grouped.group_ids
+            )
+        with tracing.span("gulon.wait.upload_groups"):
+            group_ids = torch.from_numpy(grouped.group_ids).to(device)
+        return IVFIndex(
+            _key_index=GroupedKeyIndex(grouped.keys, grouped.group_offsets),
+            pq=pq,
+            codes=codes,
+            row_const=row_const,
+            group_ids=group_ids,
+            centroids=centroids,
+            metric=metric,
+            strategy=strategy,
+            rotation=rotation,
         )
-        residuals = matmul(torch.from_numpy(residuals).to(device), rotation, "highest")
-        centroids = matmul(centroids, rotation, "highest")
-    else:
-        pq = train_product_quantizer(
-            residuals, pq_config, None if mesh is not None else report_fn, mesh=mesh,
-            device=device,
-        )
-    codes = _encode_chunked(pq, residuals, encode_chunk, mesh)
-    # per-row constant of the expanded residual distance,
-    # ||r^||^2 + 2<c_g, r^>, by per-partition LUT gathers
-    row_const = pq.reconstruction_norms(codes) + 2.0 * pq.centroid_code_dot(
-        codes, centroids, grouped.group_ids
-    )
-    return IVFIndex(
-        _key_index=GroupedKeyIndex(grouped.keys, grouped.group_offsets),
-        pq=pq,
-        codes=codes,
-        row_const=row_const,
-        group_ids=torch.from_numpy(grouped.group_ids).to(device),
-        centroids=centroids,
-        metric=metric,
-        strategy=strategy,
-        rotation=rotation,
-    )

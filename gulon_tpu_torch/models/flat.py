@@ -43,6 +43,7 @@ from gulon_tpu_torch.ops.cuda.dense import dense_scan_fused, prepare_data
 from gulon_tpu_torch.ops.distance import normalize_rows
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils import tracing
 
 # Below this many queries the LUT scan moves less data than decode.
 _AUTO_LUT_MAX_QUERIES = 4
@@ -113,16 +114,18 @@ class FlatIndex(Index):
         return self.codes.device
 
     def _prepare_queries(self, vectors) -> torch.Tensor:
-        q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
-        if q.ndim != 2 or q.shape[1] != self.dimension:
-            raise ValueError(
-                f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
-            )
-        if self.metric.normalized:
-            q = normalize_rows(q)  # Index.scala:324-331
-        if self.rotation is not None:
-            q = matmul(q, self.rotation, "highest")
-        return q
+        with tracing.span("gulon.query.prepare"):
+            with tracing.span("gulon.wait.upload_queries"):
+                q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+            if q.ndim != 2 or q.shape[1] != self.dimension:
+                raise ValueError(
+                    f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
+                )
+            if self.metric.normalized:
+                q = normalize_rows(q)  # Index.scala:324-331
+            if self.rotation is not None:
+                q = matmul(q, self.rotation, "highest")
+            return q
 
     def batch_query(self, k: int, vectors) -> List[Result]:
         dists, ids = self.query_arrays(k, vectors)
@@ -147,39 +150,46 @@ class FlatIndex(Index):
     def query_arrays(self, k: int, vectors):
         """([Q, k] squared distances, [Q, k] int32 row ids) as tensors on
         the index's device."""
+        with tracing.span("gulon.query"):
+            return self._query(k, vectors)
+
+    def _query(self, k: int, vectors):
         scan_ops.resolve_precision(self.precision)
         q = self._prepare_queries(vectors)
-        k_eff = min(k, self.size)
-        strategy = self.resolve_strategy(q.shape[0], k)
-        k_scan = k_eff
-        rerank = 1
-        if strategy in ("pallas", "cached"):
-            rerank = self.resolved_rerank_factor()
-        if strategy in ("pallas", "cached") and rerank > 1:
-            k_scan = min(self.size, k_eff * rerank)
-            if strategy == "pallas":
-                # stay inside the kernel's k <= 128 / n >= 256*k envelope
-                k_scan = min(k_scan, 128, max(k_eff, self.size // 256))
+        with tracing.span("gulon.query.route"):
+            k_eff = min(k, self.size)
+            strategy = self.resolve_strategy(q.shape[0], k)
+            k_scan = k_eff
+            rerank = 1
+            if strategy in ("pallas", "cached"):
+                rerank = self.resolved_rerank_factor()
+            if strategy in ("pallas", "cached") and rerank > 1:
+                k_scan = min(self.size, k_eff * rerank)
+                if strategy == "pallas":
+                    # stay inside the kernel's k <= 128 / n >= 256*k envelope
+                    k_scan = min(k_scan, 128, max(k_eff, self.size // 256))
         if strategy == "decode":
-            dists, ids = scan_ops.adc_scan_decode(
-                q, self.pq.codebooks, self.codes, self.recon_norms,
-                bounds=self.pq.bounds, k=k_eff, tile_rows=self.tile_rows,
-                precision=self.precision, topk_impl=self.topk_impl,
-                recall_target=self.recall_target, packed_width=self.packed_width,
-            )
+            with tracing.span("gulon.scan.decode"):
+                dists, ids = scan_ops.adc_scan_decode(
+                    q, self.pq.codebooks, self.codes, self.recon_norms,
+                    bounds=self.pq.bounds, k=k_eff, tile_rows=self.tile_rows,
+                    precision=self.precision, topk_impl=self.topk_impl,
+                    recall_target=self.recall_target, packed_width=self.packed_width,
+                )
         elif strategy == "lut":
             if self.packed_width:
                 raise ValueError(
                     "lut strategy needs unpacked codes (index.pack_memory()"
                     " was called); use scan_strategy='decode'"
                 )
-            dists, ids = scan_ops.adc_scan_lut(
-                self.pq.lut(q),
-                self.codes,
-                torch.ones((self.size,), dtype=torch.bool, device=self.device),
-                k=k_eff, tile_rows=self.tile_rows, topk_impl=self.topk_impl,
-                recall_target=self.recall_target,
-            )
+            with tracing.span("gulon.scan.lut"):
+                dists, ids = scan_ops.adc_scan_lut(
+                    self.pq.lut(q),
+                    self.codes,
+                    torch.ones((self.size,), dtype=torch.bool, device=self.device),
+                    k=k_eff, tile_rows=self.tile_rows, topk_impl=self.topk_impl,
+                    recall_target=self.recall_target,
+                )
         elif strategy == "pallas":
             from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused, pack_codes_t
 
@@ -190,13 +200,10 @@ class FlatIndex(Index):
                 )
             if not self._kernel_bounds_ok(k_scan):
                 # tiny corpus / large k / large K: the decode scan
-                return dataclasses.replace(
-                    self, scan_strategy="decode"
-                ).query_arrays(k, vectors)
+                return dataclasses.replace(self, scan_strategy="decode")._query(k, vectors)
             if self._pallas_codes_t is None:
-                self._pallas_codes_t = pack_codes_t(
-                    self.codes, self.pq.num_clusters
-                )
+                with tracing.span("gulon.scan.operands"):
+                    self._pallas_codes_t = pack_codes_t(self.codes, self.pq.num_clusters)
             dists, ids = adc_scan_fused(
                 q, self.pq.codebooks, self._pallas_codes_t, self.recon_norms,
                 bounds=self.pq.bounds, k=k_scan, num_rows=self.size,
@@ -208,35 +215,36 @@ class FlatIndex(Index):
                     "cached strategy needs unpacked codes; build the cache "
                     "before pack_memory()"
                 )
-            q_pad = scan_ops._q_pad(q, self.pq.bounds, self.pq.pad_width)
-            if (
-                self.device.type == "cuda"
-                and self.topk_impl != "exact"  # "exact" ranks every row
-                and k_scan <= 128
-                and self.size >= 256 * k_scan
-            ):
-                if self._cache_aug is None:
+            with tracing.span("gulon.scan.cached"):
+                q_pad = scan_ops._q_pad(q, self.pq.bounds, self.pq.pad_width)
+                if (
+                    self.device.type == "cuda"
+                    and self.topk_impl != "exact"  # "exact" ranks every row
+                    and k_scan <= 128
+                    and self.size >= 256 * k_scan
+                ):
+                    if self._cache_aug is None:
+                        if self.decoded_cache is None:
+                            self.enable_cache()
+                        self._cache_aug = _augment_cache(
+                            self.decoded_cache, self.recon_norms
+                        )
+                        # the operand IS the cache now: hold one copy
+                        self.decoded_cache = None
+                    # the operand rescore (x4 over-fetch) repairs 128-row
+                    # block collisions in cached_scan's bf16 distance class
+                    dists, ids = dense_scan_fused(
+                        q_pad, self._cache_aug, self.recon_norms, k=k_scan,
+                        rescore=max(rerank, 4),
+                    )
+                else:
                     if self.decoded_cache is None:
                         self.enable_cache()
-                    self._cache_aug = _augment_cache(
-                        self.decoded_cache, self.recon_norms
+                    dists, ids = scan_ops.cached_scan(
+                        q_pad, self.decoded_cache, self.recon_norms, k=k_scan,
+                        tile_rows=self.tile_rows, topk_impl=self.topk_impl,
+                        recall_target=self.recall_target,
                     )
-                    # the operand IS the cache now: hold one copy
-                    self.decoded_cache = None
-                # the operand rescore (x4 over-fetch) repairs 128-row
-                # block collisions in cached_scan's bf16 distance class
-                dists, ids = dense_scan_fused(
-                    q_pad, self._cache_aug, self.recon_norms, k=k_scan,
-                    rescore=max(rerank, 4),
-                )
-            else:
-                if self.decoded_cache is None:
-                    self.enable_cache()
-                dists, ids = scan_ops.cached_scan(
-                    q_pad, self.decoded_cache, self.recon_norms, k=k_scan,
-                    tile_rows=self.tile_rows, topk_impl=self.topk_impl,
-                    recall_target=self.recall_target,
-                )
         else:
             raise ValueError(f"unknown scan strategy {strategy!r}")
         if k_scan > k_eff:
@@ -283,7 +291,8 @@ class FlatIndex(Index):
                 self._auto_dup = 1.0
             else:
                 sample = min(n, 65536)  # a packed index unpacks only these
-                codes = self._unpacked_codes(self.codes[:sample]).cpu().numpy()
+                with tracing.span("gulon.wait.code_sample"):
+                    codes = self._unpacked_codes(self.codes[:sample]).cpu().numpy()
                 distinct = np.unique(codes, axis=0).shape[0]
                 self._auto_dup = sample / max(distinct, 1)
         return self._auto_dup

@@ -57,6 +57,7 @@ from gulon_tpu_torch.ops.distance import nearest, normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k, smallest_k_nan_last
+from gulon_tpu_torch.utils import tracing
 
 _INF = float("inf")
 
@@ -108,15 +109,16 @@ def _rank_and_probe(q, centroids, sizes, *, kind: str, count: int):
     """Centroid ranking at full f32 (``exactNearestNeighbours`` over the
     centroids, ``Index.scala:285-299``) and the probe mask:
     ``(group_term [Q, P], qn [Q], cdist [Q, P], mask [Q, P])``."""
-    cn = sq_norms(centroids)
-    group_term = cn[None, :] - 2.0 * matmul(q, centroids.T, "highest")
-    qn = sq_norms(q)
-    cdist = group_term + qn[:, None]
-    if kind == "groups":
-        pm = _probe_mask_limit_groups(cdist, count)
-    else:
-        pm = _probe_mask_limit_vectors(cdist, sizes, count)
-    return group_term, qn, cdist, pm
+    with tracing.span("gulon.ivf.probe"):
+        cn = sq_norms(centroids)
+        group_term = cn[None, :] - 2.0 * matmul(q, centroids.T, "highest")
+        qn = sq_norms(q)
+        cdist = group_term + qn[:, None]
+        if kind == "groups":
+            pm = _probe_mask_limit_groups(cdist, count)
+        else:
+            pm = _probe_mask_limit_vectors(cdist, sizes, count)
+        return group_term, qn, cdist, pm
 
 
 def _ivf_scan(
@@ -543,30 +545,31 @@ def _pallas_ivf_query(
         q, codebooks, codes_t, rc_pal,
         bounds=bounds, tile_rows=0, num_rows=npad, winners=winners,
     )
-    bv, bi = unpack_block_winners(packed, base_cols)
-    col_blk = torch.clamp(base_cols.long() // _PALLAS_BLOCK, max=blk_part.shape[0] - 1)
-    col_part = blk_part[col_blk]  # [NW]
-    gt = group_term[:, col_part]  # [Q, NW]
-    pm = probe_mask[:, col_part]
-    valid = (bv < _INVALID_MIN) & pm
-    d = torch.where(valid, bv + gt + qn[:, None], _INF)
-    kk = min(k, d.shape[1])
-    fetch = min(rescore * kk, d.shape[1]) if rescore else kk
-    best, pos = smallest_k_nan_last(d, fetch)
-    pos = pos.long()
-    win_rows = torch.gather(bi, 1, pos)
-    if rescore:
-        best, win_rows = scan_ops.ivf_block_rescore(
-            q, qn, codebooks, codes_t, rc_pal, best, win_rows,
-            torch.gather(gt, 1, pos), bounds=bounds, k=kk,
-        )
-    # rows of the padded tail past npad only ever carry +inf winners
-    ids = row_map[torch.clamp(win_rows.long(), max=npad - 1)]
-    ids = torch.where(torch.isinf(best), -1, ids)
-    if kk < k:
-        best = torch.nn.functional.pad(best, (0, k - kk), value=_INF)
-        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
-    return best, ids
+    with tracing.span("gulon.scan.select"):
+        bv, bi = unpack_block_winners(packed, base_cols)
+        col_blk = torch.clamp(base_cols.long() // _PALLAS_BLOCK, max=blk_part.shape[0] - 1)
+        col_part = blk_part[col_blk]  # [NW]
+        gt = group_term[:, col_part]  # [Q, NW]
+        pm = probe_mask[:, col_part]
+        valid = (bv < _INVALID_MIN) & pm
+        d = torch.where(valid, bv + gt + qn[:, None], _INF)
+        kk = min(k, d.shape[1])
+        fetch = min(rescore * kk, d.shape[1]) if rescore else kk
+        best, pos = smallest_k_nan_last(d, fetch)
+        pos = pos.long()
+        win_rows = torch.gather(bi, 1, pos)
+        if rescore:
+            best, win_rows = scan_ops.ivf_block_rescore(
+                q, qn, codebooks, codes_t, rc_pal, best, win_rows,
+                torch.gather(gt, 1, pos), bounds=bounds, k=kk,
+            )
+        # rows of the padded tail past npad only ever carry +inf winners
+        ids = row_map[torch.clamp(win_rows.long(), max=npad - 1)]
+        ids = torch.where(torch.isinf(best), -1, ids)
+        if kk < k:
+            best = torch.nn.functional.pad(best, (0, k - kk), value=_INF)
+            ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+        return best, ids
 
 
 @dataclasses.dataclass
@@ -671,35 +674,32 @@ class IVFIndex(Index):
         if self._pallas_layout is None:
             from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
 
-            dev = self.device
-            sizes = self.partition_sizes().astype(np.int64)
-            starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-            psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
-            pstarts = np.concatenate([[0], np.cumsum(psz)[:-1]])
-            npad = int(psz.sum())
-            gid = self.group_ids.long()
-            dst = (
-                torch.from_numpy(pstarts - starts).to(dev)[gid]
-                + torch.arange(self.size, device=dev)
-            )
-            codes_pal = torch.zeros(
-                (npad, self.pq.num_quantizers), dtype=torch.int32, device=dev
-            )
-            codes_pal[dst] = self.codes.to(torch.int32)
-            rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
-            rc_pal[dst] = self.row_const.to(torch.float32)
-            row_map = torch.full((npad,), -1, dtype=torch.int32, device=dev)
-            row_map[dst] = torch.arange(self.size, dtype=torch.int32, device=dev)
-            blk_part = torch.repeat_interleave(
-                torch.arange(len(sizes), device=dev),
-                torch.from_numpy(psz // _PALLAS_BLOCK).to(dev),
-            )
-            self._pallas_layout = (
-                pack_codes_t(codes_pal, self.pq.num_clusters),
-                rc_pal,
-                blk_part,
-                row_map,
-            )
+            with tracing.span("gulon.scan.operands"):
+                dev = self.device
+                sizes = self.partition_sizes().astype(np.int64)
+                starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+                psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
+                pstarts = np.concatenate([[0], np.cumsum(psz)[:-1]])
+                npad = int(psz.sum())
+                with tracing.span("gulon.wait.upload_layout"):
+                    shift = torch.from_numpy(pstarts - starts).to(dev)
+                    blocks = torch.from_numpy(psz // _PALLAS_BLOCK).to(dev)
+                dst = shift[self.group_ids.long()] + torch.arange(self.size, device=dev)
+                codes_pal = torch.zeros(
+                    (npad, self.pq.num_quantizers), dtype=torch.int32, device=dev
+                )
+                codes_pal[dst] = self.codes.to(torch.int32)
+                rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
+                rc_pal[dst] = self.row_const.to(torch.float32)
+                row_map = torch.full((npad,), -1, dtype=torch.int32, device=dev)
+                row_map[dst] = torch.arange(self.size, dtype=torch.int32, device=dev)
+                blk_part = torch.repeat_interleave(torch.arange(len(sizes), device=dev), blocks)
+                self._pallas_layout = (
+                    pack_codes_t(codes_pal, self.pq.num_clusters),
+                    rc_pal,
+                    blk_part,
+                    row_map,
+                )
         return self._pallas_layout
 
     def _pallas_eligible(self, k_eff: int) -> bool:
@@ -760,20 +760,26 @@ class IVFIndex(Index):
 
     def _prepare_queries(self, vectors) -> torch.Tensor:
         """Validate shape, normalize for cosine, apply the rotation."""
-        q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
-        if q.ndim != 2 or q.shape[1] != self.dimension:
-            raise ValueError(
-                f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
-            )
-        if self.metric.normalized:
-            q = normalize_rows(q)  # Index.scala:268-269
-        if self.rotation is not None:
-            q = matmul(q, self.rotation, "highest")
-        return q
+        with tracing.span("gulon.query.prepare"):
+            with tracing.span("gulon.wait.upload_queries"):
+                q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+            if q.ndim != 2 or q.shape[1] != self.dimension:
+                raise ValueError(
+                    f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
+                )
+            if self.metric.normalized:
+                q = normalize_rows(q)  # Index.scala:268-269
+            if self.rotation is not None:
+                q = matmul(q, self.rotation, "highest")
+            return q
 
     def query_arrays(self, k: int, vectors):
         """([Q, k] squared distances, [Q, k] int32 row ids) as tensors on
         the index's device."""
+        with tracing.span("gulon.query"):
+            return self._query(k, vectors)
+
+    def _query(self, k: int, vectors):
         scan_ops.resolve_precision(self.precision)
         scan_ops._check_topk_impl(self.topk_impl)
         q = self._prepare_queries(vectors)
@@ -784,33 +790,39 @@ class IVFIndex(Index):
         else:
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self._sizes_dev is None:
-            self._sizes_dev = torch.from_numpy(self.partition_sizes()).to(self.device)
+            with tracing.span("gulon.wait.upload_sizes"):
+                self._sizes_dev = torch.from_numpy(self.partition_sizes()).to(self.device)
         group_term, qn, cdist, probe_mask = _rank_and_probe(
             q, self.centroids, self._sizes_dev,
             kind=kind, count=self.strategy.count,
         )
 
         k_eff = min(k, self.size)
-        strategy = self.resolve_strategy(int(q.shape[0]), k)
+        with tracing.span("gulon.query.route"):
+            strategy = self.resolve_strategy(int(q.shape[0]), k)
         if strategy == "pallas":
             return self._query_pallas(q, qn, group_term, probe_mask, k_eff)
         if strategy in ("gathered", "bucketed"):
             if q.shape[0] == 0:  # the JAX package's planners divide by Q
                 raise ValueError(f"the {strategy} strategy needs at least one query")
-            return self._query_sublinear(
-                strategy, q, qn, group_term, cdist, probe_mask, k_eff
-            )
+            with tracing.span(
+                "gulon.scan.gathered" if strategy == "gathered" else "gulon.scan.bucketed"
+            ):
+                return self._query_sublinear(
+                    strategy, q, qn, group_term, cdist, probe_mask, k_eff
+                )
         if strategy != "masked":
             raise ValueError(
                 f"unknown ivf scan strategy {strategy!r} "
                 "(expected auto|masked|pallas|gathered|bucketed)"
             )
-        return _ivf_scan(
-            q, self.pq.codebooks, self.codes, self.row_const, self.group_ids,
-            group_term, probe_mask, bounds=self.pq.bounds, k=k_eff,
-            tile_rows=self.tile_rows, precision=self.precision,
-            topk_impl=self.topk_impl,
-        )
+        with tracing.span("gulon.scan.masked"):
+            return _ivf_scan(
+                q, self.pq.codebooks, self.codes, self.row_const, self.group_ids,
+                group_term, probe_mask, bounds=self.pq.bounds, k=k_eff,
+                tile_rows=self.tile_rows, precision=self.precision,
+                topk_impl=self.topk_impl,
+            )
 
     def _query_pallas(self, q, qn, group_term, probe_mask, k_eff: int):
         """The fused-kernel strategy over the partition-padded layout."""
@@ -833,7 +845,8 @@ class IVFIndex(Index):
         else:
             # LimitVectors: the mask's largest probe set, rounded up to a
             # power of two as the JAX package does
-            raw = int(probe_mask.sum(dim=1).max())
+            with tracing.span("gulon.wait.probe_count"):
+                raw = int(probe_mask.sum(dim=1).max())
             num_probe = min(_next_pow2(raw), self.num_partitions)
         # the num_probe nearest centroids, best first; unused slots -1
         masked_cdist = torch.where(probe_mask, cdist, _INF)
@@ -841,7 +854,8 @@ class IVFIndex(Index):
         probe_ids = torch.where(torch.isinf(probe_d), -1, probe_ids)
         starts = np.concatenate([[0], np.cumsum(sizes_np)[:-1]]).astype(np.int32)
         if strategy == "bucketed":
-            probe_np = probe_ids.cpu().numpy()
+            with tracing.span("gulon.wait.probe_ids"):
+                probe_np = probe_ids.cpu().numpy()
             flat_p = probe_np[probe_np >= 0]
             max_occ = int(np.bincount(flat_p).max()) if flat_p.size else 1
             rcap = min(512, _next_pow2(pmax))
@@ -850,10 +864,11 @@ class IVFIndex(Index):
             e_start, e_size, e_part, e_bucket, pair_slots = _plan_entry_schedule(
                 probe_np, sizes_np, starts, rcap, qcap, kk
             )
-            e_start, e_size, e_part, e_bucket, pair_slots = (
-                torch.from_numpy(a).to(dev)
-                for a in (e_start, e_size, e_part, e_bucket, pair_slots)
-            )
+            with tracing.span("gulon.wait.upload_schedule"):
+                e_start, e_size, e_part, e_bucket, pair_slots = (
+                    torch.from_numpy(a).to(dev)
+                    for a in (e_start, e_size, e_part, e_bucket, pair_slots)
+                )
             if use_cache:
                 cand_v, cand_i = _scan_entries_cached(
                     q, self.recon_cache, self.recon_norms_cache,
@@ -871,8 +886,9 @@ class IVFIndex(Index):
             return _regroup_pairs(cand_v, cand_i, pair_slots, k=k_eff)
         # gathered: the candidate pool holds num_probe * pmax rows a query
         k_g = min(k_eff, num_probe * pmax)
-        starts_t = torch.from_numpy(starts).to(dev)
-        sizes_t = torch.from_numpy(sizes_np).to(dev)
+        with tracing.span("gulon.wait.upload_slices"):
+            starts_t = torch.from_numpy(starts).to(dev)
+            sizes_t = torch.from_numpy(sizes_np).to(dev)
         if use_cache:
             dists, ids = _ivf_scan_gathered(
                 q, qn, None, None, self.recon_cache, self.recon_norms_cache,

@@ -44,16 +44,12 @@ from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.pq import _lut, split_subspaces
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.ops.topk import smallest_k_nan_last
+from gulon_tpu_torch.utils import tracing
 
 _BIG = 3.0e38
 _INVALID_MIN = 1.0e38  # values at/above this are padding, not real rows
 _LANES = 128
 _PLAIN_SCORE_BYTES = 1 << 30  # score tile budget of the plain twin
-
-# Launches of kernel K1 (csrc/adc_scan.cu) in this process: one per
-# fused_block_scan call on CUDA tensors, counted where the kernel is
-# launched and nowhere else.
-adc_scan_kernel_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -327,8 +323,8 @@ def fused_block_scan(
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take :func:`_block_scan_plain`. Operands as
-    :func:`_block_scan_plain` documents."""
-    global adc_scan_kernel_launches
+    :func:`_block_scan_plain` documents. Each launch adds one to the
+    counter ``k1.launches`` (``utils/tracing.py``)."""
     tensors = (codes_t, norms_hl, q_op, cb)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -364,7 +360,7 @@ def fused_block_scan(
         )
     if err != 0:
         raise RuntimeError(f"adc_scan kernel launch failed: cudaError_t {err}")
-    adc_scan_kernel_launches += 1
+    tracing.count("k1.launches")
     return out
 
 
@@ -385,29 +381,28 @@ def _block_scan(
     holds lane-packed winner floats, ``base_cols[c]`` the first row of
     winner column ``c``'s block, so ``row = base_cols[c] +
     (bits(packed) & 127)``. Values ``>= _INVALID_MIN`` mark padding."""
-    ops = prepare_scan_operands(
-        queries, codebooks, codes, recon_norms,
-        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
-        winners=winners, center_scores=center_scores,
-    )
-    codes_t, t, num_q = ops["codes_t"], ops["t"], ops["num_q"]
-    nblk = t // _LANES
-    n_rt = codes_t.shape[1] // t
-    wn = winners * nblk
-    cols = np.arange(n_rt * wn, dtype=np.int64)
-    base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
-    # copied in before the launch: a host copy waits for the device's
-    # stream, and after the launch it would hold back the next shard's
-    # kernel on another card until this one ends
-    base_cols = torch.from_numpy(base_cols).to(codes_t.device)
-    packed = fused_block_scan(
-        codes_t,
-        _split_hi_lo(ops["norms"], ops["center"]),
-        ops["q_pad"][:num_q].to(torch.bfloat16),
-        codebooks.to(torch.bfloat16).contiguous(),
-        winners=winners,
-        nblk=nblk,
-    )
+    with tracing.span("gulon.scan.operands"):
+        ops = prepare_scan_operands(
+            queries, codebooks, codes, recon_norms,
+            bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
+            winners=winners, center_scores=center_scores,
+        )
+        codes_t, t, num_q = ops["codes_t"], ops["t"], ops["num_q"]
+        nblk = t // _LANES
+        n_rt = codes_t.shape[1] // t
+        wn = winners * nblk
+        cols = np.arange(n_rt * wn, dtype=np.int64)
+        base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
+        # copied in before the launch: a host copy waits for the device's
+        # stream, and after the launch it would hold back the next shard's
+        # kernel on another card until this one ends
+        with tracing.span("gulon.wait.upload_base_cols"):
+            base_cols = torch.from_numpy(base_cols).to(codes_t.device)
+        norms_hl = _split_hi_lo(ops["norms"], ops["center"])
+        q_op = ops["q_pad"][:num_q].to(torch.bfloat16)
+        cb = codebooks.to(torch.bfloat16).contiguous()
+    with tracing.span("gulon.scan.k1"):
+        packed = fused_block_scan(codes_t, norms_hl, q_op, cb, winners=winners, nblk=nblk)
     return (
         packed,
         base_cols,
@@ -483,25 +478,26 @@ def finish_scan(
     invalid = best_v >= _INVALID_MIN
 
     if rescore:
-        lut = _lut(qs, codebooks.to(torch.float32))  # [Q, m, K]
-        safe = torch.where(invalid, 0, best_ids).long()
-        if pretransposed:
-            sel = codes_t[:, safe.reshape(-1)].to(torch.int32)
-            if codes_t.dtype == torch.int8:  # undo the offset encoding
-                sel = sel + 128
-            sel = sel.reshape(m, num_q, kk).permute(1, 2, 0)
-        else:
-            sel = codes[safe.reshape(-1)].to(torch.int32).reshape(num_q, kk, m)
-        dev = lut.device
-        exact = lut[
-            torch.arange(num_q, device=dev)[:, None, None],
-            torch.arange(m, device=dev)[None, None, :],
-            sel.long(),
-        ].sum(dim=-1)  # [Q, kk]
-        exact = torch.where(invalid, float("inf"), exact)
-        best_ids = torch.where(invalid, -1, best_ids)
-        best_d, pos2 = smallest_k_nan_last(exact, kk)
-        best_ids = torch.gather(best_ids, 1, pos2.long())
+        with tracing.span("gulon.scan.rescore"):
+            lut = _lut(qs, codebooks.to(torch.float32))  # [Q, m, K]
+            safe = torch.where(invalid, 0, best_ids).long()
+            if pretransposed:
+                sel = codes_t[:, safe.reshape(-1)].to(torch.int32)
+                if codes_t.dtype == torch.int8:  # undo the offset encoding
+                    sel = sel + 128
+                sel = sel.reshape(m, num_q, kk).permute(1, 2, 0)
+            else:
+                sel = codes[safe.reshape(-1)].to(torch.int32).reshape(num_q, kk, m)
+            dev = lut.device
+            exact = lut[
+                torch.arange(num_q, device=dev)[:, None, None],
+                torch.arange(m, device=dev)[None, None, :],
+                sel.long(),
+            ].sum(dim=-1)  # [Q, kk]
+            exact = torch.where(invalid, float("inf"), exact)
+            best_ids = torch.where(invalid, -1, best_ids)
+            best_d, pos2 = smallest_k_nan_last(exact, kk)
+            best_ids = torch.gather(best_ids, 1, pos2.long())
     else:
         # centered: the contraction already emitted the full distance
         if centered:
@@ -548,8 +544,9 @@ def adc_scan_fused(
         bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
         winners=winners, center_scores=center_scores,
     )
-    return finish_scan(
-        packed, base_cols, qs, codes_t, pretransposed,
-        queries=queries, codebooks=codebooks, codes=codes,
-        k=k, kk=kk, rescore=rescore, centered=center_scores,
-    )
+    with tracing.span("gulon.scan.select"):
+        return finish_scan(
+            packed, base_cols, qs, codes_t, pretransposed,
+            queries=queries, codebooks=codebooks, codes=codes,
+            k=k, kk=kk, rescore=rescore, centered=center_scores,
+        )

@@ -38,6 +38,7 @@ import torch
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.ops.topk import smallest_k_nan_last
+from gulon_tpu_torch.utils import tracing
 
 _BIG = 3.0e38
 _INVALID_MIN = 1.0e38
@@ -48,12 +49,6 @@ _PLAIN_SCORE_BYTES = 1 << 30  # score tile budget of the plain twins
 # K3 zero lanes + the digit pair (127, 126) against (127, 1)
 _TAIL_F32 = float(torch.tensor(_BIG).to(torch.bfloat16).to(torch.float32))
 _TAIL_I32 = _N14_MAX
-
-# Launches of kernels K2 and K3 (csrc/dense_scan.cu) in this process: one
-# per dense_block_scan / dense_block_scan_i8 call on CUDA tensors, counted
-# where the kernel is launched and nowhere else.
-dense_scan_kernel_launches = 0
-dense_scan_i8_kernel_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -283,13 +278,13 @@ def dense_block_scan(data: torch.Tensor, q_op: torch.Tensor) -> torch.Tensor:
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take :func:`_dense_block_scan_plain`. Operands as it
-    documents."""
-    global dense_scan_kernel_launches
+    documents. Each launch adds one to the counter ``k2.launches``
+    (``utils/tracing.py``)."""
     _check_operands(data, q_op, torch.bfloat16, 8)
     if not data.is_cuda:
         return _dense_block_scan_plain(data, q_op)
     out = _launch("gulon_dense_scan_bf16", data, q_op, torch.float32)
-    dense_scan_kernel_launches += 1
+    tracing.count("k2.launches")
     return out
 
 
@@ -297,13 +292,13 @@ def dense_block_scan_i8(data_i8: torch.Tensor, q_i8: torch.Tensor) -> torch.Tens
     """Packed block winners ``[Q, ceil(N/128)]`` int32 of K3.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
-    tensors take :func:`_dense_block_scan_plain_i8`."""
-    global dense_scan_i8_kernel_launches
+    tensors take :func:`_dense_block_scan_plain_i8`. Each launch adds one
+    to the counter ``k3.launches``."""
     _check_operands(data_i8, q_i8, torch.int8, 32)
     if not data_i8.is_cuda:
         return _dense_block_scan_plain_i8(data_i8, q_i8)
     out = _launch("gulon_dense_scan_i8", data_i8, q_i8, torch.int32)
-    dense_scan_i8_kernel_launches += 1
+    tracing.count("k3.launches")
     return out
 
 

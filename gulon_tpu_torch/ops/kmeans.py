@@ -29,6 +29,7 @@ import torch
 
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
@@ -220,20 +221,28 @@ def fit_kmeans(
     assignments = _assign_blocked(x, centroids, bs, config.precision)
     done = torch.zeros(m, dtype=torch.bool, device=x.device)
     it = 0
-    while it < config.max_iters and not bool(done.all()):
-        new_c = _update(x, assignments, k)
-        new_c = torch.where(done[:, None, None], centroids, new_c)
-        new_a = _assign_blocked(x, new_c, bs, config.precision)
-        new_a = torch.where(done[:, None], assignments, new_a)
-        done = done | torch.all(new_a == assignments, dim=1)
-        it += 1
-        if report_fn is not None:
-            moved = torch.sqrt(torch.sum((new_c - centroids) ** 2, dim=-1))
-            stats = torch.stack([
-                moved.mean(), moved.std(unbiased=False), moved.min(), moved.max(),
-            ]).tolist()
-            report_fn(it, stats[0], int(done.sum()), stats[1], stats[2], stats[3])
-        centroids, assignments = new_c, new_a
+    running = it < config.max_iters and not bool(done.all())
+    while running:
+        # one Lloyd iteration, its device time included: the check that
+        # ends it reads ``done`` back
+        with tracing.span("gulon.kmeans.iter"):
+            new_c = _update(x, assignments, k)
+            new_c = torch.where(done[:, None, None], centroids, new_c)
+            new_a = _assign_blocked(x, new_c, bs, config.precision)
+            new_a = torch.where(done[:, None], assignments, new_a)
+            done = done | torch.all(new_a == assignments, dim=1)
+            it += 1
+            if report_fn is not None:
+                moved = torch.sqrt(torch.sum((new_c - centroids) ** 2, dim=-1))
+                with tracing.span("gulon.wait.kmeans_report"):
+                    stats = torch.stack([
+                        moved.mean(), moved.std(unbiased=False), moved.min(), moved.max(),
+                    ]).tolist()
+                    converged = int(done.sum())
+                report_fn(it, stats[0], converged, stats[1], stats[2], stats[3])
+            centroids, assignments = new_c, new_a
+            with tracing.span("gulon.wait.kmeans_done"):
+                running = it < config.max_iters and not bool(done.all())
     if squeeze:
         return KMeansResult(centroids[0], assignments[0], it, done[0])
     return KMeansResult(centroids, assignments, it, done)

@@ -26,6 +26,7 @@ import torch
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.kmeans import KMeansConfig, _assign_blocked, fit_kmeans
 from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 
@@ -131,7 +132,11 @@ class ProductQuantizer:
         return sq_norms(self.codebooks)
 
     def split(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            x = x.to(torch.float32)
+        else:  # rows copied in from elsewhere: the copy waits for the stream
+            with tracing.span("gulon.wait.upload_rows"):
+                x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         return split_subspaces(x, self.bounds, self.pad_width)
 
     def encode(
@@ -187,7 +192,8 @@ class ProductQuantizer:
         for start in range(0, n, chunk_rows):
             stop = min(start + chunk_rows, n)
             g = gids[start:stop]
-            g0, g1 = int(g.min()), int(g.max()) + 1
+            with tracing.span("gulon.wait.partition_range"):
+                g0, g1 = int(g.min()), int(g.max()) + 1
             out[start:stop] = _centroid_code_dot_chunk(
                 codes[start:stop], g - g0, cs[:, g0:g1], self.codebooks
             )
@@ -260,10 +266,11 @@ def train_product_quantizer(
             rng = np.random.default_rng(config.seed)
             idx = rng.choice(n, size=config.train_sample, replace=False)
             train_x = x[np.sort(idx)]
-    train_x = torch.as_tensor(
-        train_x, dtype=torch.float32,
-        device=x.device if on_device else (device or DEFAULT_DEVICE),
-    )
+    with tracing.span("gulon.wait.upload_train"):
+        train_x = torch.as_tensor(
+            train_x, dtype=torch.float32,
+            device=x.device if on_device else (device or DEFAULT_DEVICE),
+        )
 
     xs = split_subspaces(train_x, bounds, pad_width)
     kmeans_cfg = KMeansConfig(

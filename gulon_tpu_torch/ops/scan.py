@@ -39,6 +39,7 @@ from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.pq import split_subspaces
 from gulon_tpu_torch.ops.precision import matmul, resolve_precision
 from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k, smallest_k_nan_last
+from gulon_tpu_torch.utils import tracing
 
 DEFAULT_TILE_ROWS = 16384
 
@@ -246,28 +247,29 @@ def rescore_exact(
     """Exact f32 ADC rescore of per-query candidate sets: the bf16-ranked
     fast scans over-fetch, and this ranks the survivors at full precision.
     Returns ([Q, k] exact dists ascending, [Q, k] ids)."""
-    num_q, c = cand_ids.shape
-    m, _, dsub = codebooks.shape
-    cand_ids = cand_ids.to(torch.int32)
-    # clamped as the JAX package's gather clamps: a NaN query row's ids
-    # may pass the last row (``_streaming_topk``)
-    safe = torch.clamp(cand_ids, 0, codes.shape[0] - 1).long()
-    gathered = _tile_codes(codes[safe.reshape(-1)], m, packed_width)
-    dec = decode_tile(codebooks, gathered).reshape(
-        num_q, c, m * dsub
-    )
-    q_pad = _q_pad(queries, bounds, dsub)
-    ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, C]
-    d = sq_norms(queries)[:, None] + recon_norms[safe] - 2.0 * ip
-    d = torch.where(cand_ids < 0, float("inf"), d)
-    kf = min(k, c)
-    vals, pos = smallest_k(d, kf)
-    ids = torch.gather(cand_ids, 1, pos.long())
-    ids = torch.where(torch.isinf(vals), -1, ids)
-    if kf < k:
-        vals = torch.nn.functional.pad(vals, (0, k - kf), value=float("inf"))
-        ids = torch.nn.functional.pad(ids, (0, k - kf), value=-1)
-    return vals, ids
+    with tracing.span("gulon.scan.rescore"):
+        num_q, c = cand_ids.shape
+        m, _, dsub = codebooks.shape
+        cand_ids = cand_ids.to(torch.int32)
+        # clamped as the JAX package's gather clamps: a NaN query row's ids
+        # may pass the last row (``_streaming_topk``)
+        safe = torch.clamp(cand_ids, 0, codes.shape[0] - 1).long()
+        gathered = _tile_codes(codes[safe.reshape(-1)], m, packed_width)
+        dec = decode_tile(codebooks, gathered).reshape(
+            num_q, c, m * dsub
+        )
+        q_pad = _q_pad(queries, bounds, dsub)
+        ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, C]
+        d = sq_norms(queries)[:, None] + recon_norms[safe] - 2.0 * ip
+        d = torch.where(cand_ids < 0, float("inf"), d)
+        kf = min(k, c)
+        vals, pos = smallest_k(d, kf)
+        ids = torch.gather(cand_ids, 1, pos.long())
+        ids = torch.where(torch.isinf(vals), -1, ids)
+        if kf < k:
+            vals = torch.nn.functional.pad(vals, (0, k - kf), value=float("inf"))
+            ids = torch.nn.functional.pad(ids, (0, k - kf), value=-1)
+        return vals, ids
 
 
 def ivf_block_rescore(
@@ -288,22 +290,23 @@ def ivf_block_rescore(
     distance ``||q||^2 + rc + group_term - 2<q, dec(row)>`` recomputed at
     full f32 for the over-fetched candidates. Returns ``([Q, k] exact
     dists, [Q, k] re-ranked padded-layout rows)``."""
-    num_q, fetch = cand_rows.shape
-    m, _, dsub = codebooks.shape
-    invalid = torch.isinf(cand_vals)
-    safe = torch.where(invalid, 0, cand_rows).long()
-    sel = codes_t[:, safe.reshape(-1)].to(torch.int32)  # [m, Q*F]
-    if codes_t.dtype == torch.int8:  # undo the offset encoding
-        sel = sel + 128
-    dec = decode_tile(codebooks.to(torch.float32), sel.T).reshape(
-        num_q, fetch, m * dsub
-    )
-    q_pad = _q_pad(queries, bounds, dsub)
-    ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, F]
-    exact = q_norms[:, None] + rc[safe] + cand_gt - 2.0 * ip
-    exact = torch.where(invalid, float("inf"), exact)
-    best, pos = smallest_k_nan_last(exact, min(k, fetch))
-    return best, torch.gather(cand_rows, 1, pos.long())
+    with tracing.span("gulon.scan.rescore"):
+        num_q, fetch = cand_rows.shape
+        m, _, dsub = codebooks.shape
+        invalid = torch.isinf(cand_vals)
+        safe = torch.where(invalid, 0, cand_rows).long()
+        sel = codes_t[:, safe.reshape(-1)].to(torch.int32)  # [m, Q*F]
+        if codes_t.dtype == torch.int8:  # undo the offset encoding
+            sel = sel + 128
+        dec = decode_tile(codebooks.to(torch.float32), sel.T).reshape(
+            num_q, fetch, m * dsub
+        )
+        q_pad = _q_pad(queries, bounds, dsub)
+        ip = matmul(dec, q_pad[:, :, None], "highest")[..., 0]  # [Q, F]
+        exact = q_norms[:, None] + rc[safe] + cand_gt - 2.0 * ip
+        exact = torch.where(invalid, float("inf"), exact)
+        best, pos = smallest_k_nan_last(exact, min(k, fetch))
+        return best, torch.gather(cand_rows, 1, pos.long())
 
 
 def cached_scan(

@@ -31,6 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from gulon_tpu_torch.utils import tracing
+
 # float dtype -> (integer dtype of its bits, magnitude mask)
 _KEY_DTYPES = {
     torch.float64: (torch.int64, 0x7FFF_FFFF_FFFF_FFFF),
@@ -106,7 +108,8 @@ def incomparable_order(length: int, k: int) -> np.ndarray:
 def _incomparable_order_on(length: int, k: int, device: torch.device) -> torch.Tensor:
     """:func:`incomparable_order` as an int32 tensor on ``device``, copied
     there once."""
-    return torch.from_numpy(incomparable_order(length, k)).to(device, torch.int32)
+    with tracing.span("gulon.wait.upload_order"):
+        return torch.from_numpy(incomparable_order(length, k)).to(device, torch.int32)
 
 
 def approx_smallest_k(

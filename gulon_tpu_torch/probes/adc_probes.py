@@ -51,17 +51,11 @@ import torch
 
 from gulon_tpu_torch.ops.cuda import adc
 from gulon_tpu_torch.ops.cuda.adc import _BIG, _LANES, _round_up
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 DECODE_MODES = ("base", "bf16cmp", "take")
 _DECODE_IDS = {"take": 0, "base": 1, "bf16cmp": 2}
-
-# Launches in this process, counted where each kernel is launched and
-# nowhere else: P1 and P2 (csrc/adc_probes.cu) once per probe_block_scan
-# call on CUDA tensors, and the decoded-rows check (probe_decode_rows).
-adc_probe_kernel_launches = 0
-adc_probe_pipe_kernel_launches = 0
-adc_probe_decode_launches = 0
 
 
 def _pipe_tile_rows(t: int, *, qt: int, mdp: int, k_codes: int, m: int) -> int:
@@ -280,7 +274,6 @@ def probe_block_scan(
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take K1's plain version, the probes' shared contract."""
-    global adc_probe_kernel_launches, adc_probe_pipe_kernel_launches
     if decode_mode not in DECODE_MODES:
         raise ValueError(f"decode_mode must be one of {DECODE_MODES}, got {decode_mode!r}")
     if natural and pipe:
@@ -319,9 +312,9 @@ def probe_block_scan(
     if err != 0:
         raise RuntimeError(f"adc_probes kernel launch failed: cudaError_t {err}")
     if pipe:
-        adc_probe_pipe_kernel_launches += 1
+        tracing.count("probe.p2.launches")
     else:
-        adc_probe_kernel_launches += 1
+        tracing.count("probe.p1.launches")
     return out
 
 
@@ -453,7 +446,6 @@ def probe_decode_rows(
     gather bit for bit but for the sign of a zero (a -0.0 codeword may come
     out of the one-hot as +0.0, ``onehot_rs.cuh``), the plain gather on
     the CPU."""
-    global adc_probe_decode_launches
     if not codes_t.is_cuda:
         return _decode_rows_plain(codes_t, norms_hl, cb, width)
     m, n_cols = codes_t.shape
@@ -476,7 +468,7 @@ def probe_decode_rows(
         )
     if err != 0:
         raise RuntimeError(f"adc_probes decode launch failed: cudaError_t {err}")
-    adc_probe_decode_launches += 1
+    tracing.count("probe.decode.launches")
     return rows
 
 

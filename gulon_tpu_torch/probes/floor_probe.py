@@ -30,6 +30,7 @@ import torch
 
 from gulon_tpu_torch.ops.cuda.adc import _LANES
 from gulon_tpu_torch.probes import median_ms
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 # name -> (codes in, queries in, output rows per row tile: "nblk" = t / 128, ids out)
 VARIANTS = {
@@ -40,10 +41,6 @@ VARIANTS = {
     "codes only, out v [8]": (True, False, 8, False),
 }
 HEADLINE = dict(n=401_408, m=8, num_q=1024, mdp=112, t=4096)  # floor_probe.py:24-26
-
-# Launches of P4 (csrc/floor_probe.cu) in this process, counted where the
-# kernel is launched and nowhere else.
-floor_probe_kernel_launches = 0
 
 
 def floor_operands(n=HEADLINE["n"], m=HEADLINE["m"], num_q=HEADLINE["num_q"],
@@ -112,7 +109,6 @@ def floor_probe(
 ) -> Tuple[torch.Tensor, ...]:
     """One call of a variant: ``(vals,)`` or ``(vals, ids)``, all zeros.
     Operands go to ``device`` (default: the card)."""
-    global floor_probe_kernel_launches
     device = torch.device(DEFAULT_DEVICE if device is None else device)
     codes_t, q_pad = (torch.as_tensor(a, device=device).contiguous() for a in (codes_t, q_pad))
     with_codes, with_q, shape, with_ids = _geometry(variant, codes_t, q_pad, tile_rows)
@@ -132,7 +128,7 @@ def floor_probe(
         )
     if err != 0:
         raise RuntimeError(f"floor_probe {variant} launch failed: cudaError_t {err}")
-    floor_probe_kernel_launches += 1
+    tracing.count("probe.p4.launches")
     return (vals,) if ids is None else (vals, ids)
 
 

@@ -28,12 +28,9 @@ from gulon_tpu_torch.ops.cuda import adc
 from gulon_tpu_torch.ops.cuda.adc import _LANES
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.probes.adc_probes import _decode_rows_plain
+from gulon_tpu_torch.utils import tracing
 
 STAGES = ("decode", "contraction", "block_min")
-
-# Launches of the cut K1 (csrc/adc_scan.cu, gulon_adc_scan_stage) in this
-# process, counted where the kernel is launched and nowhere else.
-k1_stage_kernel_launches = 0
 
 
 def _check(stage, codes_t, norms_hl, q_op, cb, nblk):
@@ -95,7 +92,6 @@ def k1_stage_scan(codes_t, norms_hl, q_op, cb, *, stage: str, nblk: int) -> torc
     """K1 cut after ``stage`` (:data:`STAGES`): ``[Q, N'/128]`` f32 as
     :func:`plain` describes. CUDA tensors launch the kernel on the current
     stream (or raise); CPU tensors take :func:`plain`."""
-    global k1_stage_kernel_launches
     _check(stage, codes_t, norms_hl, q_op, cb, nblk)
     if not codes_t.is_cuda:
         return plain(codes_t, norms_hl, q_op, cb, stage=stage, nblk=nblk)
@@ -116,5 +112,5 @@ def k1_stage_scan(codes_t, norms_hl, q_op, cb, *, stage: str, nblk: int) -> torc
         )
     if err != 0:
         raise RuntimeError(f"adc_scan stage {stage} launch failed: cudaError_t {err}")
-    k1_stage_kernel_launches += 1
+    tracing.count("probe.k1_stages.launches")
     return out

@@ -56,6 +56,7 @@ from gulon_tpu_torch.ops.cuda.adc import _LANES, _round_up
 from gulon_tpu_torch.ops.precision import matmul
 from gulon_tpu_torch.probes import median_ms
 from gulon_tpu_torch.probes.adc_probes import cb_slices
+from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
 _INT_BIG = 2**30
@@ -77,10 +78,6 @@ _SPECS = {
 }
 VARIANTS = tuple(_SPECS)
 DEFAULT_VARIANTS = ("packed_lane", "tdec_packed", "full")  # kernel_probe.py:489
-
-# Launches of P3 (csrc/kernel_probe.cu) in this process: one per launch on
-# CUDA tensors, counted where the kernel is launched and nowhere else.
-kernel_probe_kernel_launches = 0
 
 
 def spec(variant: str) -> Tuple[str, str, bool]:
@@ -287,7 +284,6 @@ def make(
         return 0 if t is None else t.data_ptr()
 
     def run():
-        global kernel_probe_kernel_launches
         with torch.cuda.device(device):
             vals = torch.empty((npad // _LANES, num_q), dtype=torch.float32, device=device)
             ids = torch.empty((npad // _LANES, num_q), dtype=torch.int32, device=device)
@@ -300,7 +296,7 @@ def make(
             )
         if err != 0:
             raise RuntimeError(f"kernel_probe {variant} launch failed: cudaError_t {err}")
-        kernel_probe_kernel_launches += 1
+        tracing.count("probe.p3.launches")
         return vals, ids
 
     return run

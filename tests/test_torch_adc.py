@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from gulon_tpu.ops.pallas import adc as jadc
 from gulon_tpu.ops.pq import subspace_bounds
 from gulon_tpu_torch.ops.cuda import adc as tadc
+from gulon_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -224,9 +225,9 @@ def test_cpu_operands_take_the_plain_version():
         ops["codes_t"], tadc._split_hi_lo(ops["norms"]),
         ops["q_pad"][:Q].to(torch.bfloat16), _t(cb).to(torch.bfloat16),
     )
-    before = tadc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     out = tadc.fused_block_scan(*args, winners=1, nblk=ops["t"] // 128)
-    assert tadc.adc_scan_kernel_launches == before  # no kernel on the CPU
+    assert tracing.counter("k1.launches") == before  # no kernel on the CPU
     torch.testing.assert_close(
         out, tadc._block_scan_plain(*args, winners=1, nblk=ops["t"] // 128)
     )
@@ -261,10 +262,10 @@ def test_kernel_matches_plain_on_the_card(cuda_device, winners, centered, k_code
         ops["q_pad"][:Q].to(torch.bfloat16),
         _t(cb).to(dev).to(torch.bfloat16),
     )
-    before = tadc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     got = tadc.fused_block_scan(*args, winners=winners, nblk=8)
     torch.cuda.synchronize()
-    assert tadc.adc_scan_kernel_launches == before + 1
+    assert tracing.counter("k1.launches") == before + 1
     ref = tadc._block_scan_plain(*args, winners=winners, nblk=8)
     base = torch.zeros(got.shape[1], dtype=torch.int32, device=dev)
     vk, ik = (a.cpu().numpy() for a in tadc.unpack_block_winners(got, base))

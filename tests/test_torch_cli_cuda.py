@@ -28,7 +28,7 @@ import torch
 
 import gulon_tpu_torch as gt
 from gulon_tpu_torch import cli
-from gulon_tpu_torch.ops.cuda import adc, dense
+from gulon_tpu_torch.utils import tracing
 
 
 @pytest.fixture
@@ -76,9 +76,9 @@ def test_load_index_onto_the_card(cuda_device, tmp_path, partitioned):
     assert card.codes.is_cuda
     assert (card.row_const if partitioned else card.recon_norms).is_cuda
     q = x[:1024] + 0.01
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     d_card, i_card = card.query_arrays(10, q)
-    assert adc.adc_scan_kernel_launches > before
+    assert tracing.counter("k1.launches") > before
     cpu = gt.load_index(path, device="cpu")
     cpu.scan_strategy = "pallas"
     d_cpu, i_cpu = cpu.query_arrays(10, q)
@@ -151,9 +151,9 @@ def test_packed_ids_equal_unpacked_on_the_card(cuda_device):
     packed.scan_strategy = "auto"
     q = x[:1024] + 0.01
     assert packed.resolve_strategy(1024, 10) == "decode"
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     dp, ip = packed.query_arrays(10, q)
-    assert adc.adc_scan_kernel_launches == before  # decode is plain torch
+    assert tracing.counter("k1.launches") == before  # decode is plain torch
     dd, idd = dataclasses.replace(plain, scan_strategy="decode").query_arrays(10, q)
     assert torch.equal(ip, idd) and torch.equal(dp, dd)
 
@@ -170,9 +170,9 @@ def test_load_serving_equals_the_live_path_on_the_card(cuda_device, tmp_path, pa
         index = gt.build_flat_index(keys, x, pq_config=pq)
     path = str(tmp_path / "i.aot")
     gt.save_serving(path, gt.export_serving(index, shapes=[(1, 10), (1024, 10)]))
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     serving = gt.load_serving(path, index)
-    assert adc.adc_scan_kernel_launches > before  # the warm-up ran K1
+    assert tracing.counter("k1.launches") > before  # the warm-up ran K1
     assert serving._plans[(1024, 10)]["scan_strategy"] == "pallas"
     q = x[:1024] + 0.01
     for nq in (1024, 1):
@@ -190,9 +190,9 @@ def test_load_serving_shares_the_cached_operand_on_the_card(cuda_device, tmp_pat
     path = str(tmp_path / "c.aot")
     gt.save_serving(path, gt.export_serving(index, shapes=[(8, 10), (1024, 10)],
                                             warm_cache=False))
-    before = dense.dense_scan_kernel_launches
+    before = tracing.counter("k2.launches")
     serving = gt.load_serving(path, index)
-    assert dense.dense_scan_kernel_launches > before  # the warm-up ran K2
+    assert tracing.counter("k2.launches") > before  # the warm-up ran K2
     assert serving._plans[(1024, 10)]["scan_strategy"] == "cached"
     assert index._cache_aug is not None and index.decoded_cache is None
     for view in serving._views.values():

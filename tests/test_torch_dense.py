@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gulon_tpu.ops.distance import sq_norms as jsq_norms
 from gulon_tpu.ops.pallas import dense as jdense
 from gulon_tpu_torch.ops.cuda import dense as tdense
+from gulon_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -353,14 +354,14 @@ def test_cpu_operands_take_the_plain_versions():
     q_op = torch.ones((3, data.shape[1]), dtype=torch.bfloat16)
     data8, _, _ = tdense.prepare_data_i8(_t(x))
     q8 = torch.ones((3, data8.shape[1]), dtype=torch.int8)
-    before = (tdense.dense_scan_kernel_launches, tdense.dense_scan_i8_kernel_launches)
+    before = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
     torch.testing.assert_close(
         tdense.dense_block_scan(data, q_op), tdense._dense_block_scan_plain(data, q_op)
     )
     torch.testing.assert_close(
         tdense.dense_block_scan_i8(data8, q8), tdense._dense_block_scan_plain_i8(data8, q8)
     )
-    after = (tdense.dense_scan_kernel_launches, tdense.dense_scan_i8_kernel_launches)
+    after = (tracing.counter("k2.launches"), tracing.counter("k3.launches"))
     assert after == before  # no kernel on the CPU
     with pytest.raises(ValueError):  # f32 queries are not the operand
         tdense.dense_block_scan(data, q_op.to(torch.float32))
@@ -388,17 +389,17 @@ def test_kernels_match_plain_on_the_card(cuda_device, n, d, num_q):
         [-2.0 * q, torch.zeros((num_q, data.shape[1] - d - 2), device=cuda_device),
          torch.ones((num_q, 2), device=cuda_device)], dim=1,
     ).to(torch.bfloat16)
-    before = tdense.dense_scan_kernel_launches
+    before = tracing.counter("k2.launches")
     got = tdense.dense_block_scan(data, q_op)
     torch.cuda.synchronize()
-    assert tdense.dense_scan_kernel_launches == before + 1
+    assert tracing.counter("k2.launches") == before + 1
     ref = tdense._dense_block_scan_plain(data, q_op)
     _winners_close(ref.cpu().numpy(), got.cpu().numpy(), min_equal=0.995)
 
     data8, meta, _ = tdense.prepare_data_i8(x)
     q8 = torch.randint(-127, 128, (num_q, meta.dp), device=cuda_device).to(torch.int8)
-    before = tdense.dense_scan_i8_kernel_launches
+    before = tracing.counter("k3.launches")
     got8 = tdense.dense_block_scan_i8(data8, q8)
     torch.cuda.synchronize()
-    assert tdense.dense_scan_i8_kernel_launches == before + 1
+    assert tracing.counter("k3.launches") == before + 1
     torch.testing.assert_close(got8, tdense._dense_block_scan_plain_i8(data8, q8), rtol=0, atol=0)

@@ -39,6 +39,7 @@ from gulon_tpu_torch.ops import scan as tscan
 from gulon_tpu_torch.ops.cuda import adc as tadc
 from gulon_tpu_torch.ops.pq import PQConfig
 from gulon_tpu_torch.utils import eval as teval
+from gulon_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -500,9 +501,9 @@ def test_deferred_paths_raise(data, jax_index):
 def test_cpu_index_never_counts_a_kernel_launch(data, jax_index):
     _, _, q = data
     port = interop.from_reference(_jax_variant(jax_index, scan_strategy="pallas"), device="cpu")
-    before = tadc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     port.query_arrays(10, q)
-    assert tadc.adc_scan_kernel_launches == before
+    assert tracing.counter("k1.launches") == before
 
 
 @pytest.fixture
@@ -539,9 +540,9 @@ def test_kernel_w4_on_ivf_operands_on_the_card(cuda_device, data, jax_index):
     np.testing.assert_array_equal(vk < tadc._INVALID_MIN, vp < tadc._INVALID_MIN)
     assert np.all(np.abs(vk - vp) <= 2.0 ** -14 * np.maximum(np.abs(vp), 1.0))
     port.scan_strategy = "pallas"
-    before = tadc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     _, ids = port.query_arrays(10, q)
-    assert tadc.adc_scan_kernel_launches == before + 1 and ids.is_cuda
+    assert tracing.counter("k1.launches") == before + 1 and ids.is_cuda
 
 
 @pytest.mark.parametrize(

@@ -19,6 +19,7 @@ import torch
 
 import chip_smoke as cs
 from gulon_tpu_torch.ops.cuda import adc, dense
+from gulon_tpu_torch.utils import tracing
 
 
 def _k1_id(case):
@@ -61,9 +62,9 @@ def test_k1_edge_plain_on_cpu(case):
     assert operands[0].dtype == (torch.int8 if k_codes <= 256 else torch.int16)
     codes_t, _, q_op, cb = operands
     assert q_op.shape[1] % 8 == 0 and q_op.shape[1] >= codes_t.shape[0] * cb.shape[2] + 4
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
-    assert adc.adc_scan_kernel_launches == before
+    assert tracing.counter("k1.launches") == before
     assert got.shape == (q_n, operands[0].shape[1] // 128 * winners)
     assert cs.compare_packed(got, got)["ok"]
     vals = (got.view(torch.int32) & ~127).view(torch.float32)
@@ -89,9 +90,9 @@ def test_k2_edge_plain_on_cpu(case):
     n, d, q_n, nan = case
     data, q_op = _k2(case, "cpu")
     assert data.shape[1] % 8 == 0 and q_op.shape == (q_n, data.shape[1])
-    before = dense.dense_scan_kernel_launches
+    before = tracing.counter("k2.launches")
     got = dense.dense_block_scan(data, q_op)
-    assert dense.dense_scan_kernel_launches == before
+    assert tracing.counter("k2.launches") == before
     assert got.shape == (q_n, -(-n // 128))
     ids = got.view(torch.int32) & 127
     vals = (got.view(torch.int32) & ~127).view(torch.float32)
@@ -120,9 +121,9 @@ def test_k3_edge_plain_on_cpu(case):
     n, dp, q_n, lanes = case
     data, q_op = _k3(case, "cpu")
     assert data.dtype == q_op.dtype == torch.int8 and q_op.shape == (q_n, dp)
-    before = dense.dense_scan_i8_kernel_launches
+    before = tracing.counter("k3.launches")
     got = dense.dense_block_scan_i8(data, q_op)
-    assert dense.dense_scan_i8_kernel_launches == before
+    assert tracing.counter("k3.launches") == before
     assert got.shape == (q_n, -(-n // 128)) and got.dtype == torch.int32
     last = (n - 1) // 128 * 128
     assert torch.equal(got[:, 0], _block_winners_int64(data, q_op, 0))
@@ -198,10 +199,10 @@ def cuda_device():
 def test_k1_edge_on_the_card(cuda_device, case):
     winners = case[5]
     operands, nblk, real = _k1(case, cuda_device)
-    before = adc.adc_scan_kernel_launches
+    before = tracing.counter("k1.launches")
     got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
     torch.cuda.synchronize()
-    assert adc.adc_scan_kernel_launches == before + 1
+    assert tracing.counter("k1.launches") == before + 1
     ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
     result = cs.compare_packed(got, ref)
     assert result["ok"], result
@@ -214,10 +215,10 @@ def test_k1_edge_on_the_card(cuda_device, case):
 @pytest.mark.parametrize("case", cs.K3_EDGE_CASES, ids=_k3_id)
 def test_k3_edge_on_the_card(cuda_device, case):
     data, q_op = _k3(case, cuda_device)
-    before = dense.dense_scan_i8_kernel_launches
+    before = tracing.counter("k3.launches")
     got = dense.dense_block_scan_i8(data, q_op)
     torch.cuda.synchronize()
-    assert dense.dense_scan_i8_kernel_launches == before + 1
+    assert tracing.counter("k3.launches") == before + 1
     assert torch.equal(got, dense._dense_block_scan_plain_i8(data, q_op))
 
 
@@ -225,10 +226,10 @@ def test_k3_edge_on_the_card(cuda_device, case):
 @pytest.mark.parametrize("case", cs.K2_EDGE_CASES, ids=_k2_id)
 def test_k2_edge_on_the_card(cuda_device, case):
     data, q_op = _k2(case, cuda_device)
-    before = dense.dense_scan_kernel_launches
+    before = tracing.counter("k2.launches")
     got = dense.dense_block_scan(data, q_op)
     torch.cuda.synchronize()
-    assert dense.dense_scan_kernel_launches == before + 1
+    assert tracing.counter("k2.launches") == before + 1
     ref = dense._dense_block_scan_plain(data, q_op)
     result = cs.compare_packed(got, ref, cs.dense_scale(data, q_op, ref))
     assert result["ok"], result

@@ -40,6 +40,7 @@ from gulon_tpu_torch.probes import adc_probes as tp
 from gulon_tpu_torch.probes import floor_probe as fp
 from gulon_tpu_torch.probes import k1_stages as ks
 from gulon_tpu_torch.probes import kernel_probe as kp
+from gulon_tpu_torch.utils import tracing
 
 torch.set_num_threads(2)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -526,10 +527,10 @@ def test_p4_rotated_reads_each_copy_in_turn():
     """``rotated``: a call of the variant on the operands' own device, over
     copies of them, returning nothing (its outputs are kept for a while)."""
     codes, q = fp.floor_operands(n=4096, device="cpu")
-    before = fp.floor_probe_kernel_launches
+    before = tracing.counter("probe.p4.launches")
     call = fp.rotated("codes only, out v [8]", codes, q, copies=3, kept=2)
     assert all(call() is None for _ in range(5))
-    assert fp.floor_probe_kernel_launches == before  # the CPU ran the plain zeros
+    assert tracing.counter("probe.p4.launches") == before  # the CPU ran the plain zeros
 
 
 def test_p4_operands_are_the_headline_shape():

@@ -30,6 +30,7 @@ from gulon_tpu_torch.probes import adc_probes as ap
 from gulon_tpu_torch.probes import floor_probe as fp
 from gulon_tpu_torch.probes import k1_stages as ks
 from gulon_tpu_torch.probes import kernel_probe as kp
+from gulon_tpu_torch.utils import tracing
 
 # (n, D, m, K, queries, winners, centered, extra) as chip_smoke.K1_EDGE_CASES
 P1_CASES = (
@@ -73,12 +74,12 @@ def test_adc_probe_on_the_card(cuda_device, case, pipe):
     winners = case[5]
     ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
     for mode, natural in _modes(case[3], pipe):
-        counter = "adc_probe_pipe_kernel_launches" if pipe else "adc_probe_kernel_launches"
-        before = getattr(ap, counter)
+        counter = "probe.p2.launches" if pipe else "probe.p1.launches"
+        before = tracing.counter(counter)
         got = ap.probe_block_scan(*operands, winners=winners, nblk=nblk, decode_mode=mode,
                                   natural=natural, pipe=pipe)
         torch.cuda.synchronize()
-        assert getattr(ap, counter) == before + 1
+        assert tracing.counter(counter) == before + 1
         check = cs.compare_packed(got, ref)
         assert check["ok"], (mode, natural, check)
         if real is not None:
@@ -127,10 +128,10 @@ def test_decoded_rows_exact_on_the_card(cuda_device, case):
     for mode in ap.DECODE_MODES:
         if mode == "bf16cmp" and k_codes > 256:
             continue
-        before = ap.adc_probe_decode_launches
+        before = tracing.counter("probe.decode.launches")
         rows = ap.probe_decode_rows(codes_t, norms, cb, width=width, decode_mode=mode)
         torch.cuda.synchronize()
-        assert ap.adc_probe_decode_launches == before + 1
+        assert tracing.counter("probe.decode.launches") == before + 1
         assert cs.rows_equal_but_zero_sign(rows, plain), mode
         if mode != "take" and n <= 2048 and m <= 12:
             emu = ap.onehot_decode_rows_plain(codes_t.cpu(), norms.cpu(), cb.cpu(), width=width,
@@ -181,10 +182,10 @@ def test_kernel_probe_on_the_card(cuda_device, shape):
     for variant in kp.VARIANTS:
         if shape[2] > 256 and kp.spec(variant)[1] in ("cmp8", "i8"):
             continue  # those recipes take K <= 256
-        before = kp.kernel_probe_kernel_launches
+        before = tracing.counter("probe.p3.launches")
         got = kp.kernel_probe(variant, *ops, tile_rows=t, query_tile=512)
         torch.cuda.synchronize()
-        assert kp.kernel_probe_kernel_launches == before + 1
+        assert tracing.counter("probe.p3.launches") == before + 1
         ref = kp.plain(variant, *ops, tile_rows=t, query_tile=512)
         i8 = kp.quantize_codebooks(ops[3]) if variant == "tdec_i8" else None
         vdec = dec if i8 is None else kp.decoded_rows(ops[0], ops[3], shape[4], i8)
@@ -212,10 +213,10 @@ def test_k1_stages_on_the_card(cuda_device, case):
     gen = torch.Generator(device=cuda_device).manual_seed(23)
     operands, nblk, _ = cs.k1_operands(gen, *case, dev=cuda_device)
     for stage in ks.STAGES:
-        before = ks.k1_stage_kernel_launches
+        before = tracing.counter("probe.k1_stages.launches")
         got = ks.k1_stage_scan(*operands, stage=stage, nblk=nblk)
         torch.cuda.synchronize()
-        assert ks.k1_stage_kernel_launches == before + 1
+        assert tracing.counter("probe.k1_stages.launches") == before + 1
         check = cs._k1_stage_check(stage, got, ks.plain(*operands, stage=stage, nblk=nblk))
         assert check["ok"], (stage, check)
 

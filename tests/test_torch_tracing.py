@@ -1,0 +1,314 @@
+"""The port's spans and counters (``gulon_tpu_torch/utils/tracing.py``).
+
+With no profiler a span is one shared no-op context that never builds a
+``RecordFunction``. Under ``torch.profiler`` each span is a plain host
+event (a ``cpu_op``, not a user annotation) on the profiler's clock, the
+spans nest as the layers do, and the aggregates keep count, total and
+self time for the latest profiled session only. The query and build
+paths record the span tree their layers make, one wait span per call
+that blocks on the device, and one ``gulon.kmeans.iter`` per Lloyd
+iteration. Launch counters live in the same registry."""
+
+import ast
+import pathlib
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import gulon_tpu_torch as gt
+from gulon_tpu_torch.ops import kmeans as tkm
+from gulon_tpu_torch.utils import tracing
+
+PKG = pathlib.Path(gt.__file__).parent
+N, D, K = 6000, 16, 10
+PQ = gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=6)
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(40, D)).astype(np.float32)
+    x = centers[rng.integers(0, 40, N)] + 0.1 * rng.normal(size=(N, D)).astype(np.float32)
+    keys = np.array([f"w{i:05d}" for i in range(N)], dtype=object)
+    return keys, x.astype(np.float32), x[:64].copy()
+
+
+@pytest.fixture(scope="module")
+def flat(corpus):
+    keys, x, _ = corpus
+    return gt.build_flat_index(keys, x, gt.Metric.COSINE, PQ, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ivf(corpus):
+    keys, x, _ = corpus
+    return gt.build_ivf_index(keys, x, pq_config=PQ, num_partitions=12,
+                              strategy=gt.LimitGroups(3), coarse_max_iters=6, device="cpu")
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU profiler; returns ``(snapshot spans, profile)``."""
+    with tracing.span("gulon.test.off"):  # seen off: the session starts afresh
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return tracing.snapshot()["spans"], prof
+
+
+def _gulon_events(prof):
+    return [e for e in prof.profiler.kineto_results.events() if e.name().startswith("gulon.")]
+
+
+def _tree(prof) -> set:
+    """``(span, innermost enclosing span or None)`` of every span event."""
+    ev = sorted(_gulon_events(prof), key=lambda e: (e.start_ns(), -e.duration_ns()))
+    pairs, open_ = set(), []
+    for e in ev:
+        s, t = e.start_ns(), e.start_ns() + e.duration_ns()
+        while open_ and open_[-1][1] < t:
+            open_.pop()
+        pairs.add((e.name(), open_[-1][0] if open_ else None))
+        open_.append((e.name(), t))
+    return pairs
+
+
+def _waits(spans) -> int:
+    return sum(v["count"] for name, v in spans.items() if name.startswith("gulon.wait."))
+
+
+def test_span_off_is_one_shared_noop_and_builds_no_record_function(monkeypatch, flat, corpus):
+    def refuse(*a, **kw):
+        raise AssertionError("a RecordFunction was built with no profiler")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    assert not torch.autograd._profiler_enabled()
+    tracing.reset()
+    a, b = tracing.span("gulon.a"), tracing.span("gulon.b")
+    assert a is b
+    with a, b:
+        pass
+    flat.query_arrays(K, corpus[2])
+    gt.build_flat_index(corpus[0][:2000], corpus[1][:2000], pq_config=PQ, device="cpu")
+    assert tracing.snapshot()["spans"] == {}
+
+
+def test_spans_nest_with_self_time_and_stay_off_the_device_timeline():
+    def work():
+        with tracing.span("gulon.outer"):
+            time.sleep(0.02)
+            with tracing.span("gulon.inner"):
+                time.sleep(0.03)
+                with tracing.span("gulon.innermost"):
+                    pass
+            with tracing.span("gulon.inner"):
+                pass
+
+    spans, prof = _profiled(work)
+    outer, inner, most = spans["gulon.outer"], spans["gulon.inner"], spans["gulon.innermost"]
+    assert (outer["count"], inner["count"], most["count"]) == (1, 2, 1)
+    assert outer["total_s"] >= 0.05 and inner["total_s"] >= 0.03
+    assert outer["self_s"] == pytest.approx(outer["total_s"] - inner["total_s"], abs=1e-9)
+    assert inner["self_s"] == pytest.approx(inner["total_s"] - most["total_s"], abs=1e-9)
+    assert most["self_s"] == most["total_s"]
+    assert _tree(prof) == {("gulon.outer", None), ("gulon.inner", "gulon.outer"),
+                           ("gulon.innermost", "gulon.inner")}
+    events = _gulon_events(prof)
+    assert len(events) == 4
+    for e in events:
+        assert e.device_type() == torch.autograd.DeviceType.CPU
+        assert not e.is_user_annotation()
+
+
+def test_a_thread_the_profiler_does_not_see_leaves_the_session_alone():
+    def other():  # the profiler sees the thread that started it only
+        with tracing.span("gulon.thread"):
+            time.sleep(0.01)
+
+    def work():
+        with tracing.span("gulon.before"):
+            pass
+        with tracing.span("gulon.main"):
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+        with tracing.span("gulon.after"):
+            pass
+
+    spans, _ = _profiled(work)
+    assert set(spans) == {"gulon.before", "gulon.main", "gulon.after"}
+    assert spans["gulon.main"]["self_s"] == spans["gulon.main"]["total_s"] >= 0.01
+
+
+QUERY_ROOT = {("gulon.query", None), ("gulon.query.prepare", "gulon.query"),
+              ("gulon.wait.upload_queries", "gulon.query.prepare"),
+              ("gulon.query.route", "gulon.query")}
+K1_PATH = {("gulon.scan.operands", "gulon.query"),
+           ("gulon.wait.upload_base_cols", "gulon.scan.operands"),
+           ("gulon.scan.k1", "gulon.query"), ("gulon.scan.select", "gulon.query")}
+
+# flat: (knobs, spans below the root, wait spans a query); this corpus's
+# codes repeat, so the auto rerank factor would add a rescore
+FLAT_ROUTES = {
+    "pallas": (dict(scan_strategy="pallas", rerank_factor=1), K1_PATH, 2),
+    "pallas_rescore": (dict(scan_strategy="pallas", rerank_factor=2),
+                       K1_PATH | {("gulon.scan.rescore", "gulon.query")}, 2),
+    "decode": (dict(scan_strategy="decode"), {("gulon.scan.decode", "gulon.query")}, 1),
+    "lut": (dict(scan_strategy="lut"), {("gulon.scan.lut", "gulon.query")}, 1),
+    "cached": (dict(scan_strategy="cached", rerank_factor=1),
+               {("gulon.scan.cached", "gulon.query")}, 1),
+}
+
+
+@pytest.mark.parametrize("route", list(FLAT_ROUTES))
+def test_a_flat_query_records_its_span_tree(flat, corpus, route):
+    import dataclasses
+
+    knobs, below, waits = FLAT_ROUTES[route]
+    index = dataclasses.replace(flat, **knobs)
+    if route == "cached":
+        index.enable_cache()
+    q = corpus[2]
+    index.query_arrays(K, q)  # lazy operands and memoized knobs, unprofiled
+    spans, prof = _profiled(lambda: [index.query_arrays(K, q) for _ in range(3)])
+    assert _tree(prof) == QUERY_ROOT | below
+    assert spans["gulon.query"]["count"] == 3
+    assert _waits(spans) / spans["gulon.query"]["count"] == waits
+
+
+IVF_ROUTES = {
+    "pallas": (dict(scan_strategy="pallas"), K1_PATH, 2),
+    "pallas_rescore": (dict(scan_strategy="pallas", pallas_rescore=2),
+                       K1_PATH | {("gulon.scan.rescore", "gulon.scan.select")}, 2),
+    "masked": (dict(scan_strategy="masked"), {("gulon.scan.masked", "gulon.query")}, 1),
+    "gathered": (dict(scan_strategy="gathered"),
+                 {("gulon.scan.gathered", "gulon.query"),
+                  ("gulon.wait.upload_slices", "gulon.scan.gathered")}, 2),
+    "bucketed": (dict(scan_strategy="bucketed"),
+                 {("gulon.scan.bucketed", "gulon.query"),
+                  ("gulon.wait.probe_ids", "gulon.scan.bucketed"),
+                  ("gulon.wait.upload_schedule", "gulon.scan.bucketed")}, 3),
+}
+
+
+@pytest.mark.parametrize("route", list(IVF_ROUTES))
+def test_an_ivf_query_records_its_span_tree(ivf, corpus, route):
+    import dataclasses
+
+    knobs, below, waits = IVF_ROUTES[route]
+    index = dataclasses.replace(ivf, **knobs)
+    q = corpus[2]
+    index.query_arrays(K, q)
+    spans, prof = _profiled(lambda: [index.query_arrays(K, q) for _ in range(2)])
+    assert _tree(prof) == QUERY_ROOT | {("gulon.ivf.probe", "gulon.query")} | below
+    assert spans["gulon.query"]["count"] == 2
+    assert _waits(spans) / spans["gulon.query"]["count"] == waits
+
+
+def test_a_session_counts_its_own_spans_only(flat, corpus):
+    q = corpus[2]
+    first, _ = _profiled(lambda: [flat.query_arrays(K, q) for _ in range(3)])
+    assert first["gulon.query"]["count"] == 3
+    second, _ = _profiled(lambda: flat.query_arrays(K, q))
+    assert second["gulon.query"]["count"] == 1
+    assert set(second) <= set(first)
+    tracing.reset()
+    assert tracing.snapshot()["spans"] == {}
+
+
+def _iterations_and_spans(build):
+    """Lloyd iterations that ``report_fn`` saw, and the build's spans."""
+    seen = []
+    spans, prof = _profiled(lambda: build(lambda it, *stats: seen.append(it)))
+    return seen, spans, prof
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_a_build_records_one_span_per_lloyd_iteration(corpus, kind):
+    keys, x, _ = corpus
+    pq = PQ._replace(max_iters=25)
+    if kind == "flat":
+        seen, spans, prof = _iterations_and_spans(
+            lambda rep: gt.build_flat_index(keys, x, pq_config=pq, report_fn=rep, device="cpu"))
+        trainings = 1
+    else:
+        seen, spans, prof = _iterations_and_spans(
+            lambda rep: gt.build_ivf_index(keys, x, pq_config=pq, num_partitions=12,
+                                           coarse_max_iters=25, report_fn=rep, device="cpu"))
+        trainings = 2  # the coarse k-means, then the residual PQ
+    assert sum(1 for it in seen if it == 1) == trainings
+    assert spans["gulon.kmeans.iter"]["count"] == len(seen)
+    assert spans["gulon.build"]["count"] == 1
+    assert spans["gulon.build.train"]["count"] == trainings
+    tree = _tree(prof)
+    for child in ("gulon.build.host", "gulon.build.train", "gulon.build.encode"):
+        assert (child, "gulon.build") in tree
+    assert ("gulon.kmeans.iter", "gulon.build.train") in tree
+    assert ("gulon.wait.kmeans_done", "gulon.kmeans.iter") in tree
+    assert spans["gulon.wait.kmeans_done"]["count"] == len(seen)
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
+def test_fit_kmeans_records_its_iterations(corpus, stacked):
+    x = torch.from_numpy(corpus[1][:3000])
+    if stacked:
+        x = torch.stack([x[:, :8], x[:, 8:]])
+    result = None
+
+    def fit():
+        nonlocal result
+        result = tkm.fit_kmeans(x, tkm.KMeansConfig(k=12, max_iters=30))
+
+    spans, _ = _profiled(fit)
+    assert result.iterations >= 2
+    assert spans["gulon.kmeans.iter"]["count"] == result.iterations
+
+
+def test_counters_are_always_on():
+    before = tracing.counter("test.launches")
+    tracing.count("test.launches")
+    tracing.count("test.launches", 2)
+    assert tracing.counter("test.launches") == before + 3
+    tracing.set_counter("test.launches", 0)
+    assert tracing.snapshot()["counters"]["test.launches"] == 0
+    assert tracing.counter("test.never") == 0
+
+
+def test_counts_from_many_threads_are_all_kept():
+    threads, each = 16, 5000
+    tracing.set_counter("test.threads", 0)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [tracing.count("test.threads")
+                                                    for _ in range(each)])
+                   for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(w.is_alive() for w in workers)
+    assert tracing.counter("test.threads") == threads * each
+
+
+def _module_globals(path: pathlib.Path):
+    for node in ast.parse(path.read_text()).body:
+        targets = node.targets if isinstance(node, ast.Assign) else (
+            [node.target] if isinstance(node, ast.AnnAssign) else [])
+        for t in targets:
+            if isinstance(t, ast.Name):
+                yield t.id
+
+
+def test_the_port_counts_launches_in_the_registry_only():
+    found = [(p.name, name) for p in PKG.rglob("*.py") for name in _module_globals(p)
+             if "launch" in name.lower()]
+    assert found == []
+    source = (PKG / "utils" / "tracing.py").read_text()
+    assert "environ" not in source and "getenv" not in source
