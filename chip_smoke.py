@@ -1462,10 +1462,8 @@ def _flat_kernel_check(index, q, launches_per_batch, phase: str) -> dict:
     as its ``pallas`` route builds them: :func:`_k1_flat_check`."""
     from gulon_tpu_torch.ops.cuda import adc
 
-    if index._pallas_codes_t is None:
-        index._pallas_codes_t = adc.pack_codes_t(index.codes, index.pq.num_clusters)
     return _k1_flat_check(
-        index.pq, index._pallas_codes_t, index.recon_norms,
+        index.pq, adc.pack_codes_t(index.codes, index.pq.num_clusters), index.recon_norms,
         index.resolved_pallas_winners(), q, launches_per_batch, phase,
     )
 
@@ -1526,7 +1524,8 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
 
     winners = 4
     pq = index.pq
-    codes_t, rc_pal, _, row_map = index._pallas_operands()
+    rc_pal, _, row_map = index._pallas_operands()
+    codes_t = index._pallas_codes()
     npad = codes_t.shape[1]
     ops = adc.prepare_scan_operands(
         q, pq.codebooks, codes_t, rc_pal, bounds=pq.bounds, tile_rows=0,
@@ -1655,7 +1654,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
         n=n, d=d, pq="12x256", partitions=index.num_partitions,
         probe=index.strategy.count, batch=batch, k=k,
         partition_rows=[int(sizes.min()), int(sizes.max())],
-        padded_rows=int(index._pallas_layout[0].shape[1]),
+        padded_rows=int(index._pallas_layout[0].shape[0]),
         build_s=build_s, layout_s=layout_s, strategy=strategy, rebuild=rebuild,
     )
     for name, idx in routes.items():
@@ -1749,8 +1748,8 @@ def _ivf_rebuild_check(index, keys, x, device) -> dict:
         device=device,
     )
     out = dict(
-        padded_rows=[int(index._pallas_operands()[0].shape[1]),
-                     int(again._pallas_operands()[0].shape[1])],
+        padded_rows=[int(index._pallas_operands()[0].shape[0]),
+                     int(again._pallas_operands()[0].shape[0])],
         codes_equal=bool(torch.equal(index.codes, again.codes)),
         row_const_equal=bool(torch.equal(index.row_const, again.row_const)),
         centroids_equal=bool(torch.equal(index.centroids, again.centroids)),

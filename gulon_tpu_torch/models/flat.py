@@ -83,8 +83,9 @@ class FlatIndex(Index):
     # x @ rotation, queries rotate in _prepare_queries, lookup un-rotates;
     # None = plain PQ. Orthogonal, so reported distances are unchanged
     rotation: Optional[torch.Tensor] = None
-    # query-invariant [m, N] kernel code operand, built lazily
-    _pallas_codes_t: Optional[torch.Tensor] = None
+    # K1's index-constant operands by launch geometry, built lazily
+    # (ops/cuda/adc.py::scan_index_operands)
+    _k1_operands: Optional[dict] = None
     # dense-kernel operand over the decoded cache (norm lanes appended),
     # built lazily on CUDA; it replaces decoded_cache once built
     _cache_aug: Optional[torch.Tensor] = None
@@ -94,7 +95,7 @@ class FlatIndex(Index):
 
     # the fields above that are built on first use from the rows
     _LAZY_OPERANDS = (
-        "decoded_cache", "_pallas_codes_t", "_cache_aug", "_auto_rerank", "_auto_dup",
+        "decoded_cache", "_k1_operands", "_cache_aug", "_auto_rerank", "_auto_dup",
     )
 
     @property
@@ -201,13 +202,13 @@ class FlatIndex(Index):
             if not self._kernel_bounds_ok(k_scan):
                 # tiny corpus / large k / large K: the decode scan
                 return dataclasses.replace(self, scan_strategy="decode")._query(k, vectors)
-            if self._pallas_codes_t is None:
-                with tracing.span("gulon.scan.operands"):
-                    self._pallas_codes_t = pack_codes_t(self.codes, self.pq.num_clusters)
+            if self._k1_operands is None:
+                self._k1_operands = {}
             dists, ids = adc_scan_fused(
-                q, self.pq.codebooks, self._pallas_codes_t, self.recon_norms,
-                bounds=self.pq.bounds, k=k_scan, num_rows=self.size,
-                winners=self.resolved_pallas_winners(),
+                q, self.pq.codebooks,
+                lambda: pack_codes_t(self.codes, self.pq.num_clusters),
+                self.recon_norms, bounds=self.pq.bounds, k=k_scan, num_rows=self.size,
+                winners=self.resolved_pallas_winners(), held=self._k1_operands,
             )
         elif strategy == "cached":
             if self.packed_width and not self._has_cache():

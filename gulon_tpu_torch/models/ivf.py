@@ -513,7 +513,8 @@ def _pallas_ivf_query(
     group_term: torch.Tensor,  # [Q, P] f32
     probe_mask: torch.Tensor,  # [Q, P] bool
     codebooks: torch.Tensor,
-    codes_t: torch.Tensor,  # [m, Npad] partition-padded kernel operand
+    codes_t,  # [m, Npad] partition-padded kernel operand (with held, or a
+    #   function returning it: ops/cuda/adc.py::scan_index_operands)
     rc_pal: torch.Tensor,  # [Npad] f32 (sentinel on padding rows)
     blk_part: torch.Tensor,  # [Npad/128] partition of each 128-row block
     row_map: torch.Tensor,  # [Npad] int32 padded row -> original row (-1 pad)
@@ -522,6 +523,7 @@ def _pallas_ivf_query(
     k: int,
     winners: int,
     rescore: int = 0,
+    held=None,  # the index's dict of K1 operands
 ):
     """Kernel K1 plus the epilogue of the IVF ``pallas`` strategy
     (``gulon_tpu/models/ivf.py:652-733``).
@@ -540,10 +542,10 @@ def _pallas_ivf_query(
         unpack_block_winners,
     )
 
-    npad = codes_t.shape[1]
-    packed, base_cols, _, _, _ = _block_scan(
+    npad = row_map.shape[0]
+    packed, base_cols, codes_t, _ = _block_scan(
         q, codebooks, codes_t, rc_pal,
-        bounds=bounds, tile_rows=0, num_rows=npad, winners=winners,
+        bounds=bounds, tile_rows=0, num_rows=npad, winners=winners, held=held,
     )
     with tracing.span("gulon.scan.select"):
         bv, bi = unpack_block_winners(packed, base_cols)
@@ -597,8 +599,12 @@ class IVFIndex(Index):
     _codes_pad: Optional[torch.Tensor] = None  # [N + pad, m], built lazily
     _row_const_pad: Optional[torch.Tensor] = None  # [N + pad] f32
     # lazily built partition-padded layout of the pallas strategy:
-    # (codes^T [m, Np], row_const [Np], blk_part [Np/128], row_map [Np])
+    # (row_const [Np], blk_part [Np/128], row_map [Np]); its code operand
+    # lives, padded to the row tile, in _k1_operands
     _pallas_layout: Optional[tuple] = None
+    # K1's index-constant operands by launch geometry, built lazily
+    # (ops/cuda/adc.py::scan_index_operands)
+    _k1_operands: Optional[dict] = None
     _sizes_dev: Optional[torch.Tensor] = None  # partition_sizes() on device
     # ranked candidates the fused kernel keeps per 128-row block (1..4):
     # losing a true top-k member needs pallas_winners + 1 of them in one
@@ -612,7 +618,7 @@ class IVFIndex(Index):
     # enable_cache
     _LAZY_OPERANDS = (
         "recon_cache", "recon_norms_cache", "_codes_pad", "_row_const_pad",
-        "_pallas_layout", "_sizes_dev",
+        "_pallas_layout", "_k1_operands", "_sizes_dev",
     )
 
     @property
@@ -667,13 +673,12 @@ class IVFIndex(Index):
 
     def _pallas_operands(self):
         """Partition-padded layout of the fused-kernel scan (built once, on
-        the index's device). Every partition is padded to a 128-row block
-        boundary, so each selection block belongs to one partition; padding
-        rows carry a row constant above the kernel's invalid threshold and
-        never win a block min."""
+        the index's device): ``(row_const [Np], blk_part [Np/128], row_map
+        [Np])``. Every partition is padded to a 128-row block boundary, so
+        each selection block belongs to one partition; padding rows carry
+        a row constant above the kernel's invalid threshold and never win
+        a block min."""
         if self._pallas_layout is None:
-            from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
-
             with tracing.span("gulon.scan.operands"):
                 dev = self.device
                 sizes = self.partition_sizes().astype(np.int64)
@@ -685,22 +690,23 @@ class IVFIndex(Index):
                     shift = torch.from_numpy(pstarts - starts).to(dev)
                     blocks = torch.from_numpy(psz // _PALLAS_BLOCK).to(dev)
                 dst = shift[self.group_ids.long()] + torch.arange(self.size, device=dev)
-                codes_pal = torch.zeros(
-                    (npad, self.pq.num_quantizers), dtype=torch.int32, device=dev
-                )
-                codes_pal[dst] = self.codes.to(torch.int32)
                 rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
                 rc_pal[dst] = self.row_const.to(torch.float32)
                 row_map = torch.full((npad,), -1, dtype=torch.int32, device=dev)
                 row_map[dst] = torch.arange(self.size, dtype=torch.int32, device=dev)
                 blk_part = torch.repeat_interleave(torch.arange(len(sizes), device=dev), blocks)
-                self._pallas_layout = (
-                    pack_codes_t(codes_pal, self.pq.num_clusters),
-                    rc_pal,
-                    blk_part,
-                    row_map,
-                )
+                self._pallas_layout = (rc_pal, blk_part, row_map)
         return self._pallas_layout
+
+    def _pallas_codes(self) -> torch.Tensor:
+        """The layout's pretransposed code operand ``[m, Np]``: each row's
+        codes at its padded row, code 0 on padding rows."""
+        from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
+
+        row_map = self._pallas_operands()[2].long()
+        codes_pal = self.codes[torch.clamp(row_map, min=0)]
+        codes_pal.masked_fill_((row_map < 0)[:, None], 0)
+        return pack_codes_t(codes_pal, self.pq.num_clusters)
 
     def _pallas_eligible(self, k_eff: int) -> bool:
         return (
@@ -826,11 +832,14 @@ class IVFIndex(Index):
 
     def _query_pallas(self, q, qn, group_term, probe_mask, k_eff: int):
         """The fused-kernel strategy over the partition-padded layout."""
-        codes_t, rc_pal, blk_part, row_map = self._pallas_operands()
+        rc_pal, blk_part, row_map = self._pallas_operands()
+        if self._k1_operands is None:
+            self._k1_operands = {}
         return _pallas_ivf_query(
-            q, qn, group_term, probe_mask, self.pq.codebooks, codes_t,
+            q, qn, group_term, probe_mask, self.pq.codebooks, self._pallas_codes,
             rc_pal, blk_part, row_map, bounds=self.pq.bounds, k=k_eff,
             winners=self.pallas_winners, rescore=self.pallas_rescore,
+            held=self._k1_operands,
         )
 
     def _query_sublinear(self, strategy, q, qn, group_term, cdist, probe_mask, k_eff):

@@ -14,7 +14,10 @@ semantics so that the two compare one for one:
   ``prepare_scan_operands``): -2-scaled bf16 queries with unit lanes
   facing the hi/lo bf16 norm rows, and in centered mode
   ``||q||^2 + mean`` lanes facing two rows of ones, so the contraction
-  emits the true ADC distance;
+  emits the true ADC distance. What depends only on the index and the
+  launch geometry (:func:`scan_index_operands`) is built once and held
+  by the index; a batch builds only its query operand
+  (:func:`query_operand`: one concatenation and one column gather);
 - the launch (:func:`fused_block_scan`), which runs K1 for CUDA tensors
   and its plain PyTorch twin :func:`_block_scan_plain` for CPU tensors;
 - the plain-torch epilogue (``unpack_block_winners``, ``finish_scan``):
@@ -35,6 +38,7 @@ uncentered for block-scan callers).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -114,6 +118,112 @@ def pack_codes_t(codes: torch.Tensor, k_codes: int) -> torch.Tensor:
     return c.T.contiguous()
 
 
+def _scan_geometry(
+    num_q: int, codebooks: torch.Tensor, codes, *, tile_rows: int, num_rows: int,
+    winners: int,
+) -> Tuple[int, int, int, int]:
+    """``(n, qt, t, mdp)`` of a launch over ``n`` rows, the kernel's limits
+    checked."""
+    m, k_codes, dsub = codebooks.shape
+    n = num_rows if num_rows > 0 else codes.shape[0]
+    if k_codes > 1024:
+        raise ValueError(f"fused ADC kernel supports K <= 1024, got {k_codes}")
+    mdp = padded_depth(m, dsub)
+    if tile_rows and tile_rows % 1024:
+        raise ValueError(f"tile_rows must be a 1024-multiple, got {tile_rows}")
+    qt, t, _, _ = block_layout(num_q, k_codes, mdp, n, tile_rows, winners)
+    return n, qt, t, mdp
+
+
+def _pad_codes(codes: torch.Tensor, n: int, t: int, pretransposed: bool) -> torch.Tensor:
+    """The code operand ``[m, N']``, ``N'`` a multiple of ``t``: pretransposed
+    codes padded with code 0 (offset-encoded), row-major ``[n, m]`` codes as
+    int32, transposed."""
+    if pretransposed:
+        return torch.nn.functional.pad(codes, (0, (-codes.shape[1]) % t))
+    codes_i = torch.nn.functional.pad(codes.to(torch.int32), (0, 0, 0, (-n) % t))
+    return codes_i.T.contiguous()
+
+
+def _pad_norms(recon_norms: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """``[N] -> [n_cols]`` f32 norms, ``_BIG`` on the padding rows."""
+    norms = recon_norms.to(torch.float32)
+    if norms.shape[0] < n_cols:
+        norms = torch.nn.functional.pad(norms, (0, n_cols - norms.shape[0]), value=_BIG)
+    return norms
+
+
+def _center(recon_norms: torch.Tensor, center_scores: bool) -> torch.Tensor:
+    """The centered mode's constant, the mean norm over the real rows (0
+    uncentered), as a 0-d f32 tensor."""
+    if not center_scores:
+        return torch.zeros((), dtype=torch.float32, device=recon_norms.device)
+    nf = torch.clamp(recon_norms.to(torch.float32), max=_BIG)
+    valid = nf < _INVALID_MIN
+    return torch.sum(torch.where(valid, nf, 0.0)) / torch.clamp(
+        torch.sum(valid.to(torch.float32)), min=1.0
+    )
+
+
+def _base_cols(n_cols: int, t: int, winners: int, device) -> torch.Tensor:
+    """``[n_cols / 128 * winners]`` int32: the first row of each winner
+    column's 128-row block, built on the device."""
+    nblk = t // _LANES
+    wn = winners * nblk
+    cols = torch.arange(n_cols // t * wn, dtype=torch.int64, device=device)
+    return ((cols // wn) * t + (cols % wn) % nblk * _LANES).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _query_columns(bounds: tuple, dsub: int, centered: bool, device: torch.device):
+    """``(cols [mdp] int64, lanes [3] f32)`` on ``device``: lane ``j`` of the
+    query operand is column ``cols[j]`` of the rows :func:`_query_lanes`
+    concatenates, ``[lanes (-0.0, +0.0, 1.0), (||q||^2 + center hi, lo),
+    -2 q]``. A zero-padded subspace lane reads -0.0 (0 scaled by -2), the
+    two unit lanes 1.0, the center lanes their hi / lo parts (+0.0
+    uncentered), the depth padding +0.0. Held per shape, so a caller that
+    holds no index uploads them once."""
+    m = len(bounds)
+    md = m * dsub
+    lead = 5 if centered else 3
+    cols = np.ones(padded_depth(m, dsub), np.int64)
+    for s, (start, width) in enumerate(bounds):
+        cols[s * dsub : (s + 1) * dsub] = 0
+        cols[s * dsub : s * dsub + width] = lead + start + np.arange(width)
+    cols[md : md + 2] = 2
+    if centered:
+        cols[md + 2 : md + 4] = (3, 4)
+    with tracing.span("gulon.wait.upload_columns"):
+        return (
+            torch.from_numpy(cols).to(device),
+            torch.tensor([-0.0, 0.0, 1.0], dtype=torch.float32, device=device),
+        )
+
+
+def _columns_for(bounds, dsub: int, centered: bool, device):
+    return _query_columns(
+        tuple((int(s), int(w)) for s, w in bounds), int(dsub), bool(centered),
+        torch.device(device),
+    )
+
+
+def _query_lanes(
+    queries: torch.Tensor, cols: torch.Tensor, lanes: torch.Tensor,
+    center: torch.Tensor, centered: bool,
+) -> torch.Tensor:
+    """``[Q, mdp]`` query operand in the queries' precision: one
+    concatenation and one column gather (:func:`_query_columns`), no loop
+    over subspaces. Bit for bit the lanes the subspace split, the -2 scale
+    and the padding give."""
+    parts = [lanes.expand(queries.shape[0], 3)]
+    if centered:
+        qc = sq_norms(queries) + center  # [Q]
+        qc_hi = qc.to(torch.bfloat16).to(torch.float32)
+        parts += [qc_hi[:, None], (qc - qc_hi)[:, None]]
+    parts.append(queries * -2.0)
+    return torch.index_select(torch.cat(parts, dim=1), 1, cols)
+
+
 def prepare_scan_operands(
     queries: torch.Tensor,
     codebooks: torch.Tensor,
@@ -132,53 +242,94 @@ def prepare_scan_operands(
     num_q = queries.shape[0]
     m, k_codes, dsub = codebooks.shape
     pretransposed = num_rows > 0
-    n = num_rows if pretransposed else codes.shape[0]
-    if k_codes > 1024:
-        raise ValueError(f"fused ADC kernel supports K <= 1024, got {k_codes}")
-    mdp = padded_depth(m, dsub)
-    if tile_rows and tile_rows % 1024:
-        raise ValueError(f"tile_rows must be a 1024-multiple, got {tile_rows}")
-    qt, t, _, _ = block_layout(num_q, k_codes, mdp, n, tile_rows, winners)
-
-    md = m * dsub
-    dev = queries.device
-    qs = split_subspaces(queries, bounds, dsub)  # [m, Q, dsub]
-    q_pad = qs.permute(1, 0, 2).reshape(num_q, md) * -2.0
-    if center_scores:
-        nf = torch.clamp(recon_norms.to(torch.float32), max=_BIG)
-        valid = nf < _INVALID_MIN
-        center = torch.sum(torch.where(valid, nf, 0.0)) / torch.clamp(
-            torch.sum(valid.to(torch.float32)), min=1.0
-        )
-        qc = sq_norms(queries) + center  # [Q]
-        qc_hi = qc.to(torch.bfloat16).to(torch.float32)
-        qn_lanes = torch.stack([qc_hi, qc - qc_hi], dim=1)  # [Q, 2]
-    else:
-        center = torch.zeros((), dtype=torch.float32, device=dev)
-        qn_lanes = torch.zeros((num_q, 2), dtype=q_pad.dtype, device=dev)
-    q_pad = torch.cat(
-        [q_pad, torch.ones((num_q, 2), dtype=q_pad.dtype, device=dev), qn_lanes],
-        dim=1,
+    n, qt, t, mdp = _scan_geometry(
+        num_q, codebooks, codes, tile_rows=tile_rows, num_rows=num_rows, winners=winners
     )
+    codes_t = _pad_codes(codes, n, t, pretransposed)
+    center = _center(recon_norms, center_scores)
+    cols, lanes = _columns_for(bounds, dsub, center_scores, queries.device)
     q_pad = torch.nn.functional.pad(
-        q_pad, (0, mdp - md - 4, 0, (-num_q) % qt)
+        _query_lanes(queries, cols, lanes, center, center_scores),
+        (0, 0, 0, (-num_q) % qt),
     )
-
-    if pretransposed:
-        codes_t = torch.nn.functional.pad(codes, (0, (-codes.shape[1]) % t))
-    else:
-        codes_i = torch.nn.functional.pad(codes.to(torch.int32), (0, 0, 0, (-n) % t))
-        codes_t = codes_i.T.contiguous()  # [m, N']
-    norms = recon_norms.to(torch.float32)
-    if norms.shape[0] < codes_t.shape[1]:
-        norms = torch.nn.functional.pad(
-            norms, (0, codes_t.shape[1] - norms.shape[0]), value=_BIG
-        )
     return dict(
-        q_pad=q_pad, codes_t=codes_t, norms=norms, center=center, qs=qs,
+        q_pad=q_pad, codes_t=codes_t, norms=_pad_norms(recon_norms, codes_t.shape[1]),
+        center=center, qs=split_subspaces(queries, bounds, dsub),
         qt=qt, t=t, mdp=mdp, pretransposed=pretransposed, num_q=num_q,
         m=m, k_codes=k_codes, dsub=dsub,
     )
+
+
+def scan_index_operands(
+    held,
+    codebooks: torch.Tensor,
+    codes,
+    recon_norms: torch.Tensor,
+    *,
+    bounds,
+    num_q: int,
+    tile_rows: int = 0,
+    num_rows: int = 0,
+    winners: int = 1,
+    center_scores: bool = False,
+) -> dict:
+    """K1's index-constant operands for a batch of ``num_q`` queries: the
+    code operand padded to the row tile, the ``[2, N']`` bf16 hi/lo norm
+    rows with the center folded in, the center, ``base_cols`` on the
+    device, the bf16 codebooks and the query operand's column map.
+
+    They depend on the index and on the launch geometry ``(t, winners,
+    center_scores)`` alone (``t`` follows ``num_q``, :func:`_pick_tiles`).
+    ``held`` is the dict an index keeps them in: a geometry already there
+    is returned as it is, a new one built and stored. ``held=None`` (a
+    caller that holds no index) builds them for this call. With ``held``,
+    ``codes`` may be a function returning the pretransposed operand
+    (``num_rows`` columns), called only when a code operand has to be
+    built. ``held`` keeps one padded code operand: geometries of its
+    width share it (and the norm rows, at the same centering), and one of
+    another width replaces every entry. Each build adds one to the counter
+    ``k1.operand_builds``."""
+    n, _, t, _ = _scan_geometry(
+        num_q, codebooks, codes, tile_rows=tile_rows, num_rows=num_rows, winners=winners
+    )
+    centered = bool(center_scores)
+    key = (t, winners, centered)
+    if held is not None and key in held:
+        return held[key]
+    pretransposed = num_rows > 0
+    other = next(iter(held.values()), None) if held else None
+    if other is not None and other["codes_t"].shape[1] != _round_up(n, t):
+        held.clear()  # one code operand at a time
+        other = None
+    if other is not None:
+        codes_t = other["codes_t"]
+    else:
+        codes_t = _pad_codes(codes() if callable(codes) else codes, n, t, pretransposed)
+    if other is not None and other["centered"] == centered:
+        center, norms_hl = other["center"], other["norms_hl"]
+    else:
+        center = _center(recon_norms, centered)
+        norms_hl = _split_hi_lo(_pad_norms(recon_norms, codes_t.shape[1]), center)
+    dev = codes_t.device
+    cols, lanes = _columns_for(bounds, codebooks.shape[2], centered, dev)
+    entry = dict(
+        codes_t=codes_t, norms_hl=norms_hl, center=center,
+        base_cols=_base_cols(codes_t.shape[1], t, winners, dev),
+        cb=codebooks.to(torch.bfloat16).contiguous(), cols=cols, lanes=lanes,
+        t=t, winners=winners, centered=centered, pretransposed=pretransposed,
+    )
+    tracing.count("k1.operand_builds")
+    if held is not None:
+        held[key] = entry
+    return entry
+
+
+def query_operand(queries: torch.Tensor, ops: dict) -> torch.Tensor:
+    """``[Q, mdp]`` bf16 query operand of K1 against the index operands
+    ``ops`` (:func:`scan_index_operands`)."""
+    return _query_lanes(
+        queries, ops["cols"], ops["lanes"], ops["center"], ops["centered"]
+    ).to(torch.bfloat16)
 
 
 def _winner_columns(blocks: torch.Tensor, w: int, winners: int, nblk: int):
@@ -367,7 +518,7 @@ def fused_block_scan(
 def _block_scan(
     queries: torch.Tensor,
     codebooks: torch.Tensor,
-    codes: torch.Tensor,
+    codes,
     recon_norms: torch.Tensor,
     *,
     bounds,
@@ -375,41 +526,28 @@ def _block_scan(
     num_rows: int,
     winners: int = 1,
     center_scores: bool = False,
+    held=None,
 ):
-    """Run K1; returns ``(packed [Q, NW], base_cols [NW] int32, qs,
-    codes_t, pretransposed)`` as ``adc.py:422-507`` does: ``packed``
-    holds lane-packed winner floats, ``base_cols[c]`` the first row of
-    winner column ``c``'s block, so ``row = base_cols[c] +
-    (bits(packed) & 127)``. Values ``>= _INVALID_MIN`` mark padding."""
+    """Run K1; returns ``(packed [Q, NW], base_cols [NW] int32, codes_t,
+    pretransposed)`` as ``adc.py:422-507`` does: ``packed`` holds
+    lane-packed winner floats, ``base_cols[c]`` the first row of winner
+    column ``c``'s block, so ``row = base_cols[c] + (bits(packed) & 127)``.
+    Values ``>= _INVALID_MIN`` mark padding. The index operands come from
+    ``held`` (:func:`scan_index_operands`); only the query operand is
+    built per batch."""
     with tracing.span("gulon.scan.operands"):
-        ops = prepare_scan_operands(
-            queries, codebooks, codes, recon_norms,
-            bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
-            winners=winners, center_scores=center_scores,
+        ops = scan_index_operands(
+            held, codebooks, codes, recon_norms, bounds=bounds, num_q=queries.shape[0],
+            tile_rows=tile_rows, num_rows=num_rows, winners=winners,
+            center_scores=center_scores,
         )
-        codes_t, t, num_q = ops["codes_t"], ops["t"], ops["num_q"]
-        nblk = t // _LANES
-        n_rt = codes_t.shape[1] // t
-        wn = winners * nblk
-        cols = np.arange(n_rt * wn, dtype=np.int64)
-        base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
-        # copied in before the launch: a host copy waits for the device's
-        # stream, and after the launch it would hold back the next shard's
-        # kernel on another card until this one ends
-        with tracing.span("gulon.wait.upload_base_cols"):
-            base_cols = torch.from_numpy(base_cols).to(codes_t.device)
-        norms_hl = _split_hi_lo(ops["norms"], ops["center"])
-        q_op = ops["q_pad"][:num_q].to(torch.bfloat16)
-        cb = codebooks.to(torch.bfloat16).contiguous()
+        q_op = query_operand(queries, ops)
     with tracing.span("gulon.scan.k1"):
-        packed = fused_block_scan(codes_t, norms_hl, q_op, cb, winners=winners, nblk=nblk)
-    return (
-        packed,
-        base_cols,
-        ops["qs"],
-        codes_t,
-        ops["pretransposed"],
-    )
+        packed = fused_block_scan(
+            ops["codes_t"], ops["norms_hl"], q_op, ops["cb"], winners=winners,
+            nblk=ops["t"] // _LANES,
+        )
+    return packed, ops["base_cols"], ops["codes_t"], ops["pretransposed"]
 
 
 def unpack_block_winners(
@@ -439,7 +577,7 @@ def adc_block_scan_fused(
     values are ``recon_norms[row] - 2<q, dec(row)>``."""
     if not 1 <= winners <= 4:
         raise ValueError(f"winners must be in 1..4, got {winners}")
-    packed, base_cols, _, _, _ = _block_scan(
+    packed, base_cols, _, _ = _block_scan(
         queries, codebooks, codes, recon_norms,
         bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
         winners=winners,
@@ -450,7 +588,7 @@ def adc_block_scan_fused(
 def finish_scan(
     packed: torch.Tensor,  # [Q, NW] lane-packed block winners
     base_cols: torch.Tensor,  # [NW] int32
-    qs: torch.Tensor,  # [m, Q, dsub] split queries
+    qs,  # [m, Q, dsub] split queries, read by the rescore alone (else None)
     codes_t: torch.Tensor,  # the kernel's code operand
     pretransposed: bool,
     *,
@@ -515,7 +653,8 @@ def finish_scan(
 def adc_scan_fused(
     queries: torch.Tensor,  # [Q, D] f32
     codebooks: torch.Tensor,  # [m, K, dsub] f32 (zero-padded subspaces)
-    codes: torch.Tensor,  # [N, m] codes, or pretransposed [m, N] (num_rows)
+    codes,  # [N, m] codes, or pretransposed [m, N] (num_rows); with
+    #   held, also a function returning the latter (scan_index_operands)
     recon_norms: torch.Tensor,  # [N] f32
     *,
     bounds,
@@ -525,6 +664,7 @@ def adc_scan_fused(
     rescore: bool = False,  # exact f32 LUT rescore of the k winners
     winners: int = 1,  # ranked candidates per 128-row block (1..4)
     center_scores: bool = True,  # the kernel emits the true ADC distance
+    held=None,  # an index's dict of K1 operands (scan_index_operands)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused-kernel ADC scan (counterpart of ``adc_scan_pallas``).
     Returns ([Q, k] dists ascending, [Q, k] ids)."""
@@ -539,11 +679,12 @@ def adc_scan_fused(
             f"fused ADC kernel needs corpus >= 256*k rows (n={n}, k={kk}); "
             "use the decode scan for small corpora"
         )
-    packed, base_cols, qs, codes_t, pretransposed = _block_scan(
+    packed, base_cols, codes_t, pretransposed = _block_scan(
         queries, codebooks, codes, recon_norms,
         bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
-        winners=winners, center_scores=center_scores,
+        winners=winners, center_scores=center_scores, held=held,
     )
+    qs = split_subspaces(queries, bounds, codebooks.shape[2]) if rescore else None
     with tracing.span("gulon.scan.select"):
         return finish_scan(
             packed, base_cols, qs, codes_t, pretransposed,

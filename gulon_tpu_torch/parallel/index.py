@@ -91,7 +91,7 @@ class ShardedFlatIndex(_Sharded):
     codebooks_rep: list  # [m, K, dsub] on each shard's device
     cache_sharded: Optional[list] = None  # row shards [n_loc, m*dsub]
     # row shards of K1's pretransposed operand [m, n_loc], built at shard
-    # time on CUDA shards (FlatIndex._pallas_codes_t per shard)
+    # time on CUDA shards (pack_codes_t per shard, as FlatIndex packs its codes)
     codes_t_sharded: Optional[list] = None
     # lazy row shards of K2's [n_loc, Dp] bf16 operand over the cache
     cache_aug_sharded: Optional[list] = None

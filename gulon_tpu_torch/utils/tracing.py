@@ -15,8 +15,10 @@
   afresh, so warm-up and earlier sessions never count. (A profiler sees
   the thread that started it; a span skipped in another thread leaves
   the session's aggregates alone.)
-- :func:`count` / :func:`counter`: always-on counters (kernel launches),
-  a dict add under a lock each.
+- :func:`count` / :func:`counter`: always-on counters, a dict add under a
+  lock each: kernel launches (``k1.launches``, ``k2.launches``, ...) and
+  builds of K1's index-constant operands (``k1.operand_builds``, one per
+  index and launch geometry, or one per call where no index holds them).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

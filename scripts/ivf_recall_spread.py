@@ -67,7 +67,8 @@ def main(argv=None) -> int:
             "w2_rescore4": dataclasses.replace(index, pallas_winners=2, pallas_rescore=4),
             "w2": dataclasses.replace(index, pallas_winners=2),
         }
-        codes_t, rc_pal, _, _ = index._pallas_operands()
+        rc_pal = index._pallas_operands()[0]
+        codes_t = index._pallas_codes()
         out = dict(build=b, padded_rows=int(codes_t.shape[1]))
         for s, truth in truths.items():
             rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in routes.items()}

@@ -80,7 +80,7 @@ def test_block_scan_plain_matches_pallas_interpret(winners, centered, k_codes):
         num_rows=N, winners=winners, center_scores=centered,
     )
     np.testing.assert_array_equal(pt[1].numpy(), np.asarray(pj[1]))
-    assert pt[4] is True and pt[3].dtype == ct_t.dtype
+    assert pt[3] is True and pt[2].dtype == ct_t.dtype
     vj, ij = map(np.asarray, jadc.unpack_block_winners(pj[0], pj[1]))
     vt, it = (a.numpy() for a in tadc.unpack_block_winners(pt[0], pt[1]))
     _winners_close(vj, ij, vt, it)
@@ -98,7 +98,7 @@ def test_block_scan_from_row_major_codes():
         _t(q), _t(cb), _t(codes), _t(norms), bounds=bounds, tile_rows=0,
         num_rows=0, center_scores=True,
     )
-    assert pt[3].dtype == torch.int32 and pt[4] is False
+    assert pt[2].dtype == torch.int32 and pt[3] is False
     vj, ij = map(np.asarray, jadc.unpack_block_winners(pj[0], pj[1]))
     vt, it = (a.numpy() for a in tadc.unpack_block_winners(pt[0], pt[1]))
     _winners_close(vj, ij, vt, it)

@@ -105,9 +105,9 @@ def test_flat_plans_equal_the_live_path(data, flat, tmp_path, strategy, rerank):
         assert plan["scan_strategy"] == "pallas"
         assert plan["rerank_factor"] == index.resolved_rerank_factor()
         assert plan["pallas_winners"] == index.resolved_pallas_winners()
-        # load_serving built K1's operand once, and the views share it
-        assert index._pallas_codes_t is not None
-        assert serving._views[(64, 5)]._pallas_codes_t is index._pallas_codes_t
+        # load_serving built K1's operands once, and the views share them
+        assert index._k1_operands
+        assert serving._views[(64, 5)]._k1_operands is index._k1_operands
 
 
 @pytest.mark.parametrize("strategy", ["masked", "gathered", "pallas"])
@@ -187,11 +187,11 @@ def test_adopted_kernel_cache_replaces_the_decoded_cache(flat):
     index.enable_cache()
     view = dataclasses.replace(index, scan_strategy="cached")
     view._cache_aug, view.decoded_cache = torch.zeros(3), None
-    view._pallas_codes_t = torch.zeros(2)
-    index._pallas_codes_t = codes_t = torch.ones(2)
+    view._k1_operands = {"view": torch.zeros(2)}
+    index._k1_operands = held = {"index": torch.ones(2)}
     index._adopt_operands(view)
     assert index._cache_aug is view._cache_aug and index.decoded_cache is None
-    assert index._pallas_codes_t is codes_t
+    assert index._k1_operands is held
     assert dataclasses.replace(index)._cache_aug is view._cache_aug
 
 

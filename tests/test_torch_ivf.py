@@ -520,7 +520,8 @@ def test_kernel_w4_on_ivf_operands_on_the_card(cuda_device, data, jax_index):
     strategy launches it once per batch."""
     _, _, q = data
     port = interop.from_reference(jax_index, device=cuda_device)
-    codes_t, rc_pal, _, _ = port._pallas_operands()
+    rc_pal = port._pallas_operands()[0]
+    codes_t = port._pallas_codes()
     npad = codes_t.shape[1]
     ops = tadc.prepare_scan_operands(
         _t(q).to(cuda_device), port.pq.codebooks, codes_t, rc_pal,

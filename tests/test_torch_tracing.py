@@ -147,16 +147,17 @@ def test_a_thread_the_profiler_does_not_see_leaves_the_session_alone():
 QUERY_ROOT = {("gulon.query", None), ("gulon.query.prepare", "gulon.query"),
               ("gulon.wait.upload_queries", "gulon.query.prepare"),
               ("gulon.query.route", "gulon.query")}
+# K1's index operands are held by the index: a batch builds its query
+# operand alone and waits on nothing past the query upload
 K1_PATH = {("gulon.scan.operands", "gulon.query"),
-           ("gulon.wait.upload_base_cols", "gulon.scan.operands"),
            ("gulon.scan.k1", "gulon.query"), ("gulon.scan.select", "gulon.query")}
 
 # flat: (knobs, spans below the root, wait spans a query); this corpus's
 # codes repeat, so the auto rerank factor would add a rescore
 FLAT_ROUTES = {
-    "pallas": (dict(scan_strategy="pallas", rerank_factor=1), K1_PATH, 2),
+    "pallas": (dict(scan_strategy="pallas", rerank_factor=1), K1_PATH, 1),
     "pallas_rescore": (dict(scan_strategy="pallas", rerank_factor=2),
-                       K1_PATH | {("gulon.scan.rescore", "gulon.query")}, 2),
+                       K1_PATH | {("gulon.scan.rescore", "gulon.query")}, 1),
     "decode": (dict(scan_strategy="decode"), {("gulon.scan.decode", "gulon.query")}, 1),
     "lut": (dict(scan_strategy="lut"), {("gulon.scan.lut", "gulon.query")}, 1),
     "cached": (dict(scan_strategy="cached", rerank_factor=1),
@@ -181,9 +182,9 @@ def test_a_flat_query_records_its_span_tree(flat, corpus, route):
 
 
 IVF_ROUTES = {
-    "pallas": (dict(scan_strategy="pallas"), K1_PATH, 2),
+    "pallas": (dict(scan_strategy="pallas"), K1_PATH, 1),
     "pallas_rescore": (dict(scan_strategy="pallas", pallas_rescore=2),
-                       K1_PATH | {("gulon.scan.rescore", "gulon.scan.select")}, 2),
+                       K1_PATH | {("gulon.scan.rescore", "gulon.scan.select")}, 1),
     "masked": (dict(scan_strategy="masked"), {("gulon.scan.masked", "gulon.query")}, 1),
     "gathered": (dict(scan_strategy="gathered"),
                  {("gulon.scan.gathered", "gulon.query"),

@@ -79,8 +79,8 @@ def _warm_fused(port, x):
     """Build the fused route's lazy kernel operand on the old rows."""
     port.scan_strategy = "pallas"
     port.query_arrays(K, x[:8])
-    built = port._pallas_layout if _is_ivf(port) else port._pallas_codes_t
-    assert built is not None
+    assert port._k1_operands
+    assert not _is_ivf(port) or port._pallas_layout is not None
 
 
 def _same_rows(port, jx):
@@ -150,7 +150,7 @@ def test_lazy_operands_start_clear(jax_indices, data):
     flat.enable_cache()
     flat._code_duplication()
     for new in (flat.add(keys[N:N + 2], x[N:N + 2]), flat.remove([keys[0]])):
-        assert new._pallas_codes_t is None and new._cache_aug is None
+        assert new._k1_operands is None and new._cache_aug is None
         assert new.decoded_cache is None and new._auto_dup is None
         assert new._auto_rerank is None
     ivf = interop.from_reference(jax_indices["ivf"], device="cpu")
@@ -160,6 +160,7 @@ def test_lazy_operands_start_clear(jax_indices, data):
     ivf.enable_cache()
     for new in (ivf.add(keys[N:N + 2], x[N:N + 2]), ivf.remove([keys[0]])):
         assert new._pallas_layout is None and new._codes_pad is None
+        assert new._k1_operands is None
         assert new._row_const_pad is None and new._sizes_dev is None
         assert new.recon_cache is None and new.recon_norms_cache is None
 
