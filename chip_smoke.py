@@ -184,9 +184,10 @@ EMBEDDING_CALL = ("torch.nn.functional.embedding(codes + s K, codebook [m K, dsu
 # NaN of its lowest row, K1's rule), "sentinel" gives block b only its
 # first (37 b) % 129 rows and the IVF padding value 2e38 on the others. The last seven are deep: m*dsub 304 (glove300's
 # width, 5 chunks) and 688 (11 chunks, two ring stages: the deepest row
-# block held decoded) are held decoded; 768, 1000 and 900 (codebooks in
-# shared memory), 800 (K = 1024) and 720 (dsub 1, 720 code rows) are
-# streamed, gathering 8, 4, 2, 8 and 1 lanes a load.
+# block held decoded) are held decoded, their codebooks gathered from
+# global memory; 768 and 800 (K = 1024; codebooks in global memory), 1000,
+# 720 (dsub 1, 720 code rows) and 900 (codebooks in shared memory) are
+# streamed, gathering 8, 8, 4, 1 and 2 lanes a load (ops/cuda/adc.py::k1_plan).
 K1_EDGE_CASES = (
     (8192, 24, 4, 16, 1, 1, True, None),
     (8192, 24, 4, 16, 7, 2, False, None),

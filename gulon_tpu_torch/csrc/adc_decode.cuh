@@ -43,7 +43,7 @@ __device__ __forceinline__ int load_code(const void* codes, int code_bytes, int6
 // 1, the largest dividing dsub): the gathers' L1 wavefronts, not their
 // bytes, set the decode's cost. All code loads are issued before the
 // codebook loads that depend on them, so a chunk costs two memory round
-// trips. Code is the code operand's element type.
+// trips. Code is the code operand's element type; VW is gather_lanes(dsub).
 template <int VW> struct LanesOf;
 template <> struct LanesOf<8> { using T = uint4; };
 template <> struct LanesOf<4> { using T = uint2; };
@@ -126,18 +126,30 @@ __device__ __forceinline__ void decode_chunk(
   }
 }
 
+// Codebook lanes one gather of decode_chunk loads at subspace width dsub:
+// the largest of 8, 4, 2 and 1 that divides it (one lane, two bytes, at an
+// odd dsub). K1's launch plan reports the same number.
+__host__ __device__ constexpr int gather_lanes(int dsub) {
+  return dsub % 8 == 0 ? 8 : dsub % 4 == 0 ? 4 : dsub % 2 == 0 ? 2 : 1;
+}
+
 template <int NT, typename Code>
 __device__ __forceinline__ void decode_chunk(
     uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
     const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
-  if (dsub % 8 == 0)
-    decode_chunk<NT, Code, 8>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else if (dsub % 4 == 0)
-    decode_chunk<NT, Code, 4>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else if (dsub % 2 == 0)
-    decode_chunk<NT, Code, 2>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
-  else
-    decode_chunk<NT, Code, 1>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+  switch (gather_lanes(dsub)) {
+    case 8:
+      decode_chunk<NT, Code, 8>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      break;
+    case 4:
+      decode_chunk<NT, Code, 4>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      break;
+    case 2:
+      decode_chunk<NT, Code, 2>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      break;
+    default:
+      decode_chunk<NT, Code, 1>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+  }
 }
 
 // The same from the untyped code operand (code_bytes 1, 2 or 4).

@@ -64,7 +64,14 @@
 // the chunk three before, which every warpgroup waited for before the
 // previous chunk's barrier; the decode of one chunk overlaps the wgmma of
 // the one before. The codebook gathers bound this mode (each warp load
-// touches up to 32 lines), so it gathers up to 8 lanes a load.
+// touches up to 32 lines), so it gathers up to 8 lanes a load: the largest
+// of 8, 4, 2 and 1 that divides dsub (gather_lanes), so an odd dsub (39 at
+// gist-960's 25 subspaces) gathers one lane, two bytes, a load.
+//
+// Plan. make_plan picks, per shape, held or streamed, codebooks in shared
+// or global memory, the ring stages and the lanes a gather; the launch and
+// the exported gulon_adc_scan_plan both call it, and the Python wrapper
+// counts each launch by the plan the latter returns.
 //
 // Stages. The kernel is templated on how far it goes (kStage), so that
 // K1's own time can be split: kDecode stages and decodes every row block
@@ -277,57 +284,74 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   }
 }
 
+// K1's launch plan for a shape: the first that fits a block's shared
+// memory, in order: the row block held decoded before streamed, the
+// codebooks in shared memory before gathered from global memory, then the
+// most query-ring stages. The launch and gulon_adc_scan_plan both take it
+// from here, so what the wrapper counts is what runs.
+struct Plan {
+  int streamed;  // 1: each row block decoded a chunk at a time per query tile
+  int cb_smem;   // 1: codebooks staged in shared memory; 0: gathered from global
+  int nst;       // query-ring stages
+  int lanes;     // codebook lanes one gather loads (1 when held decoded)
+  int smem;      // dynamic shared memory, bytes (1024 of alignment included)
+};
+
+// Fills *p; false for a shape K1 does not take or when no plan fits.
+bool make_plan(int depth, int m, int k_codes, int dsub, Plan* p) {
+  using namespace hopper;
+  const int64_t cb_len64 = static_cast<int64_t>(m) * k_codes * dsub;
+  if (m <= 0 || dsub <= 0 || depth != m * dsub + 4 || k_codes < 1 || k_codes > 32767 ||
+      cb_len64 > 0x7FFFFFFF)
+    return false;
+  const int nch = (depth + kChunk - 1) / kChunk;
+  for (int plan = 0; plan < 4; ++plan) {
+    const int cb_smem = !(plan & 1);
+    const int streamed = plan >> 1;
+    if (cb_smem && cb_len64 * 2 > kSmemLimit) continue;
+    const int cb_bytes = cb_smem ? static_cast<int>(cb_len64 * 2) : 0;
+    for (int s = kMaxStages; s >= 2; --s) {
+      const int total = 1024 + layout(nch, s, m, cb_bytes, streamed).total;
+      if (total <= kSmemLimit) {
+        *p = Plan{streamed, cb_smem, s, streamed ? gather_lanes(dsub) : 1, total};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
 // Launch of stage kStage. Returns a cudaError_t (0 = launched). Shapes
 // and alignment are checked by the Python wrapper; this re-checks what
 // would make the launch read or write out of bounds. Any depth runs: the
 // row block is held decoded when it fits beside two ring stages, and
-// streamed otherwise.
+// streamed otherwise (make_plan).
 template <int kStage>
 int launch(const void* codes, int code_bytes, const void* norms, const void* q,
            const void* cb, void* out, int n_cols, int num_q, int q_stride, int depth, int m,
            int k_codes, int dsub, int winners, int nblk, void* stream) {
   using namespace hopper;
-  const int64_t cb_len64 = static_cast<int64_t>(m) * k_codes * dsub;
+  Plan plan;
   if (n_cols <= 0 || n_cols % kRows != 0 || num_q <= 0 || nblk <= 0 ||
-      (n_cols / kRows) % nblk != 0 || m <= 0 || dsub <= 0 || depth != m * dsub + 4 ||
-      q_stride < depth || q_stride % 8 != 0 || winners < 1 || winners > 4 ||
-      k_codes < 1 || k_codes > 32767 || cb_len64 > 0x7FFFFFFF ||
-      (code_bytes != 1 && code_bytes != 2 && code_bytes != 4))
+      (n_cols / kRows) % nblk != 0 || q_stride < depth || q_stride % 8 != 0 ||
+      winners < 1 || winners > 4 || (code_bytes != 1 && code_bytes != 2 && code_bytes != 4) ||
+      !make_plan(depth, m, k_codes, dsub, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nch = (depth + kChunk - 1) / kChunk;
-  // the first plan that fits: held decoded before streamed, codebooks in
-  // shared memory before global, then the most ring stages
-  int nst = 0, cb_smem = 0, streamed = 0, smem = 0;
-  for (int plan = 0; plan < 4 && nst == 0; ++plan) {
-    const int held = !(plan & 1);
-    if (held && cb_len64 * 2 > kSmemLimit) continue;
-    const int cb_bytes = held ? static_cast<int>(cb_len64 * 2) : 0;
-    for (int s = kMaxStages; s >= 2; --s) {
-      const int total = 1024 + layout(nch, s, m, cb_bytes, plan >> 1).total;
-      if (total <= kSmemLimit) {
-        nst = s;
-        cb_smem = held;
-        streamed = plan >> 1;
-        smem = total;
-        break;
-      }
-    }
-  }
-  if (nst == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int sms = num_sms();
   if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   const int grid = std::min(n_cols / kRows, sms);
   CUtensorMap qmap;
   if (!sw128_map(&qmap, q, 2, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = streamed ? adc_scan_kernel<true, kStage> : adc_scan_kernel<false, kStage>;
+  auto kernel = plan.streamed ? adc_scan_kernel<true, kStage> : adc_scan_kernel<false, kStage>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
       qmap, codes, code_bytes, static_cast<const uint16_t*>(norms),
       static_cast<const uint16_t*>(cb), static_cast<float*>(out), n_cols, num_q,
-      depth, m, k_codes, dsub, winners, nblk, nch, nst, cb_smem);
+      depth, m, k_codes, dsub, winners, nblk, nch, plan.nst, plan.cb_smem);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,4 +381,20 @@ extern "C" int gulon_adc_scan_stage(const void* codes, int code_bytes,
   if (run == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return run(codes, code_bytes, norms, q, cb, out, n_cols, num_q, q_stride, depth, m, k_codes,
              dsub, 1, nblk, stream);
+}
+
+// The plan a launch at this shape takes (make_plan), as five ints:
+// streamed, codebooks in shared memory, ring stages, lanes a gather and
+// dynamic shared memory bytes. Returns a cudaError_t (0 = a plan exists);
+// needs no device.
+extern "C" int gulon_adc_scan_plan(int depth, int m, int k_codes, int dsub, int* out) {
+  Plan plan;
+  if (out == nullptr || !make_plan(depth, m, k_codes, dsub, &plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = plan.streamed;
+  out[1] = plan.cb_smem;
+  out[2] = plan.nst;
+  out[3] = plan.lanes;
+  out[4] = plan.smem;
+  return 0;
 }

@@ -19,7 +19,10 @@ semantics so that the two compare one for one:
   by the index; a batch builds only its query operand
   (:func:`query_operand`: one concatenation and one column gather);
 - the launch (:func:`fused_block_scan`), which runs K1 for CUDA tensors
-  and its plain PyTorch twin :func:`_block_scan_plain` for CPU tensors;
+  and its plain PyTorch twin :func:`_block_scan_plain` for CPU tensors,
+  and counts each launch by K1's launch plan (:func:`k1_plan`: the
+  kernel's own plan function, ``make_plan`` in ``adc_scan.cu``, read
+  through ``gulon_adc_scan_plan`` once per shape);
 - the plain-torch epilogue (``unpack_block_winners``, ``finish_scan``):
   an exact top-k over block winners, id decode, optional f32 LUT rescore;
 - the entry points :func:`adc_scan_fused` (``adc_scan_pallas``) and
@@ -30,7 +33,11 @@ exactly like the TPU kernel: losing a true top-k member needs two of
 them in one block, so callers keep ``N >= 256*k``. Limits: K <= 1024,
 k <= 128, N >= 256*k; ``FlatIndex`` falls back to the decode scan
 outside them. Any depth runs on the card: a row block too deep to sit
-decoded in shared memory is decoded chunk by chunk for each query tile.
+decoded in shared memory is decoded chunk by chunk for each query tile
+(the streamed plan, past a depth of about 700), its codebooks gathered
+from global memory when they do not fit beside it, each gather loading
+the largest of 8, 4, 2 and 1 lanes that divides ``dsub``: one lane at an
+odd ``dsub`` (39 at 960 dimensions over 25 subspaces).
 ``center_scores`` is an explicit argument (centered for the flat scan,
 uncentered for block-scan callers).
 """
@@ -440,10 +447,12 @@ def _block_scan_plain(
 
 
 _LIB = None
+# the fields of K1's launch plan, in the order gulon_adc_scan_plan writes them
+K1_PLAN_FIELDS = ("streamed", "cb_smem", "stages", "lanes", "smem")
 
 
 def _kernel():
-    """The built K1 library, with its C signature declared."""
+    """The built K1 library, with its C signatures declared."""
     global _LIB
     if _LIB is None:
         from gulon_tpu_torch.ops.cuda import _build
@@ -457,8 +466,43 @@ def _kernel():
             + [ctypes.c_void_p]  # stream
         )
         fn.restype = ctypes.c_int
+        fn = lib.gulon_adc_scan_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]  # depth m K dsub, plan
+        fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+@functools.lru_cache(maxsize=64)
+def k1_plan(m: int, k_codes: int, dsub: int) -> dict:
+    """K1's launch plan at this shape, as the kernel's ``make_plan`` picks
+    it (read once per shape): ``streamed`` (1: a row block decoded a chunk
+    at a time for each query tile), ``cb_smem`` (1: codebooks in shared
+    memory, 0: gathered from global memory), ``stages`` (query-ring
+    stages), ``lanes`` (codebook lanes one gather loads; 1 when held
+    decoded) and ``smem`` (dynamic shared memory, bytes)."""
+    out = (ctypes.c_int * len(K1_PLAN_FIELDS))()
+    err = _kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, out)
+    if err != 0:
+        raise RuntimeError(f"no K1 plan for m={m} K={k_codes} dsub={dsub}: cudaError_t {err}")
+    return dict(zip(K1_PLAN_FIELDS, out))
+
+
+def count_launch(plan: dict, n_cols: int, num_q: int) -> None:
+    """Count one K1 launch over ``n_cols`` rows and ``num_q`` queries under
+    ``plan`` (:func:`k1_plan`): ``k1.launches``, ``k1.launches.streamed``,
+    ``k1.launches.cb_global``, the 128-row blocks it covers
+    (``k1.blocks``), the block decodes it performs (``k1.block_decodes``:
+    each block once held decoded, once per 128-query tile streamed) and
+    ``k1.gather_lanes`` (the plan's lanes a gather, summed over launches)."""
+    blocks = n_cols // _LANES
+    decodes = blocks * (-(-num_q // _LANES) if plan["streamed"] else 1)
+    for name, n in (
+        ("k1.launches", 1), ("k1.launches.streamed", plan["streamed"]),
+        ("k1.launches.cb_global", 1 - plan["cb_smem"]), ("k1.blocks", blocks),
+        ("k1.block_decodes", decodes), ("k1.gather_lanes", plan["lanes"]),
+    ):
+        tracing.count(name, n)
 
 
 def fused_block_scan(
@@ -474,8 +518,8 @@ def fused_block_scan(
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take :func:`_block_scan_plain`. Operands as
-    :func:`_block_scan_plain` documents. Each launch adds one to the
-    counter ``k1.launches`` (``utils/tracing.py``)."""
+    :func:`_block_scan_plain` documents. Each launch is counted by its
+    plan (:func:`count_launch`, counters of ``utils/tracing.py``)."""
     tensors = (codes_t, norms_hl, q_op, cb)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -511,7 +555,7 @@ def fused_block_scan(
         )
     if err != 0:
         raise RuntimeError(f"adc_scan kernel launch failed: cudaError_t {err}")
-    tracing.count("k1.launches")
+    count_launch(k1_plan(m, k_codes, dsub), n_cols, num_q)
     return out
 
 

@@ -16,9 +16,12 @@
   the thread that started it; a span skipped in another thread leaves
   the session's aggregates alone.)
 - :func:`count` / :func:`counter`: always-on counters, a dict add under a
-  lock each: kernel launches (``k1.launches``, ``k2.launches``, ...) and
+  lock each: kernel launches (``k1.launches``, ``k2.launches``, ...),
   builds of K1's index-constant operands (``k1.operand_builds``, one per
-  index and launch geometry, or one per call where no index holds them).
+  index and launch geometry, or one per call where no index holds them),
+  and K1's launch plans (``ops/cuda/adc.py::count_launch``:
+  ``k1.launches.streamed``, ``k1.launches.cb_global``, ``k1.blocks``,
+  ``k1.block_decodes``, ``k1.gather_lanes``).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

@@ -7,7 +7,9 @@ spans nest as the layers do, and the aggregates keep count, total and
 self time for the latest profiled session only. The query and build
 paths record the span tree their layers make, one wait span per call
 that blocks on the device, and one ``gulon.kmeans.iter`` per Lloyd
-iteration. Launch counters live in the same registry."""
+iteration. Launch counters live in the same registry; a K1 launch is
+counted by the launch plan the kernel picks (held or streamed, codebooks
+in shared or global memory, blocks, block decodes, lanes a gather)."""
 
 import ast
 import pathlib
@@ -22,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import gulon_tpu_torch as gt
 from gulon_tpu_torch.ops import kmeans as tkm
+from gulon_tpu_torch.ops.cuda import adc as tad
 from gulon_tpu_torch.utils import tracing
 
 PKG = pathlib.Path(gt.__file__).parent
@@ -313,3 +316,94 @@ def test_the_port_counts_launches_in_the_registry_only():
     assert found == []
     source = (PKG / "utils" / "tracing.py").read_text()
     assert "environ" not in source and "getenv" not in source
+
+
+K1_PLAN_COUNTERS = ("k1.launches", "k1.launches.streamed", "k1.launches.cb_global",
+                    "k1.blocks", "k1.block_decodes", "k1.gather_lanes")
+
+
+def _k1_counts(fn):
+    """What ``fn()`` adds to each of K1's launch counters."""
+    before = {c: tracing.counter(c) for c in K1_PLAN_COUNTERS}
+    fn()
+    return {c: tracing.counter(c) - before[c] for c in K1_PLAN_COUNTERS}
+
+
+@pytest.mark.parametrize("plan,num_q,expect", [
+    (dict(streamed=0, cb_smem=1, lanes=1), 1024, (1, 0, 0, 9248, 9248, 1)),
+    (dict(streamed=1, cb_smem=0, lanes=1), 1024, (1, 1, 1, 9248, 8 * 9248, 1)),
+    (dict(streamed=1, cb_smem=1, lanes=8), 129, (1, 1, 0, 9248, 2 * 9248, 8)),
+    (dict(streamed=0, cb_smem=0, lanes=1), 7, (1, 0, 1, 9248, 9248, 1)),
+], ids=["held", "streamed-gist", "streamed-ragged", "held-cb-global"])
+def test_a_k1_launch_is_counted_by_its_plan(plan, num_q, expect):
+    """Held decoded, a block is decoded once a launch; streamed, once per
+    128-query tile (a ragged last tile counts); lanes a gather add up over
+    launches."""
+    n = _k1_counts(lambda: tad.count_launch(plan, 9248 * 128, num_q))
+    assert tuple(n[c] for c in K1_PLAN_COUNTERS) == expect
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel K1 runs only on the card")
+    return torch.device("cuda")
+
+
+# glove100's flat operands (d 100 over 25: dsub 4, centered, one winner)
+# and sift128's IVF operands (d 128 over 25: dsub 6, uncentered, 4 winners)
+HELD_SHAPES = {"glove100": (8192, 100, 25, 256, 1024, 1, True, None),
+               "sift128.ivf": (8192, 128, 25, 256, 1024, 4, False, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(HELD_SHAPES))
+def test_the_batch_cells_shapes_launch_k1_held(card, shape):
+    import chip_smoke as cs
+
+    case = HELD_SHAPES[shape]
+    operands, nblk, _ = cs.k1_operands(torch.Generator(device=card).manual_seed(1), *case,
+                                       dev=card)
+    n = _k1_counts(lambda: tad.fused_block_scan(*operands, winners=case[5], nblk=nblk))
+    assert n["k1.launches"] == 1
+    assert n["k1.launches.streamed"] == n["k1.launches.cb_global"] == 0
+    assert n["k1.block_decodes"] == n["k1.blocks"] == operands[0].shape[1] // 128
+    assert n["k1.gather_lanes"] == 1
+
+
+# (streamed, codebooks in shared memory, lanes a gather) of K1_EDGE_CASES'
+# deep shapes, by (D, m, K)
+DEEP_PLANS = {
+    (300, 19, 256): (0, 0, 1), (688, 8, 256): (0, 0, 1), (768, 96, 256): (1, 0, 8),
+    (1000, 250, 16): (1, 1, 4), (800, 100, 1024): (1, 0, 8), (720, 720, 16): (1, 1, 1),
+    (900, 90, 64): (1, 1, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmk", list(DEEP_PLANS), ids=lambda k: f"d{k[0]}-m{k[1]}-K{k[2]}")
+def test_the_plan_the_wrapper_counts_is_the_kernels(card, dmk):
+    """At each deep shape of ``K1_EDGE_CASES``: the plan the wrapper reads
+    (``k1_plan``, cached) is the one ``gulon_adc_scan_plan`` returns, it is
+    the documented one, and the launch is counted by it."""
+    import ctypes
+
+    import chip_smoke as cs
+
+    (case,) = [c for c in cs.K1_EDGE_CASES if c[1:4] == dmk]
+    operands, nblk, _ = cs.k1_operands(torch.Generator(device=card).manual_seed(7), *case,
+                                       dev=card)
+    m, k_codes, dsub = operands[3].shape
+    raw = (ctypes.c_int * len(tad.K1_PLAN_FIELDS))()
+    assert tad._kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, raw) == 0
+    plan = tad.k1_plan(m, k_codes, dsub)
+    assert plan == dict(zip(tad.K1_PLAN_FIELDS, raw))
+    assert (plan["streamed"], plan["cb_smem"], plan["lanes"]) == DEEP_PLANS[dmk]
+    n = _k1_counts(lambda: tad.fused_block_scan(*operands, winners=case[5], nblk=nblk))
+    torch.cuda.synchronize()
+    blocks = operands[0].shape[1] // 128
+    tiles = -(-case[4] // 128)
+    assert n == {"k1.launches": 1, "k1.launches.streamed": plan["streamed"],
+                 "k1.launches.cb_global": 1 - plan["cb_smem"], "k1.blocks": blocks,
+                 "k1.block_decodes": blocks * (tiles if plan["streamed"] else 1),
+                 "k1.gather_lanes": plan["lanes"]}
