@@ -21,11 +21,17 @@ phases); any failure raises and the script exits non-zero:
    the glove100 shape (400,000 rows, D=100, PQ 8x256, 1024 queries), for
    1 and 2 winners per block, centered and uncentered, 4 winners
    uncentered, and once with int16 codes (K=512); at a 768-d shape
-   (400,000 rows, PQ 96x256: row blocks streamed, not held decoded); then
-   at the edge shapes (:data:`K1_EDGE_CASES`: 1, 7, 129 and 1000 queries,
+   (400,000 rows, PQ 96x256: row blocks streamed, not held decoded); at
+   the gist960 shape (1,000,000 rows, D=960, PQ 25x256, 1024 queries, one
+   winner, centered) on operands laid out as an index lays them
+   (``scan_index_operands`` and ``query_operand``: 40 lanes a subspace,
+   not 39, so K1's streamed decode gathers 8 lanes a load), its values
+   within ``2^-14 * max(|v|, ||q||^2 + center)``; then at the edge shapes
+   (:data:`K1_EDGE_CASES`: 1, 7, 129 and 1000 queries,
    1-4 winners centered and uncentered, depth 100, K=512 and K=1024 int16
    codes, NaN rows, an all-+inf query, IVF padding rows, depths 304 to
-   1000). Ids >= 99.5 % equal, values within ``2^-14 * max(|v|, 1)``,
+   1004, 4 winners uncentered on index operands at 40 lanes a subspace).
+   Ids >= 99.5 % equal, values within ``2^-14 * max(|v|, 1)``,
    every id mismatch a near-tie, NaN winners in the same places and rows
    (an all-+inf query's: each block's lowest row, as the plain version
    states K1's rule), and with padding rows exactly ``min(W, real rows)``
@@ -182,12 +188,17 @@ EMBEDDING_CALL = ("torch.nn.functional.embedding(codes + s K, codebook [m K, dsu
 # extra "nan" puts NaN norm lanes on every 300th row, "infq" makes query
 # 0 all +inf (NaN against every row: each block's winner is the packed
 # NaN of its lowest row, K1's rule), "sentinel" gives block b only its
-# first (37 b) % 129 rows and the IVF padding value 2e38 on the others. The last seven are deep: m*dsub 304 (glove300's
+# first (37 b) % 129 rows and the IVF padding value 2e38 on the others;
+# "index" lays the operands out as an index does (``k1_operands``). The last eight are deep: m*dsub 304 (glove300's
 # width, 5 chunks) and 688 (11 chunks, two ring stages: the deepest row
 # block held decoded) are held decoded, their codebooks gathered from
 # global memory; 768 and 800 (K = 1024; codebooks in global memory), 1000,
 # 720 (dsub 1, 720 code rows) and 900 (codebooks in shared memory) are
-# streamed, gathering 8, 8, 4, 1 and 2 lanes a load (ops/cuda/adc.py::k1_plan).
+# streamed, gathering 8, 8, 4, 1 and 2 lanes a load (ops/cuda/adc.py::k1_plan);
+# 960 over 25 subspaces of 39 and 38 lanes, on index operands, at 4
+# winners uncentered (the IVF form), streams at 40 lanes a subspace on the
+# card (the plan's width: depth 1,004, codebooks in global memory, 8 lanes
+# a load).
 K1_EDGE_CASES = (
     (8192, 24, 4, 16, 1, 1, True, None),
     (8192, 24, 4, 16, 7, 2, False, None),
@@ -207,6 +218,7 @@ K1_EDGE_CASES = (
     (4096, 800, 100, 1024, 33, 3, True, None),
     (4096, 720, 720, 16, 130, 1, True, None),
     (4096, 900, 90, 64, 65, 2, False, None),
+    (16384, 960, 25, 256, 129, 4, False, "index"),
 )
 # K2 edge shapes: (rows, D, queries, NaN rows); D = 1022 is too deep for
 # a resident query tile and streams the query chunks beside the rows.
@@ -436,14 +448,26 @@ def k1_inputs(gen, n, d, m, k_codes, q_n, extra=None, *, dev) -> dict:
 
 
 def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, dev):
-    """Seeded random K1 operands as the scan builds them: ``(operands, nblk,
-    real rows per block or None)``; ``extra`` as :data:`K1_EDGE_CASES`."""
+    """Seeded random K1 operands ``(operands, nblk, real rows per block or
+    None)``; ``extra`` as :data:`K1_EDGE_CASES`. As
+    ``prepare_scan_operands`` builds them, at the codebooks' own subspace
+    width; with ``extra == "index"`` as an index holds them
+    (``scan_index_operands`` and ``query_operand``), at the width K1's plan
+    gives on the card (``k1_plan``'s ``width``: 40 lanes at 960 over 25
+    subspaces) and at the own width elsewhere."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
 
     raw = k1_inputs(gen, n, d, m, k_codes, q_n, extra, dev=dev)
     cb, codes, norms = raw["codebooks"], raw["codes"], raw["recon_norms"]
+    if extra == "index":
+        ops = adc.scan_index_operands(
+            None, cb, adc.pack_codes_t(codes, k_codes), norms, bounds=raw["bounds"],
+            num_q=q_n, num_rows=n, winners=winners, center_scores=centered,
+        )
+        q_op = adc.query_operand(raw["queries"], ops)
+        return (ops["codes_t"], ops["norms_hl"], q_op, ops["cb"]), ops["t"] // 128, None
     ops = adc.prepare_scan_operands(
         raw["queries"], cb, adc.pack_codes_t(codes, k_codes), norms, bounds=raw["bounds"],
         tile_rows=0, num_rows=n, winners=winners, center_scores=centered,
@@ -527,6 +551,15 @@ def k3_operands(gen, n, dp, q_n, lanes, *, dev):
     return data, q_op
 
 
+def centered_scale(operands):
+    """``||q||^2 + center`` of each query, from the two lanes of K1's
+    query operand that face the rows of ones (0 uncentered): the size of
+    the terms a centered score sums, so the scale of its rounding."""
+    _, _, q_op, cb = operands
+    md = cb.shape[0] * cb.shape[2]
+    return q_op[:, md + 2].float() + q_op[:, md + 3].float()
+
+
 def k1_decoded(operands):
     """K1's row operand decoded once, ``[N', q width]`` bf16 (codewords,
     hi/lo norm lanes, two ones, zero pad): what a bare matmul against the
@@ -577,8 +610,8 @@ def _k1_case(label, operands, winners, nblk, real, launches_per_batch,
 
 
 def phase_kernel(seed: int, launches_per_batch: float) -> dict:
-    """K1 against its plain version at the glove100 shape, then at the
-    edge shapes."""
+    """K1 against its plain version at the glove100, deep768 and gist960
+    shapes, then at the edge shapes."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -589,14 +622,21 @@ def phase_kernel(seed: int, launches_per_batch: float) -> dict:
     )]
     # a 768-d corpus at PQ 96x256: a row block too deep to hold decoded
     deep = (400_000, 768, 96, 256, 1024, 1, True, None)
+    # gist-960's flat index: streamed at 40 lanes a subspace (39 own)
+    gist = (1_000_000, 960, 25, 256, 1024, 1, True, "index")
     for label, spec in (
-        [("glove100", s) for s in glove] + [("deep768", deep)]
+        [("glove100", s) for s in glove] + [("deep768", deep), ("gist960", gist)]
         + [("edge", s) for s in K1_EDGE_CASES]
     ):
         operands, nblk, real = k1_operands(gen, *spec, dev="cuda")
+        # a centered score sums terms of about ||q||^2 + center each
+        scale_of = None
+        if label == "gist960":
+            def scale_of(ref):
+                return centered_scale(operands)[:, None].expand_as(ref)
         case = _k1_case(
             label, operands, spec[5], nblk, real,
-            launches_per_batch if label == "glove100" else None,
+            launches_per_batch if label == "glove100" else None, scale_of,
         )
         case.update(centered=spec[6], extra=spec[7])
         _emit({"phase": "kernel", **case})

@@ -65,13 +65,18 @@
 // previous chunk's barrier; the decode of one chunk overlaps the wgmma of
 // the one before. The codebook gathers bound this mode (each warp load
 // touches up to 32 lines), so it gathers up to 8 lanes a load: the largest
-// of 8, 4, 2 and 1 that divides dsub (gather_lanes), so an odd dsub (39 at
-// gist-960's 25 subspaces) gathers one lane, two bytes, a load.
+// of 8, 4, 2 and 1 that divides the operands' dsub (gather_lanes). An
+// index whose plan streams at fewer than 8 lanes a gather has its
+// codebooks and queries laid out at its dsub rounded up to 8, where that
+// adds no 64-lane chunk (operand_width: gist-960's 39-lane subspaces at
+// 40, zero lanes facing zero lanes), so it gathers 8 lanes, 16 bytes, a
+// load; an odd dsub left as it is gathers one lane, two bytes.
 //
 // Plan. make_plan picks, per shape, held or streamed, codebooks in shared
-// or global memory, the ring stages and the lanes a gather; the launch and
-// the exported gulon_adc_scan_plan both call it, and the Python wrapper
-// counts each launch by the plan the latter returns.
+// or global memory, the ring stages, the lanes a gather and the operands'
+// subspace width; the launch and the exported gulon_adc_scan_plan both
+// call it, and the Python wrapper lays an index's operands out at that
+// width and counts each launch by the plan the latter returns.
 //
 // Stages. The kernel is templated on how far it goes (kStage), so that
 // K1's own time can be split: kDecode stages and decodes every row block
@@ -295,7 +300,24 @@ struct Plan {
   int nst;       // query-ring stages
   int lanes;     // codebook lanes one gather loads (1 when held decoded)
   int smem;      // dynamic shared memory, bytes (1024 of alignment included)
+  int width;     // subspace width to lay the codebook and query operands out at
 };
+
+// The subspace width an index of this shape lays K1's operands out at:
+// dsub rounded up to a whole 16-byte gather where the plan streams, a
+// gather loads fewer lanes, and the zero lanes add no 64-lane chunk to the
+// depth (so the wgmma work is the same and the plan at the wider width
+// streams too, its codebooks where they were or in global memory); dsub
+// otherwise. A held plan decodes from a column table, one lane at a time.
+int operand_width(int m, int k_codes, int dsub, int streamed) {
+  using namespace hopper;
+  const int wide = (dsub + 7) / 8 * 8;
+  if (!streamed || gather_lanes(dsub) == 8 ||
+      static_cast<int64_t>(m) * k_codes * wide > 0x7FFFFFFF)
+    return dsub;
+  const int chunks = (m * dsub + 4 + kChunk - 1) / kChunk;
+  return (m * wide + 4 + kChunk - 1) / kChunk == chunks ? wide : dsub;
+}
 
 // Fills *p; false for a shape K1 does not take or when no plan fits.
 bool make_plan(int depth, int m, int k_codes, int dsub, Plan* p) {
@@ -313,7 +335,8 @@ bool make_plan(int depth, int m, int k_codes, int dsub, Plan* p) {
     for (int s = kMaxStages; s >= 2; --s) {
       const int total = 1024 + layout(nch, s, m, cb_bytes, streamed).total;
       if (total <= kSmemLimit) {
-        *p = Plan{streamed, cb_smem, s, streamed ? gather_lanes(dsub) : 1, total};
+        *p = Plan{streamed, cb_smem, s, streamed ? gather_lanes(dsub) : 1, total,
+                  operand_width(m, k_codes, dsub, streamed)};
         return true;
       }
     }
@@ -383,10 +406,10 @@ extern "C" int gulon_adc_scan_stage(const void* codes, int code_bytes,
              dsub, 1, nblk, stream);
 }
 
-// The plan a launch at this shape takes (make_plan), as five ints:
-// streamed, codebooks in shared memory, ring stages, lanes a gather and
-// dynamic shared memory bytes. Returns a cudaError_t (0 = a plan exists);
-// needs no device.
+// The plan a launch at this shape takes (make_plan), as six ints:
+// streamed, codebooks in shared memory, ring stages, lanes a gather,
+// dynamic shared memory bytes and the operands' subspace width. Returns a
+// cudaError_t (0 = a plan exists); needs no device.
 extern "C" int gulon_adc_scan_plan(int depth, int m, int k_codes, int dsub, int* out) {
   Plan plan;
   if (out == nullptr || !make_plan(depth, m, k_codes, dsub, &plan))
@@ -396,5 +419,6 @@ extern "C" int gulon_adc_scan_plan(int depth, int m, int k_codes, int dsub, int*
   out[2] = plan.nst;
   out[3] = plan.lanes;
   out[4] = plan.smem;
+  out[5] = plan.width;
   return 0;
 }

@@ -36,8 +36,13 @@ outside them. Any depth runs on the card: a row block too deep to sit
 decoded in shared memory is decoded chunk by chunk for each query tile
 (the streamed plan, past a depth of about 700), its codebooks gathered
 from global memory when they do not fit beside it, each gather loading
-the largest of 8, 4, 2 and 1 lanes that divides ``dsub``: one lane at an
-odd ``dsub`` (39 at 960 dimensions over 25 subspaces).
+the largest of 8, 4, 2 and 1 lanes that divides the operands' subspace
+width. :func:`scan_index_operands` lays an index's codebook and query
+operands out at the width K1's plan gives (:func:`k1_plan`'s ``width``:
+where the plan streams, ``dsub`` rounded up to 8 lanes if that adds no
+64-lane chunk to the depth), so 39 lanes at 960 dimensions over 25
+subspaces become 40, zero lanes facing zero lanes, and its gathers load
+8 lanes, not one.
 ``center_scores`` is an explicit argument (centered for the flat scan,
 uncentered for block-scan callers).
 """
@@ -231,6 +236,28 @@ def _query_lanes(
     return torch.index_select(torch.cat(parts, dim=1), 1, cols)
 
 
+def _k1_lane_width(codebooks: torch.Tensor, device) -> int:
+    """The subspace width K1's operands for an index's codebooks ``[m, K,
+    dsub]`` are laid out at for a launch on ``device``: the ``width`` of
+    K1's plan at that shape (:func:`k1_plan`) on the card; ``dsub``
+    elsewhere, where the plain twin gathers nothing."""
+    m, k_codes, dsub = codebooks.shape
+    if torch.device(device).type != "cuda":
+        return dsub
+    return k1_plan(m, k_codes, dsub)["width"]
+
+
+def _lane_operands(codebooks: torch.Tensor, bounds, width: int, centered: bool, device):
+    """``(cb, cols, lanes)`` at subspace width ``width``: the bf16
+    codebooks ``[m, K, width]``, lanes past ``dsub`` +0.0, and the query
+    operand's column map (:func:`_query_columns`: each subspace's lanes
+    past its own width read -0.0), so the extra lanes add exact zeros."""
+    cb = codebooks.to(torch.bfloat16)
+    if width > cb.shape[2]:
+        cb = torch.nn.functional.pad(cb, (0, width - cb.shape[2]))
+    return (cb.contiguous(), *_columns_for(bounds, width, centered, device))
+
+
 def prepare_scan_operands(
     queries: torch.Tensor,
     codebooks: torch.Tensor,
@@ -283,7 +310,10 @@ def scan_index_operands(
     """K1's index-constant operands for a batch of ``num_q`` queries: the
     code operand padded to the row tile, the ``[2, N']`` bf16 hi/lo norm
     rows with the center folded in, the center, ``base_cols`` on the
-    device, the bf16 codebooks and the query operand's column map.
+    device, the bf16 codebooks and the query operand's column map, both
+    at the subspace width K1's plan gives (``lane_padded``:
+    wider than the codebooks' own; the launch geometry, and so ``t``,
+    ``base_cols`` and the winner columns, follows the own width).
 
     They depend on the index and on the launch geometry ``(t, winners,
     center_scores)`` alone (``t`` follows ``num_q``, :func:`_pick_tiles`).
@@ -318,11 +348,12 @@ def scan_index_operands(
         center = _center(recon_norms, centered)
         norms_hl = _split_hi_lo(_pad_norms(recon_norms, codes_t.shape[1]), center)
     dev = codes_t.device
-    cols, lanes = _columns_for(bounds, codebooks.shape[2], centered, dev)
+    width = _k1_lane_width(codebooks, dev)
+    cb, cols, lanes = _lane_operands(codebooks, bounds, width, centered, dev)
     entry = dict(
         codes_t=codes_t, norms_hl=norms_hl, center=center,
         base_cols=_base_cols(codes_t.shape[1], t, winners, dev),
-        cb=codebooks.to(torch.bfloat16).contiguous(), cols=cols, lanes=lanes,
+        cb=cb, cols=cols, lanes=lanes, lane_padded=width > codebooks.shape[2],
         t=t, winners=winners, centered=centered, pretransposed=pretransposed,
     )
     tracing.count("k1.operand_builds")
@@ -448,7 +479,7 @@ def _block_scan_plain(
 
 _LIB = None
 # the fields of K1's launch plan, in the order gulon_adc_scan_plan writes them
-K1_PLAN_FIELDS = ("streamed", "cb_smem", "stages", "lanes", "smem")
+K1_PLAN_FIELDS = ("streamed", "cb_smem", "stages", "lanes", "smem", "width")
 
 
 def _kernel():
@@ -480,7 +511,11 @@ def k1_plan(m: int, k_codes: int, dsub: int) -> dict:
     at a time for each query tile), ``cb_smem`` (1: codebooks in shared
     memory, 0: gathered from global memory), ``stages`` (query-ring
     stages), ``lanes`` (codebook lanes one gather loads; 1 when held
-    decoded) and ``smem`` (dynamic shared memory, bytes)."""
+    decoded), ``smem`` (dynamic shared memory, bytes) and ``width`` (the
+    subspace width an index of this shape lays its codebook and query
+    operands out at: ``dsub`` rounded up to 8 lanes where the plan streams
+    at fewer lanes a gather and that adds no 64-lane chunk, else
+    ``dsub``)."""
     out = (ctypes.c_int * len(K1_PLAN_FIELDS))()
     err = _kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, out)
     if err != 0:
@@ -488,19 +523,22 @@ def k1_plan(m: int, k_codes: int, dsub: int) -> dict:
     return dict(zip(K1_PLAN_FIELDS, out))
 
 
-def count_launch(plan: dict, n_cols: int, num_q: int) -> None:
+def count_launch(plan: dict, n_cols: int, num_q: int, lane_padded: bool = False) -> None:
     """Count one K1 launch over ``n_cols`` rows and ``num_q`` queries under
     ``plan`` (:func:`k1_plan`): ``k1.launches``, ``k1.launches.streamed``,
     ``k1.launches.cb_global``, the 128-row blocks it covers
     (``k1.blocks``), the block decodes it performs (``k1.block_decodes``:
-    each block once held decoded, once per 128-query tile streamed) and
-    ``k1.gather_lanes`` (the plan's lanes a gather, summed over launches)."""
+    each block once held decoded, once per 128-query tile streamed),
+    ``k1.gather_lanes`` (the plan's lanes a gather, summed over launches)
+    and ``k1.launches.lane_padded`` (operands wider than the subspaces,
+    at the plan's ``width``)."""
     blocks = n_cols // _LANES
     decodes = blocks * (-(-num_q // _LANES) if plan["streamed"] else 1)
     for name, n in (
         ("k1.launches", 1), ("k1.launches.streamed", plan["streamed"]),
         ("k1.launches.cb_global", 1 - plan["cb_smem"]), ("k1.blocks", blocks),
         ("k1.block_decodes", decodes), ("k1.gather_lanes", plan["lanes"]),
+        ("k1.launches.lane_padded", int(lane_padded)),
     ):
         tracing.count(name, n)
 
@@ -513,13 +551,16 @@ def fused_block_scan(
     *,
     winners: int,
     nblk: int,
+    lane_padded: bool = False,
 ) -> torch.Tensor:
     """Packed block winners ``[Q, N'/128 * winners]`` of K1.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take :func:`_block_scan_plain`. Operands as
     :func:`_block_scan_plain` documents. Each launch is counted by its
-    plan (:func:`count_launch`, counters of ``utils/tracing.py``)."""
+    plan (:func:`count_launch`, counters of ``utils/tracing.py``);
+    ``lane_padded`` says the operands carry zero lanes past each
+    subspace's own width (:func:`scan_index_operands`)."""
     tensors = (codes_t, norms_hl, q_op, cb)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -555,7 +596,7 @@ def fused_block_scan(
         )
     if err != 0:
         raise RuntimeError(f"adc_scan kernel launch failed: cudaError_t {err}")
-    count_launch(k1_plan(m, k_codes, dsub), n_cols, num_q)
+    count_launch(k1_plan(m, k_codes, dsub), n_cols, num_q, lane_padded)
     return out
 
 
@@ -589,7 +630,7 @@ def _block_scan(
     with tracing.span("gulon.scan.k1"):
         packed = fused_block_scan(
             ops["codes_t"], ops["norms_hl"], q_op, ops["cb"], winners=winners,
-            nblk=ops["t"] // _LANES,
+            nblk=ops["t"] // _LANES, lane_padded=ops["lane_padded"],
         )
     return packed, ops["base_cols"], ops["codes_t"], ops["pretransposed"]
 

@@ -21,7 +21,9 @@
   index and launch geometry, or one per call where no index holds them),
   and K1's launch plans (``ops/cuda/adc.py::count_launch``:
   ``k1.launches.streamed``, ``k1.launches.cb_global``, ``k1.blocks``,
-  ``k1.block_decodes``, ``k1.gather_lanes``).
+  ``k1.block_decodes``, ``k1.gather_lanes``, and
+  ``k1.launches.lane_padded``: launches whose codebook and query
+  operands carry zero lanes past each subspace's own width).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

@@ -10,8 +10,9 @@ plain twin (``scan_strategy="pallas"``), whose one winner a 128-row block
 is held to the reference's own block winners. On a card (tests marked
 ``cuda``) a 262,144-row index answers 1,024 queries through ``auto``,
 which takes K1 in its streamed plan: every launch streamed, codebooks
-from global memory, one lane a gather, each block decoded once per
-128-query tile; its winners equal the plain twin's but at near-ties.
+from global memory, each block decoded once per 128-query tile, on
+operands laid out at 40 lanes a subspace (the plan's ``width``), so
+8 lanes a gather; its winners equal the plain twin's but at near-ties.
 """
 
 import dataclasses
@@ -135,17 +136,20 @@ def card():
 
 
 K1_PLAN_COUNTERS = ("k1.launches", "k1.launches.streamed", "k1.launches.cb_global",
-                    "k1.blocks", "k1.block_decodes", "k1.gather_lanes")
+                    "k1.blocks", "k1.block_decodes", "k1.gather_lanes",
+                    "k1.launches.lane_padded")
 
 
 @pytest.mark.cuda
 def test_auto_takes_k1_streamed_on_the_card(card):
     """1,024 queries over 262,144 rows: ``auto`` resolves to K1 with one
     winner a block and no rescore; every launch is streamed with its
-    codebooks in global memory and one-lane gathers, and decodes each
-    block 8 times; the ids equal the plain twin's on the same operands but
-    at near-ties within ``2^-14 max(|v|, S)``, ``S = ||q||^2 + center`` the
-    size of the terms a centered score sums."""
+    codebooks in global memory, on operands padded from 39 lanes a
+    subspace to 40 (the plan at the index's own shape gathers one lane,
+    at 40 it gathers 8), and decodes each block 8 times; the ids equal the
+    plain twin's on the same operands but at near-ties within ``2^-14
+    max(|v|, S)``, ``S = ||q||^2 + center`` the size of the terms a
+    centered score sums."""
     x, q = _corpus(262_144, 1024, device=card)
     index = _build(x, card, 5)
     assert index.resolve_strategy(1024, 10) == "pallas"
@@ -156,13 +160,18 @@ def test_auto_takes_k1_streamed_on_the_card(card):
     n = {c: tracing.counter(c) - before[c] for c in K1_PLAN_COUNTERS}
     assert n["k1.launches"] == 1
     assert n["k1.launches.streamed"] == n["k1.launches.cb_global"] == n["k1.launches"]
-    assert n["k1.gather_lanes"] == n["k1.launches"]
+    assert n["k1.gather_lanes"] == 8 * n["k1.launches"]
+    assert n["k1.launches.lane_padded"] == n["k1.launches"]
     assert n["k1.blocks"] == adc._round_up(262_144, 2048) // 128
     assert n["k1.block_decodes"] == 8 * n["k1.blocks"]
     assert adc.k1_plan(M, K, 39) == dict(streamed=1, cb_smem=0, stages=6, lanes=1,
-                                          smem=148_576)
+                                          smem=148_576, width=40)
+    plan40 = adc.k1_plan(M, K, 40)
+    assert (plan40["streamed"], plan40["cb_smem"], plan40["lanes"], plan40["width"]) == (
+        1, 0, 8, 40)
 
     (ops,) = index._k1_operands.values()
+    assert ops["lane_padded"] and tuple(ops["cb"].shape) == (M, K, 40)
     qt = index._prepare_queries(q)
     args = (ops["codes_t"], ops["norms_hl"], adc.query_operand(qt, ops), ops["cb"])
     nblk = ops["t"] // 128

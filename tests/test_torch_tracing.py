@@ -371,12 +371,14 @@ def test_the_batch_cells_shapes_launch_k1_held(card, shape):
     assert n["k1.gather_lanes"] == 1
 
 
-# (streamed, codebooks in shared memory, lanes a gather) of K1_EDGE_CASES'
-# deep shapes, by (D, m, K)
+# (streamed, codebooks in shared memory, lanes a gather, operand width) of
+# K1_EDGE_CASES' deep shapes, by (D, m, K); 960 over 25 is laid out as an
+# index lays it (at 40 lanes a subspace, not 39)
 DEEP_PLANS = {
-    (300, 19, 256): (0, 0, 1), (688, 8, 256): (0, 0, 1), (768, 96, 256): (1, 0, 8),
-    (1000, 250, 16): (1, 1, 4), (800, 100, 1024): (1, 0, 8), (720, 720, 16): (1, 1, 1),
-    (900, 90, 64): (1, 1, 2),
+    (300, 19, 256): (0, 0, 1, 16), (688, 8, 256): (0, 0, 1, 86),
+    (768, 96, 256): (1, 0, 8, 8), (1000, 250, 16): (1, 1, 4, 4),
+    (800, 100, 1024): (1, 0, 8, 8), (720, 720, 16): (1, 1, 1, 1),
+    (900, 90, 64): (1, 1, 2, 10), (960, 25, 256): (1, 0, 8, 40),
 }
 
 
@@ -398,7 +400,7 @@ def test_the_plan_the_wrapper_counts_is_the_kernels(card, dmk):
     assert tad._kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, raw) == 0
     plan = tad.k1_plan(m, k_codes, dsub)
     assert plan == dict(zip(tad.K1_PLAN_FIELDS, raw))
-    assert (plan["streamed"], plan["cb_smem"], plan["lanes"]) == DEEP_PLANS[dmk]
+    assert (plan["streamed"], plan["cb_smem"], plan["lanes"], plan["width"]) == DEEP_PLANS[dmk]
     n = _k1_counts(lambda: tad.fused_block_scan(*operands, winners=case[5], nblk=nblk))
     torch.cuda.synchronize()
     blocks = operands[0].shape[1] // 128
