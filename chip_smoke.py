@@ -24,7 +24,7 @@ phases); any failure raises and the script exits non-zero:
    (400,000 rows, PQ 96x256: row blocks streamed, not held decoded); at
    the gist960 shape (1,000,000 rows, D=960, PQ 25x256, 1024 queries, one
    winner, centered) on operands laid out as an index lays them
-   (``scan_index_operands`` and ``query_operand``: 40 lanes a subspace,
+   (``K1Operands`` at its plan's width: 40 lanes a subspace,
    not 39, so K1's streamed decode gathers 8 lanes a load), its values
    within ``2^-14 * max(|v|, ||q||^2 + center)``; then at the edge shapes
    (:data:`K1_EDGE_CASES`: 1, 7, 129 and 1000 queries,
@@ -394,22 +394,14 @@ def compare_packed(got, ref, scale=None) -> dict:
     return case
 
 
-def winner_columns(n_cols: int, winners: int, nblk: int, device):
-    """(block, rank) of each of K1's output columns: rank-major inside each
-    row tile of ``nblk`` blocks."""
-    import torch
-
-    cols = torch.arange(n_cols, device=device)
-    wn = winners * nblk
-    return (cols // wn) * nblk + (cols % wn) % nblk, (cols % wn) // nblk
-
-
 def winners_valid(packed, real, winners: int, nblk: int) -> bool:
     """Block b yields exactly ``min(W, real[b])`` winners below the padding
     value, and each is one of its real rows, the first ``real[b]``."""
     import torch
 
-    block, rank = winner_columns(packed.shape[1], winners, nblk, packed.device)
+    from gulon_tpu_torch.ops.cuda import adc
+
+    block, rank = adc._winner_blocks(packed.shape[1], winners, nblk, packed.device)
     bits = packed.view(torch.int32)
     valid = (bits & ~127).view(torch.float32) < _INVALID_MIN
     if not torch.equal(valid, (rank < real[block])[None, :].expand_as(valid)):
@@ -449,40 +441,29 @@ def k1_inputs(gen, n, d, m, k_codes, q_n, extra=None, *, dev) -> dict:
 
 def k1_operands(gen, n, d, m, k_codes, q_n, winners, centered, extra=None, *, dev):
     """Seeded random K1 operands ``(operands, nblk, real rows per block or
-    None)``; ``extra`` as :data:`K1_EDGE_CASES`. As
-    ``prepare_scan_operands`` builds them, at the codebooks' own subspace
-    width; with ``extra == "index"`` as an index holds them
-    (``scan_index_operands`` and ``query_operand``), at the width K1's plan
-    gives on the card (``k1_plan``'s ``width``: 40 lanes at 960 over 25
-    subspaces) and at the own width elsewhere."""
+    None)``; ``extra`` as :data:`K1_EDGE_CASES`. At the codebooks' own
+    subspace width; with ``extra == "index"`` as an index holds them
+    (``K1Operands``), at the width K1's plan gives on the card
+    (``k1_plan``'s ``width``: 40 lanes at 960 over 25 subspaces) and at the
+    own width elsewhere."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
 
     raw = k1_inputs(gen, n, d, m, k_codes, q_n, extra, dev=dev)
-    cb, codes, norms = raw["codebooks"], raw["codes"], raw["recon_norms"]
-    if extra == "index":
-        ops = adc.scan_index_operands(
-            None, cb, adc.pack_codes_t(codes, k_codes), norms, bounds=raw["bounds"],
-            num_q=q_n, num_rows=n, winners=winners, center_scores=centered,
-        )
-        q_op = adc.query_operand(raw["queries"], ops)
-        return (ops["codes_t"], ops["norms_hl"], q_op, ops["cb"]), ops["t"] // 128, None
-    ops = adc.prepare_scan_operands(
-        raw["queries"], cb, adc.pack_codes_t(codes, k_codes), norms, bounds=raw["bounds"],
-        tile_rows=0, num_rows=n, winners=winners, center_scores=centered,
+    k1 = adc.K1Operands(
+        raw["codebooks"], adc.pack_codes_t(raw["codes"], k_codes), raw["recon_norms"],
+        bounds=raw["bounds"], num_rows=n, center_scores=centered,
+        _own_width=extra != "index",
     )
-    norms_hl = adc._split_hi_lo(ops["norms"], ops["center"])
+    operands, nblk = k1.operands(raw["queries"], winners=winners)
     if extra == "nan":
-        norms_hl[0, 3::300] = float("nan")
-    operands = (
-        ops["codes_t"], norms_hl, ops["q_pad"][:q_n].to(torch.bfloat16),
-        cb.to(torch.bfloat16).contiguous(),
-    )
+        operands[1][0, 3::300] = float("nan")
     real = None
     if extra == "sentinel":
-        real = (ops["norms"] < _INVALID_MIN).view(-1, 128).sum(1)
-    return operands, ops["t"] // 128, real
+        valid = raw["recon_norms"] < _INVALID_MIN
+        real = torch.nn.functional.pad(valid, (0, k1.codes_t.shape[1] - n)).view(-1, 128).sum(1)
+    return operands, nblk, real
 
 
 def dense_queries(q, dp: int):
@@ -802,22 +783,20 @@ def _k1_stage_check(stage, got, ref) -> dict:
 
 
 def k1_on_p3_operands(codes_t, norms, q_pad, cb):
-    """K1's operands holding P3's scores: offset int8 codes, the norm row's
-    hi/lo split facing two unit lanes, and ``-2 q`` over the codeword lanes
-    (exact in bf16), so K1 scores ``norms - 2 <q, dec(row)>`` as P3 does."""
+    """K1's operands holding P3's scores: offset int8 codes, the norm row's hi/lo split facing two unit lanes, and ``-2 q``
+    over the codeword lanes (exact in bf16), uncentered, so K1 scores
+    ``norms - 2 <q, dec(row)>`` as P3 does."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
 
     m, npad = codes_t.shape
-    _, _, dsub = cb.shape
-    md = m * dsub
-    q_op = torch.zeros((q_pad.shape[0], adc.padded_depth(m, dsub)), dtype=torch.bfloat16,
-                       device=q_pad.device)
-    q_op[:, :md] = q_pad[:, :md] * -2.0
-    q_op[:, md:md + 2] = 1.0
-    return ((codes_t - 128).to(torch.int8).contiguous(), adc._split_hi_lo(norms[0]), q_op,
-            cb.contiguous())
+    dsub = cb.shape[2]
+    k1 = adc.K1Operands(
+        cb, (codes_t - 128).to(torch.int8), norms[0],
+        bounds=[(s * dsub, dsub) for s in range(m)], num_rows=npad, _own_width=True,
+    )
+    return k1.operands(q_pad[:, : m * dsub])[0]
 
 
 def _probe_path(shapes, p3_ops, p4_ops, stage_ops) -> dict:
@@ -1499,48 +1478,33 @@ def phase_cached_path(glove) -> dict:
 
 
 def _flat_kernel_check(index, q, launches_per_batch, phase: str) -> dict:
-    """K1 against its plain version on a flat index's own operands, built
-    as its ``pallas`` route builds them: :func:`_k1_flat_check`."""
-    from gulon_tpu_torch.ops.cuda import adc
-
-    return _k1_flat_check(
-        index.pq, adc.pack_codes_t(index.codes, index.pq.num_clusters), index.recon_norms,
-        index.resolved_pallas_winners(), q, launches_per_batch, phase,
-    )
+    """K1 against its plain version on a flat index's own operands, as its
+    ``pallas`` route holds them: :func:`_k1_flat_check`."""
+    return _k1_flat_check(index._k1(), index.resolved_pallas_winners(), q,
+                          launches_per_batch, phase)
 
 
-def _k1_flat_check(pq, codes_t, recon_norms, winners, q, launches_per_batch,
-                   phase: str) -> dict:
-    """K1 against its plain version on a flat scan's operands (a whole
-    index's or one shard's: ``codes_t`` ``[m, n]``, ``recon_norms`` ``[n]``),
-    centered, at ``winners``, for the prepared queries ``q``:
-    :func:`compare_packed` with each winner's summand scale ``|rn - c| +
-    ||q||^2 + c + 2 ||q|| sqrt(rn)`` (``rn = ||r^||^2``, ``c`` the
-    centering constant), the size of the f32 partial sums whose order
-    differs (a self-query cancels toward 0)."""
+def _k1_flat_check(k1, winners, q, launches_per_batch, phase: str) -> dict:
+    """K1 against its plain version on a flat scan's operands ``k1`` (a
+    whole index's or one shard's ``K1Operands``), centered, at
+    ``winners``, for the prepared queries ``q``: :func:`compare_packed`
+    with each winner's summand scale ``|rn - c| + ||q||^2 + c + 2 ||q||
+    sqrt(rn)`` (``rn = ||r^||^2``, ``c`` the centering constant), the size
+    of the f32 partial sums whose order differs (a self-query cancels
+    toward 0)."""
     import torch
 
     from gulon_tpu_torch.ops.cuda import adc
 
-    n = codes_t.shape[1]
-    ops = adc.prepare_scan_operands(
-        q, pq.codebooks, codes_t, recon_norms, bounds=pq.bounds,
-        tile_rows=0, num_rows=n, winners=winners, center_scores=True,
-    )
-    nblk = ops["t"] // 128
-    operands = (
-        ops["codes_t"], adc._split_hi_lo(ops["norms"], ops["center"]),
-        ops["q_pad"][: len(q)].to(torch.bfloat16),
-        pq.codebooks.to(torch.bfloat16).contiguous(),
-    )
+    operands, nblk = k1.operands(q, winners=winners)
     q2 = (q * q).sum(1)[:, None]
-    center = ops["center"]
+    center = k1.center
 
     def scale_of(ref):
-        block, _ = winner_columns(ref.shape[1], winners, nblk, ref.device)
+        block, _ = adc._winner_blocks(ref.shape[1], winners, nblk, ref.device)
         rows = torch.clamp(block[None, :] * 128 + (ref.view(torch.int32) & 127),
-                           max=n - 1).long()
-        rn = torch.clamp(recon_norms[rows], max=adc._BIG)  # +inf: padding rows
+                           max=k1.n - 1).long()
+        rn = torch.clamp(k1.norms[rows], max=adc._BIG)  # +inf: padding rows
         return (rn - center).abs() + q2 + center.abs() + 2.0 * torch.sqrt(q2 * rn)
 
     case = _k1_case(phase, operands, winners, nblk, None, launches_per_batch, scale_of)
@@ -1566,26 +1530,15 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
     winners = 4
     pq = index.pq
     rc_pal, _, row_map = index._pallas_operands()
-    codes_t = index._pallas_codes()
-    npad = codes_t.shape[1]
-    ops = adc.prepare_scan_operands(
-        q, pq.codebooks, codes_t, rc_pal, bounds=pq.bounds, tile_rows=0,
-        num_rows=npad, winners=winners, center_scores=False,
-    )
-    nblk = ops["t"] // 128
-    operands = (
-        ops["codes_t"], adc._split_hi_lo(ops["norms"], ops["center"]),
-        ops["q_pad"][: len(q)].to(torch.bfloat16),
-        pq.codebooks.to(torch.bfloat16).contiguous(),
-    )
+    npad = rc_pal.shape[0]
+    k1 = index._k1()
+    operands, nblk = k1.operands(q, winners=winners)
+    _, base = k1.geometry(len(q), winners=winners)
     got = adc.fused_block_scan(*operands, winners=winners, nblk=nblk)
     torch.cuda.synchronize()
     ref = adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
-    n_cols = ops["codes_t"].shape[1]
-    cols = torch.arange(n_cols // 128 * winners, device=q.device)
-    wn = winners * nblk
-    base = ((cols // wn) * ops["t"] + (cols % wn) % nblk * 128).to(torch.int32)
-    rank = (cols % wn) // nblk
+    n_cols = k1.codes_t.shape[1]
+    _, rank = adc._winner_blocks(base.shape[0], winners, nblk, q.device)
     vk, ik = adc.unpack_block_winners(got, base)
     vp, ip = adc.unpack_block_winners(ref, base)
 
@@ -1603,7 +1556,7 @@ def _ivf_kernel_check(index, q, launches_per_batch, phase: str = "ivf_kernel") -
         )
 
     # the summand scale of each winner row: |rc| + 2 ||q|| ||r^||
-    codes_pal = (ops["codes_t"].to(torch.int32) + 128).T  # [n_cols, m]
+    codes_pal = (k1.codes_t.to(torch.int32) + 128).T  # [n_cols, m]
     rnorm = pq.reconstruction_norms(codes_pal)
     rc_full = torch.cat([rc_pal, rc_pal.new_full((n_cols - npad,), adc._BIG)])
     qnorm = torch.sqrt((q * q).sum(1))
@@ -2770,8 +2723,7 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     lpb = routes["flat_auto"][f"mesh{shards}"]["launches"] / len(batches)
     counted = tracing.counter("k1.launches")  # the comparison's launches are not the path's
     k1_shard = _k1_flat_check(
-        index.pq, flat_m.codes_t_sharded[0], flat_m.norms_sharded[0],
-        index.resolved_pallas_winners(), q0, lpb, "sharded_k1",
+        flat_m._k1(0), index.resolved_pallas_winners(), q0, lpb, "sharded_k1",
     )
     tracing.set_counter("k1.launches", counted)
     del flat_m
@@ -3017,9 +2969,6 @@ def main(argv=None) -> int:
     adc_probes._kernel()
     kernel_probe._kernel()
     floor_probe._kernel()
-    sys.path.insert(0, os.path.join(_ROOT, "scripts"))
-    from onehot_ab import ptxas_by_kernel
-
     for name in sources:
         seconds, report = _build.BUILD_INFO.get(name, (0.0, ""))
         _emit({
@@ -3028,7 +2977,7 @@ def main(argv=None) -> int:
             "library": str(_build.library_path(name).name),
             # registers, spill bytes and serialization warnings (C751x) of
             # each kernel instantiation
-            "ptxas": ptxas_by_kernel(report),
+            "ptxas": _build.ptxas_by_kernel(report),
         })
 
     main_path, glove = phase_main_path(args.seed)

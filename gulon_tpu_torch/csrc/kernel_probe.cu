@@ -69,8 +69,9 @@
 //   commit group, no branch inside a group); the decoded lanes from m *
 //   dsub up to there are zeros, written once per slot.
 //
-// Measured on an H100 (scripts/p3_ab.py, its ablations): the query feed is
-// not what bounds the contraction path (a ring never refilled saves ~2 %);
+// Measured on an H100 (scripts/p3_ab.py and its ablations, at commit
+// 772d785): the query feed is not what bounds the contraction path (a
+// ring never refilled saves ~2 %);
 // the selection epilogue is: without it tdec_cached runs at K2's time, and
 // with it the epilogue of one warpgroup outlasts the other's wgmma.
 //

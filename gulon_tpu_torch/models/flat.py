@@ -39,6 +39,7 @@ from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.keyindex import SortedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.cuda.adc import K1Operands, pack_codes_t, scan_top_k
 from gulon_tpu_torch.ops.cuda.dense import dense_scan_fused, prepare_data
 from gulon_tpu_torch.ops.distance import normalize_rows
 from gulon_tpu_torch.ops.pq import ProductQuantizer
@@ -83,9 +84,9 @@ class FlatIndex(Index):
     # x @ rotation, queries rotate in _prepare_queries, lookup un-rotates;
     # None = plain PQ. Orthogonal, so reported distances are unchanged
     rotation: Optional[torch.Tensor] = None
-    # K1's index-constant operands by launch geometry, built lazily
-    # (ops/cuda/adc.py::scan_index_operands)
-    _k1_operands: Optional[dict] = None
+    # K1's operands over the rows (ops/cuda/adc.py::K1Operands), built
+    # lazily
+    _k1_operands: Optional[K1Operands] = None
     # dense-kernel operand over the decoded cache (norm lanes appended),
     # built lazily on CUDA; it replaces decoded_cache once built
     _cache_aug: Optional[torch.Tensor] = None
@@ -113,20 +114,6 @@ class FlatIndex(Index):
     @property
     def device(self) -> torch.device:
         return self.codes.device
-
-    def _prepare_queries(self, vectors) -> torch.Tensor:
-        with tracing.span("gulon.query.prepare"):
-            with tracing.span("gulon.wait.upload_queries"):
-                q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
-            if q.ndim != 2 or q.shape[1] != self.dimension:
-                raise ValueError(
-                    f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
-                )
-            if self.metric.normalized:
-                q = normalize_rows(q)  # Index.scala:324-331
-            if self.rotation is not None:
-                q = matmul(q, self.rotation, "highest")
-            return q
 
     def batch_query(self, k: int, vectors) -> List[Result]:
         dists, ids = self.query_arrays(k, vectors)
@@ -192,8 +179,6 @@ class FlatIndex(Index):
                     recall_target=self.recall_target,
                 )
         elif strategy == "pallas":
-            from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused, pack_codes_t
-
             if self.packed_width:
                 raise ValueError(
                     "pallas strategy needs unpacked codes; use "
@@ -202,13 +187,8 @@ class FlatIndex(Index):
             if not self._kernel_bounds_ok(k_scan):
                 # tiny corpus / large k / large K: the decode scan
                 return dataclasses.replace(self, scan_strategy="decode")._query(k, vectors)
-            if self._k1_operands is None:
-                self._k1_operands = {}
-            dists, ids = adc_scan_fused(
-                q, self.pq.codebooks,
-                lambda: pack_codes_t(self.codes, self.pq.num_clusters),
-                self.recon_norms, bounds=self.pq.bounds, k=k_scan, num_rows=self.size,
-                winners=self.resolved_pallas_winners(), held=self._k1_operands,
+            dists, ids = scan_top_k(
+                self._k1(), q, k=k_scan, winners=self.resolved_pallas_winners()
             )
         elif strategy == "cached":
             if self.packed_width and not self._has_cache():
@@ -254,6 +234,16 @@ class FlatIndex(Index):
                 bounds=self.pq.bounds, k=k_eff, packed_width=self.packed_width,
             )
         return dists, ids
+
+    def _k1(self) -> K1Operands:
+        """K1's operands over the rows, centered, built on first use."""
+        if self._k1_operands is None:
+            self._k1_operands = K1Operands(
+                self.pq.codebooks, pack_codes_t(self.codes, self.pq.num_clusters),
+                self.recon_norms, bounds=self.pq.bounds, num_rows=self.size,
+                center_scores=True,
+            )
+        return self._k1_operands
 
     def resolved_rerank_factor(self) -> int:
         """The effective rerank factor: the explicit knob, or (at 0) an

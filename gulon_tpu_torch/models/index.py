@@ -8,7 +8,8 @@ and ``Index.Result`` (``Index.scala:56-94``): results are parallel arrays of
 
 The batch-first API is the primary surface — ``query`` is a batch of one.
 A copy of ``gulon_tpu/models/index.py`` (host-side numpy), so the port
-stands alone.
+stands alone, with one addition: the query preparation the PQ indices
+share (:meth:`Index._prepare_queries`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from gulon_tpu_torch.ops.distance import normalize_rows
+from gulon_tpu_torch.ops.precision import matmul
+from gulon_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +83,24 @@ class Index(abc.ABC):
         Resolve ids to keys with ``index.key_index.keys[ids]``.
         """
         raise NotImplementedError
+
+    def _prepare_queries(self, vectors) -> torch.Tensor:
+        """The port's: queries as a PQ index's scans take them, ``[Q,
+        dimension]`` f32 on the index's ``device``, normalized for a
+        normalizing ``metric`` (``Index.scala:268-269, :324-331``) and
+        rotated by the OPQ ``rotation`` where there is one."""
+        with tracing.span("gulon.query.prepare"):
+            with tracing.span("gulon.wait.upload_queries"):
+                q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+            if q.ndim != 2 or q.shape[1] != self.dimension:
+                raise ValueError(
+                    f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
+                )
+            if self.metric.normalized:
+                q = normalize_rows(q)
+            if self.rotation is not None:
+                q = matmul(q, self.rotation, "highest")
+            return q
 
     def query(self, k: int, vector) -> Result:
         vec = np.asarray(vector, np.float32).reshape(1, -1)

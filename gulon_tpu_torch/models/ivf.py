@@ -53,6 +53,12 @@ from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.keyindex import GroupedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.cuda.adc import (
+    _INVALID_MIN,
+    K1Operands,
+    pack_codes_t,
+    unpack_block_winners,
+)
 from gulon_tpu_torch.ops.distance import nearest, normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
@@ -103,6 +109,15 @@ def _probe_mask_limit_vectors(
     include = torch.cumsum(sz, dim=1) - sz < count
     mask = torch.zeros(cdist.shape, dtype=torch.bool, device=cdist.device)
     return mask.scatter(1, order, include)
+
+
+def _probe_kind(strategy: Strategy) -> str:
+    """The ``kind`` of :func:`_rank_and_probe` a probe strategy asks for."""
+    if isinstance(strategy, LimitGroups):
+        return "groups"
+    if isinstance(strategy, LimitVectors):
+        return "vectors"
+    raise ValueError(f"unknown strategy {strategy!r}")
 
 
 def _rank_and_probe(q, centroids, sizes, *, kind: str, count: int):
@@ -507,23 +522,56 @@ _PALLAS_BLOCK = 128
 _PALLAS_PAD_SENTINEL = 2.0e38  # > _INVALID_MIN: padding rows never win
 
 
+def partition_layout(codes, row_const, sizes, parts, k_codes: int, npad: int = 0):
+    """The partition-padded row layout of the fused-kernel scan over rows
+    grouped by partition: ``codes [n, m]`` and ``row_const [n]`` hold
+    partition ``parts[i]``'s ``sizes[i]`` rows after those of ``parts[:i]``
+    from row 0 on (rows past them are not read). Each partition starts on
+    a 128-row block, so each selection block belongs to one partition.
+    Returns, on the rows' device, ``(codes_t [m, Np]`` (:func:`pack_codes_t`,
+    code 0 on padding rows), ``row_const [Np]`` f32 (padding rows carry
+    ``_PALLAS_PAD_SENTINEL``, above the kernel's invalid threshold, and
+    never win a block min), ``blk_part [Np/128]`` (the partition of each
+    block, 0 past the last) and ``row_map [Np]`` int32 (padded row -> row,
+    -1 on padding)``; ``Np`` is ``npad`` if larger than the padded
+    partitions."""
+    dev = codes.device
+    sizes = np.asarray(sizes, np.int64)
+    psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
+    n, fill = int(sizes.sum()), int(psz.sum())
+    npad = max(npad, fill)
+    with tracing.span("gulon.wait.upload_layout"):
+        shift, sizes_t, blocks, parts_t = (
+            torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+            for a in ((np.cumsum(psz) - psz) - (np.cumsum(sizes) - sizes), sizes,
+                      psz // _PALLAS_BLOCK, parts)
+        )
+    dst = torch.repeat_interleave(shift, sizes_t, output_size=n) + torch.arange(n, device=dev)
+    rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
+    rc_pal[dst] = row_const[:n].to(torch.float32)
+    row_map = torch.full((npad,), -1, dtype=torch.int32, device=dev)
+    row_map[dst] = torch.arange(n, dtype=torch.int32, device=dev)
+    codes_pal = codes.new_zeros((npad, codes.shape[1]))
+    codes_pal[dst] = codes[:n]
+    blk_part = torch.zeros(npad // _PALLAS_BLOCK, dtype=torch.int64, device=dev)
+    blk_part[: fill // _PALLAS_BLOCK] = torch.repeat_interleave(
+        parts_t, blocks, output_size=fill // _PALLAS_BLOCK
+    )
+    return pack_codes_t(codes_pal, k_codes), rc_pal, blk_part, row_map
+
+
 def _pallas_ivf_query(
     q: torch.Tensor,  # [Q, D] f32 (already metric-normalized)
     qn: torch.Tensor,  # [Q] f32 ||q||^2
     group_term: torch.Tensor,  # [Q, P] f32
     probe_mask: torch.Tensor,  # [Q, P] bool
-    codebooks: torch.Tensor,
-    codes_t,  # [m, Npad] partition-padded kernel operand (with held, or a
-    #   function returning it: ops/cuda/adc.py::scan_index_operands)
-    rc_pal: torch.Tensor,  # [Npad] f32 (sentinel on padding rows)
+    k1: K1Operands,  # over the partition-padded layout (row constants as norms)
     blk_part: torch.Tensor,  # [Npad/128] partition of each 128-row block
     row_map: torch.Tensor,  # [Npad] int32 padded row -> original row (-1 pad)
     *,
-    bounds,
     k: int,
     winners: int,
     rescore: int = 0,
-    held=None,  # the index's dict of K1 operands
 ):
     """Kernel K1 plus the epilogue of the IVF ``pallas`` strategy
     (``gulon_tpu/models/ivf.py:652-733``).
@@ -536,17 +584,8 @@ def _pallas_ivf_query(
     over-fetches ``rescore * k`` candidates and re-ranks them with exact
     f32 ADC distances (:func:`ivf_block_rescore`).
     """
-    from gulon_tpu_torch.ops.cuda.adc import (
-        _INVALID_MIN,
-        _block_scan,
-        unpack_block_winners,
-    )
-
     npad = row_map.shape[0]
-    packed, base_cols, codes_t, _ = _block_scan(
-        q, codebooks, codes_t, rc_pal,
-        bounds=bounds, tile_rows=0, num_rows=npad, winners=winners, held=held,
-    )
+    packed, base_cols = k1.scan(q, winners=winners)
     with tracing.span("gulon.scan.select"):
         bv, bi = unpack_block_winners(packed, base_cols)
         col_blk = torch.clamp(base_cols.long() // _PALLAS_BLOCK, max=blk_part.shape[0] - 1)
@@ -562,8 +601,8 @@ def _pallas_ivf_query(
         win_rows = torch.gather(bi, 1, pos)
         if rescore:
             best, win_rows = scan_ops.ivf_block_rescore(
-                q, qn, codebooks, codes_t, rc_pal, best, win_rows,
-                torch.gather(gt, 1, pos), bounds=bounds, k=kk,
+                q, qn, k1.codebooks, k1.codes_t, k1.norms, best, win_rows,
+                torch.gather(gt, 1, pos), bounds=k1.bounds, k=kk,
             )
         # rows of the padded tail past npad only ever carry +inf winners
         ids = row_map[torch.clamp(win_rows.long(), max=npad - 1)]
@@ -600,11 +639,11 @@ class IVFIndex(Index):
     _row_const_pad: Optional[torch.Tensor] = None  # [N + pad] f32
     # lazily built partition-padded layout of the pallas strategy:
     # (row_const [Np], blk_part [Np/128], row_map [Np]); its code operand
-    # lives, padded to the row tile, in _k1_operands
+    # lives in _k1_operands
     _pallas_layout: Optional[tuple] = None
-    # K1's index-constant operands by launch geometry, built lazily
-    # (ops/cuda/adc.py::scan_index_operands)
-    _k1_operands: Optional[dict] = None
+    # K1's operands over the layout (ops/cuda/adc.py::K1Operands), built
+    # with it
+    _k1_operands: Optional[K1Operands] = None
     _sizes_dev: Optional[torch.Tensor] = None  # partition_sizes() on device
     # ranked candidates the fused kernel keeps per 128-row block (1..4):
     # losing a true top-k member needs pallas_winners + 1 of them in one
@@ -672,41 +711,27 @@ class IVFIndex(Index):
         return scan_ops._q_pad(q, self.pq.bounds, self.pq.pad_width)
 
     def _pallas_operands(self):
-        """Partition-padded layout of the fused-kernel scan (built once, on
-        the index's device): ``(row_const [Np], blk_part [Np/128], row_map
-        [Np])``. Every partition is padded to a 128-row block boundary, so
-        each selection block belongs to one partition; padding rows carry
-        a row constant above the kernel's invalid threshold and never win
-        a block min."""
-        if self._pallas_layout is None:
+        """Partition-padded layout of the fused-kernel scan, built once on
+        the index's device (:func:`partition_layout`): ``(row_const [Np],
+        blk_part [Np/128], row_map [Np])``; K1's operands over it, its
+        code operand with them, are held in ``_k1_operands``."""
+        if self._pallas_layout is None or self._k1_operands is None:
             with tracing.span("gulon.scan.operands"):
-                dev = self.device
-                sizes = self.partition_sizes().astype(np.int64)
-                starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-                psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
-                pstarts = np.concatenate([[0], np.cumsum(psz)[:-1]])
-                npad = int(psz.sum())
-                with tracing.span("gulon.wait.upload_layout"):
-                    shift = torch.from_numpy(pstarts - starts).to(dev)
-                    blocks = torch.from_numpy(psz // _PALLAS_BLOCK).to(dev)
-                dst = shift[self.group_ids.long()] + torch.arange(self.size, device=dev)
-                rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
-                rc_pal[dst] = self.row_const.to(torch.float32)
-                row_map = torch.full((npad,), -1, dtype=torch.int32, device=dev)
-                row_map[dst] = torch.arange(self.size, dtype=torch.int32, device=dev)
-                blk_part = torch.repeat_interleave(torch.arange(len(sizes), device=dev), blocks)
-                self._pallas_layout = (rc_pal, blk_part, row_map)
+                codes_t, rc_pal, blk_part, row_map = partition_layout(
+                    self.codes, self.row_const, self.partition_sizes(),
+                    np.arange(self.num_partitions), self.pq.num_clusters,
+                )
+                self._k1_operands = K1Operands(
+                    self.pq.codebooks, codes_t, rc_pal, bounds=self.pq.bounds,
+                    num_rows=codes_t.shape[1],
+                )
+            self._pallas_layout = (rc_pal, blk_part, row_map)
         return self._pallas_layout
 
-    def _pallas_codes(self) -> torch.Tensor:
-        """The layout's pretransposed code operand ``[m, Np]``: each row's
-        codes at its padded row, code 0 on padding rows."""
-        from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
-
-        row_map = self._pallas_operands()[2].long()
-        codes_pal = self.codes[torch.clamp(row_map, min=0)]
-        codes_pal.masked_fill_((row_map < 0)[:, None], 0)
-        return pack_codes_t(codes_pal, self.pq.num_clusters)
+    def _k1(self) -> K1Operands:
+        """K1's operands over the partition-padded layout, uncentered."""
+        self._pallas_operands()
+        return self._k1_operands
 
     def _pallas_eligible(self, k_eff: int) -> bool:
         return (
@@ -764,21 +789,6 @@ class IVFIndex(Index):
             return "masked"
         return strategy
 
-    def _prepare_queries(self, vectors) -> torch.Tensor:
-        """Validate shape, normalize for cosine, apply the rotation."""
-        with tracing.span("gulon.query.prepare"):
-            with tracing.span("gulon.wait.upload_queries"):
-                q = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
-            if q.ndim != 2 or q.shape[1] != self.dimension:
-                raise ValueError(
-                    f"queries must be [Q, {self.dimension}], got {tuple(q.shape)}"
-                )
-            if self.metric.normalized:
-                q = normalize_rows(q)  # Index.scala:268-269
-            if self.rotation is not None:
-                q = matmul(q, self.rotation, "highest")
-            return q
-
     def query_arrays(self, k: int, vectors):
         """([Q, k] squared distances, [Q, k] int32 row ids) as tensors on
         the index's device."""
@@ -789,12 +799,7 @@ class IVFIndex(Index):
         scan_ops.resolve_precision(self.precision)
         scan_ops._check_topk_impl(self.topk_impl)
         q = self._prepare_queries(vectors)
-        if isinstance(self.strategy, LimitGroups):
-            kind = "groups"
-        elif isinstance(self.strategy, LimitVectors):
-            kind = "vectors"
-        else:
-            raise ValueError(f"unknown strategy {self.strategy!r}")
+        kind = _probe_kind(self.strategy)
         if self._sizes_dev is None:
             with tracing.span("gulon.wait.upload_sizes"):
                 self._sizes_dev = torch.from_numpy(self.partition_sizes()).to(self.device)
@@ -832,14 +837,10 @@ class IVFIndex(Index):
 
     def _query_pallas(self, q, qn, group_term, probe_mask, k_eff: int):
         """The fused-kernel strategy over the partition-padded layout."""
-        rc_pal, blk_part, row_map = self._pallas_operands()
-        if self._k1_operands is None:
-            self._k1_operands = {}
+        _, blk_part, row_map = self._pallas_operands()
         return _pallas_ivf_query(
-            q, qn, group_term, probe_mask, self.pq.codebooks, self._pallas_codes,
-            rc_pal, blk_part, row_map, bounds=self.pq.bounds, k=k_eff,
-            winners=self.pallas_winners, rescore=self.pallas_rescore,
-            held=self._k1_operands,
+            q, qn, group_term, probe_mask, self._k1_operands, blk_part, row_map,
+            k=k_eff, winners=self.pallas_winners, rescore=self.pallas_rescore,
         )
 
     def _query_sublinear(self, strategy, q, qn, group_term, cdist, probe_mask, k_eff):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,6 +35,7 @@ _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds until its nvcc finished in this process, ptxas report)
 BUILD_INFO: Dict[str, Tuple[float, str]] = {}
+_SERIALIZED = re.compile(r"\((C75\d\d)\).*?function '([^']+)'")
 
 
 def _nvcc() -> str:
@@ -108,3 +110,44 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
         return lib
+
+
+def _demangle(names):
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True)
+    lines = out.stdout.splitlines()
+    return dict(zip(names, lines)) if len(lines) == len(names) else {n: n for n in names}
+
+
+def _short(name: str) -> str:
+    """``adc_probe_kernel<1, false, false, true>`` from a demangled name."""
+    found = re.search(r"(\w+<[^()]*>)\(", name)
+    return found.group(1) if found else name
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """Registers, spill bytes and warning codes of each entry function in
+    an ``nvcc -Xptxas -v`` report."""
+    kernels, cur, warned = {}, None, []
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            cur = entry.group(1)
+            kernels[cur] = dict(registers=None, spill_stores=0, spill_loads=0, warnings=[])
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and cur:
+            kernels[cur]["spill_stores"], kernels[cur]["spill_loads"] = map(int, spill.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and cur:
+            kernels[cur]["registers"] = int(regs.group(1))
+        serial = _SERIALIZED.search(line)
+        if serial:
+            warned.append(serial.groups())
+    for code, fn in warned:
+        kernels.setdefault(fn, dict(registers=None, spill_stores=0, spill_loads=0,
+                                    warnings=[]))["warnings"].append(code)
+    names = _demangle(list(kernels))
+    return {_short(names[k]): v for k, v in kernels.items()}

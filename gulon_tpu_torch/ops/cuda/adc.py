@@ -10,14 +10,13 @@ semantics so that the two compare one for one:
 - tile geometry (``padded_depth``, ``_pick_tiles``, ``block_layout``);
   the row tile only fixes the winner-column order now, which keeps the
   epilogue's ``base_cols`` and tie order identical;
-- operand prep (``_split_hi_lo``, ``pack_codes_t``,
-  ``prepare_scan_operands``): -2-scaled bf16 queries with unit lanes
-  facing the hi/lo bf16 norm rows, and in centered mode
-  ``||q||^2 + mean`` lanes facing two rows of ones, so the contraction
-  emits the true ADC distance. What depends only on the index and the
-  launch geometry (:func:`scan_index_operands`) is built once and held
-  by the index; a batch builds only its query operand
-  (:func:`query_operand`: one concatenation and one column gather);
+- the operands, owned by :class:`K1Operands` (``_split_hi_lo``,
+  ``pack_codes_t``): -2-scaled bf16 queries with unit lanes facing the
+  hi/lo bf16 norm rows, and in centered mode ``||q||^2 + mean`` lanes
+  facing two rows of ones, so the contraction emits the true ADC
+  distance. What depends only on the rows and the launch geometry is
+  built once and held by the owner (an index, a shard, or one call); a
+  batch builds only its query operand;
 - the launch (:func:`fused_block_scan`), which runs K1 for CUDA tensors
   and its plain PyTorch twin :func:`_block_scan_plain` for CPU tensors,
   and counts each launch by K1's launch plan (:func:`k1_plan`: the
@@ -26,7 +25,8 @@ semantics so that the two compare one for one:
 - the plain-torch epilogue (``unpack_block_winners``, ``finish_scan``):
   an exact top-k over block winners, id decode, optional f32 LUT rescore;
 - the entry points :func:`adc_scan_fused` (``adc_scan_pallas``) and
-  :func:`adc_block_scan_fused` (``adc_block_scan_pallas``).
+  :func:`adc_block_scan_fused` (``adc_block_scan_pallas``), over an
+  owner built for the call, and :func:`scan_top_k` over a held one.
 
 Selection keeps one winner (1-4 with ``winners``) per 128-row block,
 exactly like the TPU kernel: losing a true top-k member needs two of
@@ -37,8 +37,8 @@ decoded in shared memory is decoded chunk by chunk for each query tile
 (the streamed plan, past a depth of about 700), its codebooks gathered
 from global memory when they do not fit beside it, each gather loading
 the largest of 8, 4, 2 and 1 lanes that divides the operands' subspace
-width. :func:`scan_index_operands` lays an index's codebook and query
-operands out at the width K1's plan gives (:func:`k1_plan`'s ``width``:
+width. :class:`K1Operands` lays its codebook and query operands out at
+the width K1's plan gives (:func:`k1_plan`'s ``width``:
 where the plan streams, ``dsub`` rounded up to 8 lanes if that adds no
 64-lane chunk to the depth), so 39 lanes at 960 dimensions over 25
 subspaces become 40, zero lanes facing zero lanes, and its gathers load
@@ -130,41 +130,6 @@ def pack_codes_t(codes: torch.Tensor, k_codes: int) -> torch.Tensor:
     return c.T.contiguous()
 
 
-def _scan_geometry(
-    num_q: int, codebooks: torch.Tensor, codes, *, tile_rows: int, num_rows: int,
-    winners: int,
-) -> Tuple[int, int, int, int]:
-    """``(n, qt, t, mdp)`` of a launch over ``n`` rows, the kernel's limits
-    checked."""
-    m, k_codes, dsub = codebooks.shape
-    n = num_rows if num_rows > 0 else codes.shape[0]
-    if k_codes > 1024:
-        raise ValueError(f"fused ADC kernel supports K <= 1024, got {k_codes}")
-    mdp = padded_depth(m, dsub)
-    if tile_rows and tile_rows % 1024:
-        raise ValueError(f"tile_rows must be a 1024-multiple, got {tile_rows}")
-    qt, t, _, _ = block_layout(num_q, k_codes, mdp, n, tile_rows, winners)
-    return n, qt, t, mdp
-
-
-def _pad_codes(codes: torch.Tensor, n: int, t: int, pretransposed: bool) -> torch.Tensor:
-    """The code operand ``[m, N']``, ``N'`` a multiple of ``t``: pretransposed
-    codes padded with code 0 (offset-encoded), row-major ``[n, m]`` codes as
-    int32, transposed."""
-    if pretransposed:
-        return torch.nn.functional.pad(codes, (0, (-codes.shape[1]) % t))
-    codes_i = torch.nn.functional.pad(codes.to(torch.int32), (0, 0, 0, (-n) % t))
-    return codes_i.T.contiguous()
-
-
-def _pad_norms(recon_norms: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """``[N] -> [n_cols]`` f32 norms, ``_BIG`` on the padding rows."""
-    norms = recon_norms.to(torch.float32)
-    if norms.shape[0] < n_cols:
-        norms = torch.nn.functional.pad(norms, (0, n_cols - norms.shape[0]), value=_BIG)
-    return norms
-
-
 def _center(recon_norms: torch.Tensor, center_scores: bool) -> torch.Tensor:
     """The centered mode's constant, the mean norm over the real rows (0
     uncentered), as a 0-d f32 tensor."""
@@ -177,13 +142,20 @@ def _center(recon_norms: torch.Tensor, center_scores: bool) -> torch.Tensor:
     )
 
 
+def _winner_blocks(num_cols: int, winners: int, nblk: int, device):
+    """``(block, rank)`` of each of K1's ``num_cols`` output columns, int64
+    on the device: rank-major inside each row tile of ``nblk`` 128-row
+    blocks (the inverse of :func:`_winner_columns`)."""
+    cols = torch.arange(num_cols, dtype=torch.int64, device=device)
+    wn = winners * nblk
+    return (cols // wn) * nblk + (cols % wn) % nblk, (cols % wn) // nblk
+
+
 def _base_cols(n_cols: int, t: int, winners: int, device) -> torch.Tensor:
     """``[n_cols / 128 * winners]`` int32: the first row of each winner
     column's 128-row block, built on the device."""
-    nblk = t // _LANES
-    wn = winners * nblk
-    cols = torch.arange(n_cols // t * wn, dtype=torch.int64, device=device)
-    return ((cols // wn) * t + (cols % wn) % nblk * _LANES).to(torch.int32)
+    block, _ = _winner_blocks(n_cols // _LANES * winners, winners, t // _LANES, device)
+    return (block * _LANES).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -210,13 +182,6 @@ def _query_columns(bounds: tuple, dsub: int, centered: bool, device: torch.devic
             torch.from_numpy(cols).to(device),
             torch.tensor([-0.0, 0.0, 1.0], dtype=torch.float32, device=device),
         )
-
-
-def _columns_for(bounds, dsub: int, centered: bool, device):
-    return _query_columns(
-        tuple((int(s), int(w)) for s, w in bounds), int(dsub), bool(centered),
-        torch.device(device),
-    )
 
 
 def _query_lanes(
@@ -247,127 +212,118 @@ def _k1_lane_width(codebooks: torch.Tensor, device) -> int:
     return k1_plan(m, k_codes, dsub)["width"]
 
 
-def _lane_operands(codebooks: torch.Tensor, bounds, width: int, centered: bool, device):
-    """``(cb, cols, lanes)`` at subspace width ``width``: the bf16
-    codebooks ``[m, K, width]``, lanes past ``dsub`` +0.0, and the query
-    operand's column map (:func:`_query_columns`: each subspace's lanes
-    past its own width read -0.0), so the extra lanes add exact zeros."""
-    cb = codebooks.to(torch.bfloat16)
-    if width > cb.shape[2]:
-        cb = torch.nn.functional.pad(cb, (0, width - cb.shape[2]))
-    return (cb.contiguous(), *_columns_for(bounds, width, centered, device))
+class K1Operands:
+    """K1's operands over one index's rows, one shard's, or one call's: what
+    they are and who holds them is decided here alone.
 
+    Built from the codebooks ``[m, K, dsub]`` f32, the code operand
+    (pretransposed ``[m, num_rows]``, :func:`pack_codes_t`, or with
+    ``num_rows=0`` row-major ``[N, m]`` codes, taken as int32), the rows'
+    norms ``[N]`` f32 (an IVF layout's row constants) and the centering
+    (flat indices centered, IVF indices and the block-scan API
+    uncentered). It holds:
 
-def prepare_scan_operands(
-    queries: torch.Tensor,
-    codebooks: torch.Tensor,
-    codes: torch.Tensor,
-    recon_norms: torch.Tensor,
-    *,
-    bounds,
-    tile_rows: int,
-    num_rows: int,
-    winners: int = 1,
-    center_scores: bool = False,
-) -> dict:
-    """Padded -2-scaled queries with norm/center lanes, transposed padded
-    codes, padded norms and the (qt, t) geometry, as
-    ``gulon_tpu/ops/pallas/adc.py::prepare_scan_operands`` builds them."""
-    num_q = queries.shape[0]
-    m, k_codes, dsub = codebooks.shape
-    pretransposed = num_rows > 0
-    n, qt, t, mdp = _scan_geometry(
-        num_q, codebooks, codes, tile_rows=tile_rows, num_rows=num_rows, winners=winners
-    )
-    codes_t = _pad_codes(codes, n, t, pretransposed)
-    center = _center(recon_norms, center_scores)
-    cols, lanes = _columns_for(bounds, dsub, center_scores, queries.device)
-    q_pad = torch.nn.functional.pad(
-        _query_lanes(queries, cols, lanes, center, center_scores),
-        (0, 0, 0, (-num_q) % qt),
-    )
-    return dict(
-        q_pad=q_pad, codes_t=codes_t, norms=_pad_norms(recon_norms, codes_t.shape[1]),
-        center=center, qs=split_subspaces(queries, bounds, dsub),
-        qt=qt, t=t, mdp=mdp, pretransposed=pretransposed, num_q=num_q,
-        m=m, k_codes=k_codes, dsub=dsub,
-    )
+    - the bf16 codebooks and the query operand's column map
+      (:func:`_query_columns`) at the subspace width of K1's plan
+      (:func:`_k1_lane_width`; ``lane_padded`` when wider than ``dsub``:
+      codebook lanes past ``dsub`` +0.0 face query lanes of -0.0, exact
+      zeros), and the center;
+    - one code operand zero-padded to the row tile, and its ``[2, N']`` bf16 hi/lo norm rows with the center folded in
+      (``_BIG`` on the padding rows): launch geometries of its width share
+      them, one of another width replaces them and every geometry held;
+    - ``base_cols`` per launch geometry ``(t, winners)``, ``t`` from
+      :func:`block_layout` at the own width; each one built adds one to
+      ``k1.operand_builds``.
 
+    A batch then builds its query operand alone (:meth:`query_operand`).
+    ``_own_width`` keeps the subspaces' own width on the card too, for
+    the probes and the kernel-level checks, which reach K1's narrower
+    gathers."""
 
-def scan_index_operands(
-    held,
-    codebooks: torch.Tensor,
-    codes,
-    recon_norms: torch.Tensor,
-    *,
-    bounds,
-    num_q: int,
-    tile_rows: int = 0,
-    num_rows: int = 0,
-    winners: int = 1,
-    center_scores: bool = False,
-) -> dict:
-    """K1's index-constant operands for a batch of ``num_q`` queries: the
-    code operand padded to the row tile, the ``[2, N']`` bf16 hi/lo norm
-    rows with the center folded in, the center, ``base_cols`` on the
-    device, the bf16 codebooks and the query operand's column map, both
-    at the subspace width K1's plan gives (``lane_padded``:
-    wider than the codebooks' own; the launch geometry, and so ``t``,
-    ``base_cols`` and the winner columns, follows the own width).
+    def __init__(
+        self,
+        codebooks: torch.Tensor,
+        codes: torch.Tensor,
+        norms: torch.Tensor,
+        *,
+        bounds,
+        num_rows: int = 0,
+        center_scores: bool = False,
+        _own_width: bool = False,
+    ):
+        m, k_codes, dsub = codebooks.shape
+        if k_codes > 1024:
+            raise ValueError(f"fused ADC kernel supports K <= 1024, got {k_codes}")
+        self.codebooks, self.bounds, self.norms = codebooks, bounds, norms
+        self.n = num_rows if num_rows > 0 else codes.shape[0]
+        self.mdp = padded_depth(m, dsub)
+        self.centered = bool(center_scores)
+        self.device = codes.device
+        width = dsub if _own_width else _k1_lane_width(codebooks, self.device)
+        self.lane_padded = width > dsub
+        self.cb = torch.nn.functional.pad(
+            codebooks.to(torch.bfloat16), (0, width - dsub)
+        ).contiguous()
+        self.cols, self.lanes = _query_columns(
+            tuple((int(s), int(w)) for s, w in bounds), width, self.centered, self.device
+        )
+        self.center = _center(norms, self.centered)
+        # the code operand as given, until the first padding
+        self.codes_t = codes if num_rows > 0 else codes.to(torch.int32).T
+        self.norms_hl = None
+        self._base_cols = {}  # (t, winners) -> base_cols
 
-    They depend on the index and on the launch geometry ``(t, winners,
-    center_scores)`` alone (``t`` follows ``num_q``, :func:`_pick_tiles`).
-    ``held`` is the dict an index keeps them in: a geometry already there
-    is returned as it is, a new one built and stored. ``held=None`` (a
-    caller that holds no index) builds them for this call. With ``held``,
-    ``codes`` may be a function returning the pretransposed operand
-    (``num_rows`` columns), called only when a code operand has to be
-    built. ``held`` keeps one padded code operand: geometries of its
-    width share it (and the norm rows, at the same centering), and one of
-    another width replaces every entry. Each build adds one to the counter
-    ``k1.operand_builds``."""
-    n, _, t, _ = _scan_geometry(
-        num_q, codebooks, codes, tile_rows=tile_rows, num_rows=num_rows, winners=winners
-    )
-    centered = bool(center_scores)
-    key = (t, winners, centered)
-    if held is not None and key in held:
-        return held[key]
-    pretransposed = num_rows > 0
-    other = next(iter(held.values()), None) if held else None
-    if other is not None and other["codes_t"].shape[1] != _round_up(n, t):
-        held.clear()  # one code operand at a time
-        other = None
-    if other is not None:
-        codes_t = other["codes_t"]
-    else:
-        codes_t = _pad_codes(codes() if callable(codes) else codes, n, t, pretransposed)
-    if other is not None and other["centered"] == centered:
-        center, norms_hl = other["center"], other["norms_hl"]
-    else:
-        center = _center(recon_norms, centered)
-        norms_hl = _split_hi_lo(_pad_norms(recon_norms, codes_t.shape[1]), center)
-    dev = codes_t.device
-    width = _k1_lane_width(codebooks, dev)
-    cb, cols, lanes = _lane_operands(codebooks, bounds, width, centered, dev)
-    entry = dict(
-        codes_t=codes_t, norms_hl=norms_hl, center=center,
-        base_cols=_base_cols(codes_t.shape[1], t, winners, dev),
-        cb=cb, cols=cols, lanes=lanes, lane_padded=width > codebooks.shape[2],
-        t=t, winners=winners, centered=centered, pretransposed=pretransposed,
-    )
-    tracing.count("k1.operand_builds")
-    if held is not None:
-        held[key] = entry
-    return entry
+    def geometry(self, num_q: int, *, winners: int = 1, tile_rows: int = 0):
+        """``(t, base_cols)`` of a launch over ``num_q`` queries, the code
+        operand and norm rows held at its width."""
+        if tile_rows % 1024:
+            raise ValueError(f"tile_rows must be a 1024-multiple, got {tile_rows}")
+        _, t, _, _ = block_layout(num_q, self.cb.shape[1], self.mdp, self.n, tile_rows, winners)
+        key = (t, winners)
+        if key not in self._base_cols:
+            self._pad_columns(_round_up(self.n, t))
+            self._base_cols[key] = _base_cols(self.codes_t.shape[1], t, winners, self.device)
+            tracing.count("k1.operand_builds")
+        return t, self._base_cols[key]
 
+    def _pad_columns(self, n_cols: int) -> None:
+        """Hold the code operand and norm rows at ``n_cols`` columns."""
+        if self.norms_hl is not None and self.codes_t.shape[1] == n_cols:
+            return
+        self._base_cols.clear()  # one code operand at a time
+        pad = (0, n_cols - self.n)
+        self.codes_t = torch.nn.functional.pad(self.codes_t[:, : self.n], pad).contiguous()
+        norms = torch.nn.functional.pad(self.norms.to(torch.float32), pad, value=_BIG)
+        self.norms_hl = _split_hi_lo(norms, self.center)
 
-def query_operand(queries: torch.Tensor, ops: dict) -> torch.Tensor:
-    """``[Q, mdp]`` bf16 query operand of K1 against the index operands
-    ``ops`` (:func:`scan_index_operands`)."""
-    return _query_lanes(
-        queries, ops["cols"], ops["lanes"], ops["center"], ops["centered"]
-    ).to(torch.bfloat16)
+    def query_operand(self, queries: torch.Tensor) -> torch.Tensor:
+        """``[Q, mdp]`` bf16 query operand of K1 against these operands."""
+        return _query_lanes(
+            queries, self.cols, self.lanes, self.center, self.centered
+        ).to(torch.bfloat16)
+
+    def operands(self, queries: torch.Tensor, *, winners: int = 1, tile_rows: int = 0):
+        """``((codes_t, norms_hl, q_op, cb), nblk)``: the four tensors
+        :func:`fused_block_scan` takes for a batch, and its blocks a row
+        tile."""
+        t, _ = self.geometry(queries.shape[0], winners=winners, tile_rows=tile_rows)
+        return (self.codes_t, self.norms_hl, self.query_operand(queries), self.cb), t // _LANES
+
+    def scan(self, queries: torch.Tensor, *, winners: int = 1, tile_rows: int = 0):
+        """K1 over a batch: ``(packed [Q, NW], base_cols [NW] int32)``, as
+        ``adc.py:422-507`` returns them: ``packed`` holds lane-packed winner
+        floats, ``base_cols[c]`` the first row of winner column ``c``'s
+        block, so ``row = base_cols[c] + (bits(packed) & 127)``; values
+        ``>= _INVALID_MIN`` mark padding. A launch on the card also adds
+        to ``k1.launches.lane_padded`` (1 where the operands are wider
+        than the subspaces)."""
+        with tracing.span("gulon.scan.operands"):
+            operands, nblk = self.operands(queries, winners=winners, tile_rows=tile_rows)
+        with tracing.span("gulon.scan.k1"):
+            packed = fused_block_scan(*operands, winners=winners, nblk=nblk)
+            if self.device.type == "cuda":
+                tracing.count("k1.launches.lane_padded", int(self.lane_padded))
+        return packed, self._base_cols[(nblk * _LANES, winners)]
 
 
 def _winner_columns(blocks: torch.Tensor, w: int, winners: int, nblk: int):
@@ -523,22 +479,20 @@ def k1_plan(m: int, k_codes: int, dsub: int) -> dict:
     return dict(zip(K1_PLAN_FIELDS, out))
 
 
-def count_launch(plan: dict, n_cols: int, num_q: int, lane_padded: bool = False) -> None:
+def count_launch(plan: dict, n_cols: int, num_q: int) -> None:
     """Count one K1 launch over ``n_cols`` rows and ``num_q`` queries under
     ``plan`` (:func:`k1_plan`): ``k1.launches``, ``k1.launches.streamed``,
     ``k1.launches.cb_global``, the 128-row blocks it covers
     (``k1.blocks``), the block decodes it performs (``k1.block_decodes``:
     each block once held decoded, once per 128-query tile streamed),
-    ``k1.gather_lanes`` (the plan's lanes a gather, summed over launches)
-    and ``k1.launches.lane_padded`` (operands wider than the subspaces,
-    at the plan's ``width``)."""
+    and ``k1.gather_lanes`` (the plan's lanes a gather, summed over
+    launches)."""
     blocks = n_cols // _LANES
     decodes = blocks * (-(-num_q // _LANES) if plan["streamed"] else 1)
     for name, n in (
         ("k1.launches", 1), ("k1.launches.streamed", plan["streamed"]),
         ("k1.launches.cb_global", 1 - plan["cb_smem"]), ("k1.blocks", blocks),
         ("k1.block_decodes", decodes), ("k1.gather_lanes", plan["lanes"]),
-        ("k1.launches.lane_padded", int(lane_padded)),
     ):
         tracing.count(name, n)
 
@@ -551,16 +505,13 @@ def fused_block_scan(
     *,
     winners: int,
     nblk: int,
-    lane_padded: bool = False,
 ) -> torch.Tensor:
     """Packed block winners ``[Q, N'/128 * winners]`` of K1.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
     tensors take :func:`_block_scan_plain`. Operands as
     :func:`_block_scan_plain` documents. Each launch is counted by its
-    plan (:func:`count_launch`, counters of ``utils/tracing.py``);
-    ``lane_padded`` says the operands carry zero lanes past each
-    subspace's own width (:func:`scan_index_operands`)."""
+    plan (:func:`count_launch`, counters of ``utils/tracing.py``)."""
     tensors = (codes_t, norms_hl, q_op, cb)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -596,43 +547,8 @@ def fused_block_scan(
         )
     if err != 0:
         raise RuntimeError(f"adc_scan kernel launch failed: cudaError_t {err}")
-    count_launch(k1_plan(m, k_codes, dsub), n_cols, num_q, lane_padded)
+    count_launch(k1_plan(m, k_codes, dsub), n_cols, num_q)
     return out
-
-
-def _block_scan(
-    queries: torch.Tensor,
-    codebooks: torch.Tensor,
-    codes,
-    recon_norms: torch.Tensor,
-    *,
-    bounds,
-    tile_rows: int,
-    num_rows: int,
-    winners: int = 1,
-    center_scores: bool = False,
-    held=None,
-):
-    """Run K1; returns ``(packed [Q, NW], base_cols [NW] int32, codes_t,
-    pretransposed)`` as ``adc.py:422-507`` does: ``packed`` holds
-    lane-packed winner floats, ``base_cols[c]`` the first row of winner
-    column ``c``'s block, so ``row = base_cols[c] + (bits(packed) & 127)``.
-    Values ``>= _INVALID_MIN`` mark padding. The index operands come from
-    ``held`` (:func:`scan_index_operands`); only the query operand is
-    built per batch."""
-    with tracing.span("gulon.scan.operands"):
-        ops = scan_index_operands(
-            held, codebooks, codes, recon_norms, bounds=bounds, num_q=queries.shape[0],
-            tile_rows=tile_rows, num_rows=num_rows, winners=winners,
-            center_scores=center_scores,
-        )
-        q_op = query_operand(queries, ops)
-    with tracing.span("gulon.scan.k1"):
-        packed = fused_block_scan(
-            ops["codes_t"], ops["norms_hl"], q_op, ops["cb"], winners=winners,
-            nblk=ops["t"] // _LANES, lane_padded=ops["lane_padded"],
-        )
-    return packed, ops["base_cols"], ops["codes_t"], ops["pretransposed"]
 
 
 def unpack_block_winners(
@@ -662,24 +578,18 @@ def adc_block_scan_fused(
     values are ``recon_norms[row] - 2<q, dec(row)>``."""
     if not 1 <= winners <= 4:
         raise ValueError(f"winners must be in 1..4, got {winners}")
-    packed, base_cols, _, _ = _block_scan(
-        queries, codebooks, codes, recon_norms,
-        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
-        winners=winners,
-    )
-    return unpack_block_winners(packed, base_cols)
+    k1 = K1Operands(codebooks, codes, recon_norms, bounds=bounds, num_rows=num_rows)
+    return unpack_block_winners(*k1.scan(queries, winners=winners, tile_rows=tile_rows))
 
 
 def finish_scan(
     packed: torch.Tensor,  # [Q, NW] lane-packed block winners
     base_cols: torch.Tensor,  # [NW] int32
     qs,  # [m, Q, dsub] split queries, read by the rescore alone (else None)
-    codes_t: torch.Tensor,  # the kernel's code operand
-    pretransposed: bool,
+    codes_t: torch.Tensor,  # the kernel's code operand (K1Operands.codes_t)
     *,
     queries: torch.Tensor,
     codebooks: torch.Tensor,
-    codes: torch.Tensor,
     k: int,
     kk: int,
     rescore: bool,
@@ -704,13 +614,10 @@ def finish_scan(
         with tracing.span("gulon.scan.rescore"):
             lut = _lut(qs, codebooks.to(torch.float32))  # [Q, m, K]
             safe = torch.where(invalid, 0, best_ids).long()
-            if pretransposed:
-                sel = codes_t[:, safe.reshape(-1)].to(torch.int32)
-                if codes_t.dtype == torch.int8:  # undo the offset encoding
-                    sel = sel + 128
-                sel = sel.reshape(m, num_q, kk).permute(1, 2, 0)
-            else:
-                sel = codes[safe.reshape(-1)].to(torch.int32).reshape(num_q, kk, m)
+            sel = codes_t[:, safe.reshape(-1)].to(torch.int32)
+            if codes_t.dtype == torch.int8:  # undo the offset encoding
+                sel = sel + 128
+            sel = sel.reshape(m, num_q, kk).permute(1, 2, 0)
             dev = lut.device
             exact = lut[
                 torch.arange(num_q, device=dev)[:, None, None],
@@ -735,11 +642,40 @@ def finish_scan(
     return best_d, best_ids
 
 
+def scan_top_k(
+    k1: K1Operands,
+    queries: torch.Tensor,  # [Q, D] f32
+    *,
+    k: int,
+    tile_rows: int = 0,  # 0 = the TPU kernel's choice (column order only)
+    rescore: bool = False,  # exact f32 LUT rescore of the k winners
+    winners: int = 1,  # ranked candidates per 128-row block (1..4)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 over ``k1``'s rows, then :func:`finish_scan`: ([Q, k] dists
+    ascending, [Q, k] ids)."""
+    if not 1 <= winners <= 4:
+        raise ValueError(f"winners must be in 1..4, got {winners}")
+    if k > _LANES:
+        raise ValueError(f"fused ADC kernel supports k <= 128, got {k}")
+    kk = min(k, k1.n)
+    if k1.n < 256 * kk:
+        raise ValueError(
+            f"fused ADC kernel needs corpus >= 256*k rows (n={k1.n}, k={kk}); "
+            "use the decode scan for small corpora"
+        )
+    packed, base_cols = k1.scan(queries, winners=winners, tile_rows=tile_rows)
+    qs = split_subspaces(queries, k1.bounds, k1.codebooks.shape[2]) if rescore else None
+    with tracing.span("gulon.scan.select"):
+        return finish_scan(
+            packed, base_cols, qs, k1.codes_t, queries=queries, codebooks=k1.codebooks,
+            k=k, kk=kk, rescore=rescore, centered=k1.centered,
+        )
+
+
 def adc_scan_fused(
     queries: torch.Tensor,  # [Q, D] f32
     codebooks: torch.Tensor,  # [m, K, dsub] f32 (zero-padded subspaces)
-    codes,  # [N, m] codes, or pretransposed [m, N] (num_rows); with
-    #   held, also a function returning the latter (scan_index_operands)
+    codes: torch.Tensor,  # [N, m] codes, or pretransposed [m, N] (num_rows)
     recon_norms: torch.Tensor,  # [N] f32
     *,
     bounds,
@@ -749,30 +685,12 @@ def adc_scan_fused(
     rescore: bool = False,  # exact f32 LUT rescore of the k winners
     winners: int = 1,  # ranked candidates per 128-row block (1..4)
     center_scores: bool = True,  # the kernel emits the true ADC distance
-    held=None,  # an index's dict of K1 operands (scan_index_operands)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused-kernel ADC scan (counterpart of ``adc_scan_pallas``).
-    Returns ([Q, k] dists ascending, [Q, k] ids)."""
-    if not 1 <= winners <= 4:
-        raise ValueError(f"winners must be in 1..4, got {winners}")
-    n = num_rows if num_rows > 0 else codes.shape[0]
-    if k > _LANES:
-        raise ValueError(f"fused ADC kernel supports k <= 128, got {k}")
-    kk = min(k, n)
-    if n < 256 * kk:
-        raise ValueError(
-            f"fused ADC kernel needs corpus >= 256*k rows (n={n}, k={kk}); "
-            "use the decode scan for small corpora"
-        )
-    packed, base_cols, codes_t, pretransposed = _block_scan(
-        queries, codebooks, codes, recon_norms,
-        bounds=bounds, tile_rows=tile_rows, num_rows=num_rows,
-        winners=winners, center_scores=center_scores, held=held,
+    """Fused-kernel ADC scan (counterpart of ``adc_scan_pallas``) over
+    operands built for this call. Returns ([Q, k] dists ascending, [Q, k]
+    ids)."""
+    k1 = K1Operands(
+        codebooks, codes, recon_norms, bounds=bounds, num_rows=num_rows,
+        center_scores=center_scores,
     )
-    qs = split_subspaces(queries, bounds, codebooks.shape[2]) if rescore else None
-    with tracing.span("gulon.scan.select"):
-        return finish_scan(
-            packed, base_cols, qs, codes_t, pretransposed,
-            queries=queries, codebooks=codebooks, codes=codes,
-            k=k, kk=kk, rescore=rescore, centered=center_scores,
-        )
+    return scan_top_k(k1, queries, k=k, tile_rows=tile_rows, rescore=rescore, winners=winners)

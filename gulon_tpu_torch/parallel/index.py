@@ -23,18 +23,19 @@ from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.ivf import (
     IVFIndex,
     LimitGroups,
-    LimitVectors,
     _ivf_scan,
     _next_pow2,
     _pallas_ivf_query,
     _plan_entry_schedule,
+    _probe_kind,
     _rank_and_probe,
     _regroup_pairs,
     _scan_entries_codes,
     _PALLAS_BLOCK,
-    _PALLAS_PAD_SENTINEL,
+    partition_layout,
 )
 from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.cuda.adc import K1Operands, pack_codes_t
 from gulon_tpu_torch.ops.distance import normalize_rows, sq_norms
 from gulon_tpu_torch.ops.topk import smallest_k
 from gulon_tpu_torch.parallel import ops as pops
@@ -90,16 +91,17 @@ class ShardedFlatIndex(_Sharded):
     norms_sharded: list  # row shards [n_loc] f32 (+inf padding)
     codebooks_rep: list  # [m, K, dsub] on each shard's device
     cache_sharded: Optional[list] = None  # row shards [n_loc, m*dsub]
-    # row shards of K1's pretransposed operand [m, n_loc], built at shard
-    # time on CUDA shards (pack_codes_t per shard, as FlatIndex packs its codes)
-    codes_t_sharded: Optional[list] = None
+    # each shard's K1 operands (ops/cuda/adc.py::K1Operands over
+    # pack_codes_t of its rows, as FlatIndex holds its own), built on the
+    # shard's first kernel scan; None for shards of other processes
+    k1_sharded: Optional[list] = None
     # lazy row shards of K2's [n_loc, Dp] bf16 operand over the cache
     cache_aug_sharded: Optional[list] = None
     # cached-strategy scan: None = auto (K2 per shard on CUDA shards within
     # its envelope, the tiled cache scan otherwise); True/False force
     dense_cached: Optional[bool] = None
 
-    _LAZY_OPERANDS = ("cache_aug_sharded",)
+    _LAZY_OPERANDS = ("k1_sharded", "cache_aug_sharded")
 
     @staticmethod
     def shard(index: FlatIndex, mesh: Mesh) -> "ShardedFlatIndex":
@@ -110,26 +112,16 @@ class ShardedFlatIndex(_Sharded):
             # the single-device dense route turned the cache into its
             # operand; rebuild the plain decode to shard it
             index.enable_cache()
-        codes_sharded = shard_rows(codes, mesh, 0)
-        codes_t_sharded = None
-        if mesh.on_cuda:
-            from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
-
-            codes_t_sharded = [
-                None if c is None else pack_codes_t(c, index.pq.num_clusters)
-                for c in codes_sharded
-            ]
         return ShardedFlatIndex(
             base=index,
             mesh=mesh,
-            codes_sharded=codes_sharded,
+            codes_sharded=shard_rows(codes, mesh, 0),
             norms_sharded=shard_rows(index.recon_norms, mesh, float("inf")),
             codebooks_rep=replicate(index.pq.codebooks, mesh),
             cache_sharded=(
                 shard_rows(index.decoded_cache, mesh, 0)
                 if index.decoded_cache is not None else None
             ),
-            codes_t_sharded=codes_t_sharded,
         )
 
     def query_arrays(self, k: int, vectors):
@@ -179,14 +171,26 @@ class ShardedFlatIndex(_Sharded):
             rerank_k = min(local_n, k_eff * rerank, 128, max(k_eff, local_n // 256))
             if rerank_k <= k_eff:
                 rerank_k = 0
-        return pops.sharded_adc_scan(
-            q, self.codebooks_rep, self.codes_sharded, self.norms_sharded,
-            self.codes_t_sharded,
+        return pops.scan_flat_shards(
+            q, self.codebooks_rep, self.codes_sharded, self.norms_sharded, self._k1,
             mesh=self.mesh, bounds=base.pq.bounds, k=k_eff, tile_rows=base.tile_rows,
             precision=base.precision, topk_impl=base.topk_impl,
             recall_target=base.recall_target, winners=base.resolved_pallas_winners(),
             rerank_k=rerank_k,
         )
+
+    def _k1(self, r: int) -> K1Operands:
+        """Shard ``r``'s K1 operands, centered, built on first use."""
+        if self.k1_sharded is None:
+            self.k1_sharded = [None] * len(self.codes_sharded)
+        if self.k1_sharded[r] is None:
+            codes = self.codes_sharded[r]
+            self.k1_sharded[r] = K1Operands(
+                self.codebooks_rep[r], pack_codes_t(codes, self.base.pq.num_clusters),
+                self.norms_sharded[r], bounds=self.base.pq.bounds,
+                num_rows=codes.shape[0], center_scores=True,
+            )
+        return self.k1_sharded[r]
 
     def _dense_cache_operand(self) -> list:
         """Row shards of K2's bf16 operand over the sharded cache, built
@@ -218,9 +222,9 @@ class ShardedIVFIndex(_Sharded):
     codebooks_rep: list
     part_shard: np.ndarray  # [P] the shard holding each partition
     local_starts: np.ndarray  # [P] first row of partition p on its shard
-    # lazy per-shard partition-padded K1 layouts: (codes^T [m, npad],
-    # row constants [npad], partition of each 128-row block [npad/128],
-    # padded row -> global row [npad]) per shard, npad common to all
+    # lazy per-shard partition-padded K1 layouts: (K1 operands over the
+    # layout, partition of each 128-row block [npad/128], padded row ->
+    # global row [npad]) per shard, npad common to all
     _pallas_sh: Optional[list] = None
 
     _LAZY_OPERANDS = ("_pallas_sh",)
@@ -295,12 +299,7 @@ class ShardedIVFIndex(_Sharded):
     def query_arrays(self, k: int, vectors):
         base = self.base
         q = base._prepare_queries(vectors)  # normalize + rotation
-        if isinstance(base.strategy, LimitGroups):
-            kind = "groups"
-        elif isinstance(base.strategy, LimitVectors):
-            kind = "vectors"
-        else:
-            raise ValueError(f"unknown strategy {base.strategy!r}")
+        kind = _probe_kind(base.strategy)
         sizes = torch.from_numpy(base.partition_sizes()).to(q.device)
         group_term, qn, cdist, probe_mask = _rank_and_probe(
             q, base.centroids, sizes, kind=kind, count=base.strategy.count
@@ -338,49 +337,27 @@ class ShardedIVFIndex(_Sharded):
         safe = torch.clamp(ids.long(), 0, l2g.shape[0] - 1)
         return torch.where(ids >= 0, l2g[safe], -1)
 
-    def _pallas_shard_operands(self) -> list:
-        """Per-shard partition-padded K1 layouts (built once), as
-        ``IVFIndex._pallas_operands`` lays out one device, with one
+    def _pallas_layouts(self) -> list:
+        """Per-shard partition-padded K1 layouts (built once): each shard's
+        partitions in their local order through
+        :func:`~gulon_tpu_torch.models.ivf.partition_layout`, with one
         ``npad`` for every shard; row maps hold global row ids."""
         if self._pallas_sh is None:
-            from gulon_tpu_torch.ops.cuda.adc import pack_codes_t
-
             base = self.base
             sizes = base.partition_sizes().astype(np.int64)
-            num_p = len(sizes)
-            n_shards = self.mesh.shape[ROWS]
-            g_starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
             psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
-            pstart = np.zeros(num_p, np.int64)
-            fill = np.zeros(n_shards, np.int64)
-            for p in np.argsort(self.local_starts, kind="stable"):
-                s = int(self.part_shard[p])
-                pstart[p] = fill[s]
-                fill[s] += psz[p]
-            npad = max(int(fill.max()) if num_p else _PALLAS_BLOCK, _PALLAS_BLOCK)
-            codes_np = base.codes.cpu().numpy().astype(np.int32)
-            rc_np = base.row_const.cpu().numpy().astype(np.float32)
-            m = base.pq.num_quantizers
-            codes_pal = np.zeros((n_shards, npad, m), np.int32)
-            rc_pal = np.full((n_shards, npad), _PALLAS_PAD_SENTINEL, np.float32)
-            rmap = np.full((n_shards, npad), -1, np.int32)
-            blk_part = np.zeros((n_shards, npad // _PALLAS_BLOCK), np.int64)
-            for p in range(num_p):
-                s, ls = int(self.part_shard[p]), int(pstart[p])
-                gs, sz = int(g_starts[p]), int(sizes[p])
-                codes_pal[s, ls : ls + sz] = codes_np[gs : gs + sz]
-                rc_pal[s, ls : ls + sz] = rc_np[gs : gs + sz]
-                rmap[s, ls : ls + sz] = np.arange(gs, gs + sz, dtype=np.int32)
-                blk_part[s, ls // _PALLAS_BLOCK : (ls + int(psz[p])) // _PALLAS_BLOCK] = p
-            layouts = [None] * n_shards
+            order = np.argsort(self.local_starts, kind="stable")
+            parts = [order[self.part_shard[order] == r] for r in range(self.mesh.shape[ROWS])]
+            npad = max([int(psz[p].sum()) for p in parts] + [_PALLAS_BLOCK])
+            layouts = [None] * len(parts)
             for r in self.mesh.local_rows:
-                dev = self.mesh.row_device(r)
-                layouts[r] = (
-                    pack_codes_t(torch.from_numpy(codes_pal[r]).to(dev), base.pq.num_clusters),
-                    torch.from_numpy(rc_pal[r]).to(dev),
-                    torch.from_numpy(blk_part[r]).to(dev),
-                    torch.from_numpy(rmap[r]).to(dev),
+                codes_t, rc_pal, blk_part, rmap = partition_layout(
+                    self.codes_sharded[r], self.row_const_sharded[r], sizes[parts[r]],
+                    parts[r], base.pq.num_clusters, npad,
                 )
+                k1 = K1Operands(self.codebooks_rep[r], codes_t, rc_pal,
+                                bounds=base.pq.bounds, num_rows=npad)
+                layouts[r] = (k1, blk_part, self._global_rows(r, rmap))
             self._pallas_sh = layouts
         return self._pallas_sh
 
@@ -388,16 +365,14 @@ class ShardedIVFIndex(_Sharded):
         """K1 per shard over its partition-padded layout, the block-constant
         group term and probe mask applied to its winners, then the merge.
         The query-side inputs are per-shard replicas."""
-        layouts = self._pallas_shard_operands()
+        layouts = self._pallas_layouts()
         base = self.base
 
         def shard_fn(r):
-            codes_t, rc_pal, blk_part, rmap = layouts[r]
+            k1, blk_part, rmap = layouts[r]
             return _pallas_ivf_query(
-                q[r], qn[r], group_term[r], probe_mask[r],
-                self.codebooks_rep[r], codes_t, rc_pal, blk_part, rmap,
-                bounds=base.pq.bounds, k=k_eff, winners=base.pallas_winners,
-                rescore=base.pallas_rescore,
+                q[r], qn[r], group_term[r], probe_mask[r], k1, blk_part, rmap,
+                k=k_eff, winners=base.pallas_winners, rescore=base.pallas_rescore,
             )
 
         return pops.scan_and_merge(self.mesh, k_eff, shard_fn)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from gulon_tpu_torch.ops import scan as scan_ops
+from gulon_tpu_torch.ops.cuda.adc import K1Operands, scan_top_k
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.kmeans import (
     KMeansConfig,
@@ -109,10 +110,45 @@ def sharded_adc_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-sharded ADC scan: the fused kernel K1 per shard (CUDA shards,
     within its envelope ``k <= 128``, ``K <= 1024``, ``n_loc >= 256*k``)
-    or the decode scan, then the merge. Returns ``([Q, k] dists, [Q, k]
-    global row ids)`` on the lead device."""
-    from gulon_tpu_torch.ops.cuda.adc import adc_scan_fused
+    over operands built for the call, or the decode scan, then the merge.
+    Returns ``([Q, k] dists, [Q, k] global row ids)`` on the lead device."""
 
+    def k1_of(r):
+        if codes_t is None:
+            return K1Operands(codebooks[r], codes[r], recon_norms[r], bounds=bounds,
+                              center_scores=True)
+        return K1Operands(codebooks[r], codes_t[r], recon_norms[r], bounds=bounds,
+                          num_rows=codes_t[r].shape[1], center_scores=True)
+
+    return scan_flat_shards(
+        queries, codebooks, codes, recon_norms, k1_of, mesh=mesh, bounds=bounds, k=k,
+        tile_rows=tile_rows, precision=precision, topk_impl=topk_impl,
+        recall_target=recall_target, winners=winners, rerank_k=rerank_k,
+        force_kernel=force_kernel,
+    )
+
+
+def scan_flat_shards(
+    queries: torch.Tensor,
+    codebooks: Sequence[torch.Tensor],
+    codes: Sequence[torch.Tensor],
+    recon_norms: Sequence[torch.Tensor],
+    k1_of: Callable[[int], K1Operands],  # shard -> its K1 operands
+    *,
+    mesh: Mesh,
+    bounds,
+    k: int,
+    tile_rows: int,
+    precision: str,
+    topk_impl: str,
+    recall_target: float,
+    winners: int,
+    rerank_k: int,
+    force_kernel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sharded_adc_scan` with each shard's K1 operands from
+    ``k1_of`` (a sharded index's held ones), asked for only where the
+    kernel route runs."""
     local_n = _local_n(codes)
     queries = replicate(queries, mesh)
     k_codes = codebooks[mesh.local_rows[0]].shape[1]
@@ -129,16 +165,7 @@ def sharded_adc_scan(
     def shard_fn(r):
         q, cb = queries[r], codebooks[r]
         if use_kernel:
-            if codes_t is not None:
-                d, ids = adc_scan_fused(
-                    q, cb, codes_t[r], recon_norms[r], bounds=bounds, k=k_scan,
-                    num_rows=local_n, winners=winners,
-                )
-            else:
-                d, ids = adc_scan_fused(
-                    q, cb, codes[r], recon_norms[r], bounds=bounds, k=k_scan,
-                    winners=winners,
-                )
+            d, ids = scan_top_k(k1_of(r), q, k=k_scan, winners=winners)
         else:
             d, ids = scan_ops.adc_scan_decode(
                 q, cb, codes[r], recon_norms[r], bounds=bounds, k=k,

@@ -31,7 +31,7 @@ row tile that K's 128-lane chunks do not divide, ``natural`` is dropped
 at a depth of 128 or less (glove100's 112 runs the base orientation), and
 ``natural`` wins over ``pipe``.
 
-Operand prep and the epilogue are K1's (``prepare_scan_operands``,
+Operand prep and the epilogue are K1's (``K1Operands``,
 ``finish_scan``); the outputs ``(dists, ids)`` follow that contract. The
 kernels run for CUDA tensors and raise if they cannot; CPU tensors take
 K1's plain version (``_block_scan_plain``), whose contract the probes
@@ -46,11 +46,11 @@ import ctypes
 import functools
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from gulon_tpu_torch.ops.cuda import adc
-from gulon_tpu_torch.ops.cuda.adc import _BIG, _LANES, _round_up
+from gulon_tpu_torch.ops.cuda.adc import _LANES, _round_up
+from gulon_tpu_torch.ops.pq import split_subspaces
 from gulon_tpu_torch.utils import tracing
 from gulon_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -477,40 +477,33 @@ def probe_scan_operands(
     num_rows: int = 0, winners: int = 1, center_scores: bool = False,
     decode_mode: str = "base", natural: bool = False, pipe: bool = False,
 ) -> dict:
-    """K1's operands for a probe call with the modes resolved: the pair
-    padding of the piped schedule applied (codes with zeros, norms with
+    """K1's operands for a probe call (:class:`~gulon_tpu_torch.ops.cuda.adc.
+    K1Operands`, at the subspaces' own width) with the modes resolved: the
+    pair padding of the piped schedule applied (codes with zeros, norms with
     ``_BIG``, as ``adc_probes.py:448-451``), the winner geometry, and the
     kernel's layout (``modes["plan"]``, :func:`probe_plan`)."""
-    ops = adc.prepare_scan_operands(
-        queries, codebooks, codes, recon_norms, bounds=bounds, tile_rows=tile_rows,
-        num_rows=num_rows, winners=winners, center_scores=center_scores,
+    k1 = adc.K1Operands(
+        codebooks, codes, recon_norms, bounds=bounds, num_rows=num_rows,
+        center_scores=center_scores, _own_width=True,
     )
+    m, k_codes, dsub = codebooks.shape
+    qt, t, _, _ = adc.block_layout(queries.shape[0], k_codes, k1.mdp, k1.n, tile_rows, winners)
     modes = resolve_modes(
-        decode_mode, natural, pipe, k_codes=ops["k_codes"], tile_rows=ops["t"],
-        mdp=ops["mdp"], qt=ops["qt"], m=ops["m"],
+        decode_mode, natural, pipe, k_codes=k_codes, tile_rows=t, mdp=k1.mdp, qt=qt, m=m,
     )
-    t = modes["tile_rows"]
-    codes_t, norms = ops["codes_t"], ops["norms"]
+    n_cols = _round_up(k1.n, t)
     if modes["pipe"]:
-        pad = (-codes_t.shape[1]) % (2 * t)
-        codes_t = torch.nn.functional.pad(codes_t, (0, pad))
-        norms = torch.nn.functional.pad(norms, (0, pad), value=_BIG)
-    nblk = t // _LANES
-    wn = winners * nblk
-    cols = np.arange(codes_t.shape[1] // t * wn, dtype=np.int64)
-    base_cols = ((cols // wn) * t + (cols % wn) % nblk * _LANES).astype(np.int32)
+        n_cols = _round_up(n_cols, 2 * modes["tile_rows"])
+    k1._pad_columns(n_cols)
     modes["plan"] = probe_plan(
-        m=ops["m"], k_codes=ops["k_codes"], dsub=codebooks.shape[2],
-        code_bytes=codes_t.element_size(), decode_mode=modes["decode_mode"],
-        natural=modes["natural"], pipe=modes["pipe"],
+        m=m, k_codes=k_codes, dsub=dsub, code_bytes=k1.codes_t.element_size(),
+        decode_mode=modes["decode_mode"], natural=modes["natural"], pipe=modes["pipe"],
     )
     return dict(
-        codes_t=codes_t,
-        norms_hl=adc._split_hi_lo(norms, ops["center"]),
-        q_op=ops["q_pad"][: ops["num_q"]].to(torch.bfloat16),
-        cb=codebooks.to(torch.bfloat16).contiguous(),
-        base_cols=torch.from_numpy(base_cols).to(codes_t.device),
-        nblk=nblk, qs=ops["qs"], pretransposed=ops["pretransposed"], modes=modes,
+        codes_t=k1.codes_t, norms_hl=k1.norms_hl, q_op=k1.query_operand(queries), cb=k1.cb,
+        base_cols=adc._base_cols(n_cols, modes["tile_rows"], winners, k1.device),
+        nblk=modes["tile_rows"] // _LANES,
+        qs=split_subspaces(queries, bounds, dsub), modes=modes,
     )
 
 
@@ -566,7 +559,6 @@ def adc_scan_probe(
         pipe=modes["pipe"],
     )
     return adc.finish_scan(
-        packed, ops["base_cols"], ops["qs"], ops["codes_t"], ops["pretransposed"],
-        queries=queries, codebooks=codebooks, codes=codes, k=k, kk=kk, rescore=rescore,
-        centered=center_scores,
+        packed, ops["base_cols"], ops["qs"], ops["codes_t"], queries=queries,
+        codebooks=codebooks, k=k, kk=kk, rescore=rescore, centered=center_scores,
     )

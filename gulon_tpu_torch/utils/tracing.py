@@ -18,12 +18,13 @@
 - :func:`count` / :func:`counter`: always-on counters, a dict add under a
   lock each: kernel launches (``k1.launches``, ``k2.launches``, ...),
   builds of K1's index-constant operands (``k1.operand_builds``, one per
-  index and launch geometry, or one per call where no index holds them),
-  and K1's launch plans (``ops/cuda/adc.py::count_launch``:
-  ``k1.launches.streamed``, ``k1.launches.cb_global``, ``k1.blocks``,
-  ``k1.block_decodes``, ``k1.gather_lanes``, and
-  ``k1.launches.lane_padded``: launches whose codebook and query
-  operands carry zero lanes past each subspace's own width).
+  holder, an index or a shard, and launch geometry, or one per call where
+  none holds them: ``ops/cuda/adc.py::K1Operands``), K1's launch plans
+  (``count_launch``: ``k1.launches.streamed``, ``k1.launches.cb_global``,
+  ``k1.blocks``, ``k1.block_decodes``, ``k1.gather_lanes``), and
+  ``k1.launches.lane_padded`` (``K1Operands.scan``: launches whose
+  codebook and query operands carry zero lanes past each subspace's own
+  width).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

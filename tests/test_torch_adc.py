@@ -75,12 +75,11 @@ def test_block_scan_plain_matches_pallas_interpret(winners, centered, k_codes):
         bounds=bounds, tile_rows=tile, interpret=True, num_rows=N,
         winners=winners, center_scores=centered,
     )
-    pt = tadc._block_scan(
-        _t(q), _t(cb), ct_t, _t(norms), bounds=bounds, tile_rows=tile,
-        num_rows=N, winners=winners, center_scores=centered,
-    )
+    k1 = tadc.K1Operands(_t(cb), ct_t, _t(norms), bounds=bounds, num_rows=N,
+                         center_scores=centered)
+    pt = k1.scan(_t(q), winners=winners, tile_rows=tile)
     np.testing.assert_array_equal(pt[1].numpy(), np.asarray(pj[1]))
-    assert pt[3] is True and pt[2].dtype == ct_t.dtype
+    assert k1.codes_t.dtype == ct_t.dtype
     vj, ij = map(np.asarray, jadc.unpack_block_winners(pj[0], pj[1]))
     vt, it = (a.numpy() for a in tadc.unpack_block_winners(pt[0], pt[1]))
     _winners_close(vj, ij, vt, it)
@@ -94,11 +93,9 @@ def test_block_scan_from_row_major_codes():
         bounds=bounds, tile_rows=0, interpret=True, num_rows=0,
         center_scores=True,
     )
-    pt = tadc._block_scan(
-        _t(q), _t(cb), _t(codes), _t(norms), bounds=bounds, tile_rows=0,
-        num_rows=0, center_scores=True,
-    )
-    assert pt[2].dtype == torch.int32 and pt[3] is False
+    k1 = tadc.K1Operands(_t(cb), _t(codes), _t(norms), bounds=bounds, center_scores=True)
+    pt = k1.scan(_t(q))
+    assert k1.codes_t.dtype == torch.int32
     vj, ij = map(np.asarray, jadc.unpack_block_winners(pj[0], pj[1]))
     vt, it = (a.numpy() for a in tadc.unpack_block_winners(pt[0], pt[1]))
     _winners_close(vj, ij, vt, it)
@@ -217,26 +214,18 @@ def test_split_hi_lo_matches():
 
 def test_cpu_operands_take_the_plain_version():
     bounds, cb, codes, norms, q = _problem(64, seed=2)
-    ops = tadc.prepare_scan_operands(
-        _t(q), _t(cb), _t(codes), _t(norms), bounds=bounds, tile_rows=0,
-        num_rows=0,
-    )
-    args = (
-        ops["codes_t"], tadc._split_hi_lo(ops["norms"]),
-        ops["q_pad"][:Q].to(torch.bfloat16), _t(cb).to(torch.bfloat16),
-    )
+    k1 = tadc.K1Operands(_t(cb), _t(codes), _t(norms), bounds=bounds)
+    args, nblk = k1.operands(_t(q))
     before = tracing.counter("k1.launches")
-    out = tadc.fused_block_scan(*args, winners=1, nblk=ops["t"] // 128)
+    out = tadc.fused_block_scan(*args, winners=1, nblk=nblk)
     assert tracing.counter("k1.launches") == before  # no kernel on the CPU
-    torch.testing.assert_close(
-        out, tadc._block_scan_plain(*args, winners=1, nblk=ops["t"] // 128)
-    )
+    torch.testing.assert_close(out, tadc._block_scan_plain(*args, winners=1, nblk=nblk))
     with pytest.raises(ValueError):  # f32 queries are not the operand
         tadc.fused_block_scan(
-            args[0], args[1], ops["q_pad"][:Q], args[3], winners=1, nblk=1
+            args[0], args[1], args[2].to(torch.float32), args[3], winners=1, nblk=1
         )
     with pytest.raises(ValueError):
-        tadc.fused_block_scan(*args, winners=5, nblk=ops["t"] // 128)
+        tadc.fused_block_scan(*args, winners=5, nblk=nblk)
 
 
 @pytest.fixture
@@ -251,17 +240,13 @@ def cuda_device():
 def test_kernel_matches_plain_on_the_card(cuda_device, winners, centered, k_codes):
     bounds, cb, codes, norms, q = _problem(k_codes, seed=winners)
     dev = cuda_device
-    ops = tadc.prepare_scan_operands(
-        _t(q).to(dev), _t(cb).to(dev),
-        tadc.pack_codes_t(_t(codes.astype(np.int32)).to(dev), k_codes),
-        _t(norms).to(dev), bounds=bounds, tile_rows=1024, num_rows=N,
-        winners=winners, center_scores=centered,
+    k1 = tadc.K1Operands(
+        _t(cb).to(dev), tadc.pack_codes_t(_t(codes.astype(np.int32)).to(dev), k_codes),
+        _t(norms).to(dev), bounds=bounds, num_rows=N, center_scores=centered,
+        _own_width=True,
     )
-    args = (
-        ops["codes_t"], tadc._split_hi_lo(ops["norms"], ops["center"]),
-        ops["q_pad"][:Q].to(torch.bfloat16),
-        _t(cb).to(dev).to(torch.bfloat16),
-    )
+    args, nblk = k1.operands(_t(q).to(dev), winners=winners, tile_rows=1024)
+    assert nblk == 8
     before = tracing.counter("k1.launches")
     got = tadc.fused_block_scan(*args, winners=winners, nblk=8)
     torch.cuda.synchronize()
@@ -289,9 +274,8 @@ def test_nan_block_winner_is_the_lowest_nan_row(winners):
         jnp.asarray(q), jnp.asarray(cb), ct_j, jnp.asarray(norms),
         bounds=bounds, tile_rows=0, interpret=True, num_rows=N, winners=winners,
     )
-    pt = tadc._block_scan(
-        _t(q), _t(cb), ct_t, _t(norms), bounds=bounds, tile_rows=0, num_rows=N,
-        winners=winners,
+    pt = tadc.K1Operands(_t(cb), ct_t, _t(norms), bounds=bounds, num_rows=N).scan(
+        _t(q), winners=winners
     )
     bj = np.asarray(pj[0]).view(np.int32)
     bt = pt[0].numpy().view(np.int32)

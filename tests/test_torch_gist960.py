@@ -170,25 +170,24 @@ def test_auto_takes_k1_streamed_on_the_card(card):
     assert (plan40["streamed"], plan40["cb_smem"], plan40["lanes"], plan40["width"]) == (
         1, 0, 8, 40)
 
-    (ops,) = index._k1_operands.values()
-    assert ops["lane_padded"] and tuple(ops["cb"].shape) == (M, K, 40)
+    k1 = index._k1_operands
+    assert k1.lane_padded and tuple(k1.cb.shape) == (M, K, 40)
     qt = index._prepare_queries(q)
-    args = (ops["codes_t"], ops["norms_hl"], adc.query_operand(qt, ops), ops["cb"])
-    nblk = ops["t"] // 128
+    args, nblk = k1.operands(qt)
+    _, base_cols = k1.geometry(len(qt))
     got = adc.fused_block_scan(*args, winners=1, nblk=nblk)
     ref = adc._block_scan_plain(*args, winners=1, nblk=nblk)
     # a centered score is the f32 sum of the ||q||^2 + center lane and the
     # -2 q.x terms, each about that large, so its rounding grows with that
     # sum and not with the score: near neighbours score far below it here
-    scale = (sq_norms(qt) + ops["center"])[:, None]
+    scale = (sq_norms(qt) + k1.center)[:, None]
     result = cs.compare_packed(got, ref, scale.expand_as(got))
     assert result["ok"], result
 
     def finish(packed):
         return adc.finish_scan(
-            packed, ops["base_cols"], None, ops["codes_t"], True, queries=qt,
-            codebooks=index.pq.codebooks, codes=None, k=10, kk=10, rescore=False,
-            centered=True,
+            packed, base_cols, None, k1.codes_t, queries=qt, codebooks=index.pq.codebooks,
+            k=10, kk=10, rescore=False, centered=True,
         )
 
     d_k, i_k = finish(got)

@@ -520,18 +520,8 @@ def test_kernel_w4_on_ivf_operands_on_the_card(cuda_device, data, jax_index):
     strategy launches it once per batch."""
     _, _, q = data
     port = interop.from_reference(jax_index, device=cuda_device)
-    rc_pal = port._pallas_operands()[0]
-    codes_t = port._pallas_codes()
-    npad = codes_t.shape[1]
-    ops = tadc.prepare_scan_operands(
-        _t(q).to(cuda_device), port.pq.codebooks, codes_t, rc_pal,
-        bounds=port.pq.bounds, tile_rows=1024, num_rows=npad, winners=4,
-    )
-    args = (
-        ops["codes_t"], tadc._split_hi_lo(ops["norms"]),
-        ops["q_pad"][: len(q)].to(torch.bfloat16),
-        port.pq.codebooks.to(torch.bfloat16).contiguous(),
-    )
+    args, nblk = port._k1().operands(_t(q).to(cuda_device), winners=4, tile_rows=1024)
+    assert nblk == 8
     got = tadc.fused_block_scan(*args, winners=4, nblk=8)
     ref = tadc._block_scan_plain(*args, winners=4, nblk=8)
     base = torch.zeros(got.shape[1], dtype=torch.int32, device=cuda_device)

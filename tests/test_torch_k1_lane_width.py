@@ -3,8 +3,8 @@
 
 Where K1 streams a row block (decodes it a chunk at a time for each query
 tile, gathering its codewords as it goes) and a subspace is not a whole
-number of 16-byte gathers, ``scan_index_operands`` lays the codebook and
-query operands out at the subspace width rounded up to 8 lanes, if that
+number of 16-byte gathers, ``K1Operands`` lays the codebook and query
+operands out at the subspace width rounded up to 8 lanes, if that
 adds no 64-lane chunk to the depth: gist-960's 39-lane subspaces at 40.
 The extra lanes are zeros facing zeros, so K1 computes the same scores
 but for the order of its f32 sums, and the launch geometry (``t``, the
@@ -93,15 +93,22 @@ def _width_rule(streamed: bool, width: int = 40):
         yield
 
 
-def _entry(raw, streamed: bool, winners: int, centered: bool, width: int = 40):
-    """K1's index operands as ``scan_index_operands`` builds them, at
-    ``width`` (``streamed``) or the CPU's own."""
+def _k1(raw, streamed: bool, centered: bool, width: int = 40):
+    """K1's operands over an index's rows, at ``width`` (``streamed``) or
+    the CPU's own."""
     with _width_rule(streamed, width):
-        return adc.scan_index_operands(
-            None, raw["codebooks"], adc.pack_codes_t(raw["codes"], raw["codebooks"].shape[1]),
-            raw["recon_norms"], bounds=raw["bounds"], num_q=raw["queries"].shape[0],
-            num_rows=raw["codes"].shape[0], winners=winners, center_scores=centered,
+        return adc.K1Operands(
+            raw["codebooks"], adc.pack_codes_t(raw["codes"], raw["codebooks"].shape[1]),
+            raw["recon_norms"], bounds=raw["bounds"], num_rows=raw["codes"].shape[0],
+            center_scores=centered,
         )
+
+
+def _entry(raw, streamed: bool, winners: int, centered: bool, width: int = 40):
+    """The operands and the launch geometry ``(k1, t, base_cols)`` of a
+    batch of ``raw``'s queries."""
+    k1 = _k1(raw, streamed, centered, width)
+    return (k1, *k1.geometry(raw["queries"].shape[0], winners=winners))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -114,13 +121,14 @@ IDS = ["w1-centered", "w4-uncentered"]
 
 @pytest.mark.parametrize("winners,centered", CASES, ids=IDS)
 def test_the_geometry_follows_the_own_width(raw, winners, centered):
-    own = _entry(raw, False, winners, centered)
-    wide = _entry(raw, True, winners, centered)
-    assert (own["lane_padded"], wide["lane_padded"]) == (False, True)
-    assert (tuple(own["cb"].shape), tuple(wide["cb"].shape)) == ((M, K, 39), (M, K, 40))
-    assert own["t"] == wide["t"] and own["t"] // 128 == wide["t"] // 128  # t, nblk
-    for name in ("base_cols", "codes_t", "norms_hl", "center"):
-        assert torch.equal(own[name], wide[name]), name
+    own, t_own, base_own = _entry(raw, False, winners, centered)
+    wide, t_wide, base_wide = _entry(raw, True, winners, centered)
+    assert (own.lane_padded, wide.lane_padded) == (False, True)
+    assert (tuple(own.cb.shape), tuple(wide.cb.shape)) == ((M, K, 39), (M, K, 40))
+    assert t_own == t_wide  # and so nblk
+    assert torch.equal(base_own, base_wide)
+    for name in ("codes_t", "norms_hl", "center"):
+        assert torch.equal(getattr(own, name), getattr(wide, name)), name
 
 
 @pytest.mark.parametrize("winners,centered", CASES, ids=IDS)
@@ -129,19 +137,19 @@ def test_the_padded_lanes_are_zeros_facing_zeros(raw, winners, centered):
     every subspace (and the 39th in the 38-lane ones, zero in both
     operands already); every other lane equals the unpadded operands', bit
     for bit."""
-    own = _entry(raw, False, winners, centered)
-    wide = _entry(raw, True, winners, centered)
+    own = _k1(raw, False, centered)
+    wide = _k1(raw, True, centered)
     q = raw["queries"]
-    q_own, q_wide = adc.query_operand(q, own), adc.query_operand(q, wide)
+    q_own, q_wide = own.query_operand(q), wide.query_operand(q)
     assert q_wide.shape[1] == adc.padded_depth(M, 40) == 1008
-    assert torch.equal(_bits(wide["cb"][:, :, :39]), _bits(own["cb"]))
-    assert torch.equal(_bits(wide["cb"][:, :, 39]), torch.zeros((M, K), dtype=torch.int16))
+    assert torch.equal(_bits(wide.cb[:, :, :39]), _bits(own.cb))
+    assert torch.equal(_bits(wide.cb[:, :, 39]), torch.zeros((M, K), dtype=torch.int16))
     lanes_own = q_own[:, : M * 39].reshape(NQ, M, 39)
     lanes_wide = q_wide[:, : M * 40].reshape(NQ, M, 40)
     assert torch.equal(_bits(lanes_wide[:, :, :39]), _bits(lanes_own))
     assert bool((lanes_wide[:, :, 39] == 0).all())
     for s, (_, w) in enumerate(BOUNDS):
-        assert bool((wide["cb"][s, :, w:] == 0).all()) and bool((lanes_wide[:, s, w:] == 0).all())
+        assert bool((wide.cb[s, :, w:] == 0).all()) and bool((lanes_wide[:, s, w:] == 0).all())
     # the norm, ones and center lanes, then the depth's zero padding
     assert torch.equal(_bits(q_wide[:, M * 40:M * 40 + 4]), _bits(q_own[:, M * 39:M * 39 + 4]))
     assert bool((q_wide[:, M * 40 + 4:] == 0).all())
@@ -155,12 +163,8 @@ def test_k1_twin_gives_the_same_winners_at_both_widths(raw, winners, centered):
     every value within the same bound."""
     results = []
     for streamed in (False, True):
-        ops = _entry(raw, streamed, winners, centered)
-        q_op = adc.query_operand(raw["queries"], ops)
-        results.append(adc._block_scan_plain(
-            ops["codes_t"], ops["norms_hl"], q_op, ops["cb"], winners=winners,
-            nblk=ops["t"] // 128,
-        ))
+        operands, nblk = _k1(raw, streamed, centered).operands(raw["queries"], winners=winners)
+        results.append(adc._block_scan_plain(*operands, winners=winners, nblk=nblk))
     ref, got = results
     scale = sq_norms(raw["queries"]) + adc._center(raw["recon_norms"], True)
     result = cs.compare_packed(got, ref, scale[:, None].expand_as(got))
@@ -169,20 +173,13 @@ def test_k1_twin_gives_the_same_winners_at_both_widths(raw, winners, centered):
 
 @pytest.mark.parametrize("winners,centered", CASES, ids=IDS)
 def test_the_scan_answers_alike_at_both_widths(raw, winners, centered):
-    """``adc_scan_fused`` over an index's held operands, top-10 by the
+    """``scan_top_k`` over an index's held operands, top-10 by the
     epilogue: the same ids but at near-ties, distances within the bound."""
     results = []
-    codes_t = adc.pack_codes_t(raw["codes"], K)
     for streamed in (False, True):
-        held = {}
-        with _width_rule(streamed):
-            results.append(adc.adc_scan_fused(
-                raw["queries"], raw["codebooks"], lambda: codes_t, raw["recon_norms"],
-                bounds=raw["bounds"], k=10, num_rows=ROWS, winners=winners,
-                center_scores=centered, held=held,
-            ))
-        (entry,) = held.values()
-        assert entry["lane_padded"] is streamed
+        k1 = _k1(raw, streamed, centered)
+        results.append(adc.scan_top_k(k1, raw["queries"], k=10, winners=winners))
+        assert k1.lane_padded is streamed
     (d_own, i_own), (d_wide, i_wide) = results
     scale = sq_norms(raw["queries"])[:, None] + adc._center(raw["recon_norms"], True)
     tol = 2.0 ** -14 * torch.maximum(d_own.abs(), scale)
@@ -216,26 +213,23 @@ def test_operands_at_a_wider_width_score_alike(d, m, k_codes, width, winners, ce
     ``2^-14 max(|v|, S)`` and every value within it."""
     raw = cs.k1_inputs(torch.Generator().manual_seed(d + m), 2048, d, m, k_codes, 33,
                        dev="cpu")
-    own = _entry(raw, False, winners, centered)
-    wide = _entry(raw, True, winners, centered, width)
-    dsub = own["cb"].shape[2]
-    assert wide["lane_padded"] is (width > dsub) and not own["lane_padded"]
-    assert tuple(wide["cb"].shape) == (m, k_codes, width)
-    assert own["t"] == wide["t"] and torch.equal(own["base_cols"], wide["base_cols"])
-    assert torch.equal(_bits(wide["cb"][:, :, :dsub]), _bits(own["cb"]))
-    assert bool((wide["cb"][:, :, dsub:] == 0).all())
-    q_wide = adc.query_operand(raw["queries"], wide)
+    own, t_own, base_own = _entry(raw, False, winners, centered)
+    wide, t_wide, base_wide = _entry(raw, True, winners, centered, width)
+    dsub = own.cb.shape[2]
+    assert wide.lane_padded is (width > dsub) and not own.lane_padded
+    assert tuple(wide.cb.shape) == (m, k_codes, width)
+    assert t_own == t_wide and torch.equal(base_own, base_wide)
+    assert torch.equal(_bits(wide.cb[:, :, :dsub]), _bits(own.cb))
+    assert bool((wide.cb[:, :, dsub:] == 0).all())
+    q_wide = wide.query_operand(raw["queries"])
     assert q_wide.shape[1] == adc.padded_depth(m, width)
     lanes = q_wide[:, : m * width].reshape(-1, m, width)
     for s, (_, w) in enumerate(raw["bounds"]):
-        assert bool((wide["cb"][s, :, w:] == 0).all()) and bool((lanes[:, s, w:] == 0).all())
+        assert bool((wide.cb[s, :, w:] == 0).all()) and bool((lanes[:, s, w:] == 0).all())
     results = []
-    for ops in (own, wide):
-        q_op = adc.query_operand(raw["queries"], ops)
-        results.append(adc._block_scan_plain(
-            ops["codes_t"], ops["norms_hl"], q_op, ops["cb"], winners=winners,
-            nblk=ops["t"] // 128,
-        ))
+    for k1 in (own, wide):
+        operands, nblk = k1.operands(raw["queries"], winners=winners)
+        results.append(adc._block_scan_plain(*operands, winners=winners, nblk=nblk))
     ref, got = results
     scale = sq_norms(raw["queries"]) + adc._center(raw["recon_norms"], True)
     result = cs.compare_packed(got, ref, scale[:, None].expand_as(got))
@@ -245,13 +239,29 @@ def test_operands_at_a_wider_width_score_alike(d, m, k_codes, width, winners, ce
 K1_LANE_COUNTERS = ("k1.launches", "k1.launches.lane_padded", "k1.gather_lanes")
 
 
-@pytest.mark.parametrize("plan,lane_padded,expect", [
+@pytest.mark.parametrize("plan,streamed,expect", [
     (dict(streamed=1, cb_smem=0, lanes=8), True, (1, 1, 8)),  # gist-960 at 40 lanes
     (dict(streamed=1, cb_smem=0, lanes=1), False, (1, 0, 1)),  # an odd width left as it is
     (dict(streamed=0, cb_smem=1, lanes=1), False, (1, 0, 1)),  # held decoded
 ], ids=["streamed-padded", "streamed-own-width", "held"])
-def test_a_k1_launch_counts_its_padded_lanes(plan, lane_padded, expect):
+def test_a_k1_launch_counts_its_padded_lanes(raw, monkeypatch, plan, streamed, expect):
+    """The owner counts each launch on the card in
+    ``k1.launches.lane_padded``, 1 where its operands are wider than the
+    subspaces, beside the launch's own counts (the card's launch stood in
+    for by one counted by ``plan`` that returns the plain twin's winners);
+    its plain twin counts nothing."""
+    k1 = _k1(raw, streamed, True)
+    k1.geometry(NQ)
+
+    def launch(*operands, winners, nblk):
+        adc.count_launch(plan, operands[0].shape[1], operands[2].shape[0])
+        return adc._block_scan_plain(*operands, winners=winners, nblk=nblk)
+
     before = {c: tracing.counter(c) for c in K1_LANE_COUNTERS}
-    adc.count_launch(plan, 7824 * 128, 1024, lane_padded)
+    k1.scan(raw["queries"])  # the plain twin on the CPU
+    assert all(tracing.counter(c) == before[c] for c in K1_LANE_COUNTERS)
+    monkeypatch.setattr(adc, "fused_block_scan", launch)
+    k1.device = torch.device("cuda")  # the operands stay on the CPU: no launch reads them
+    k1.scan(raw["queries"])
     assert tuple(tracing.counter(c) - before[c] for c in K1_LANE_COUNTERS) == expect
     assert "k1.launches.lane_padded" in tracing.snapshot()["counters"]

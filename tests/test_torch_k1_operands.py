@@ -1,12 +1,14 @@
-"""K1's operands, held by the index (``ops/cuda/adc.py::scan_index_operands``).
+"""K1's operands, held by their owner (``ops/cuda/adc.py::K1Operands``).
 
-What depends only on the index and the launch geometry (the padded code
+What depends only on the rows and the launch geometry (the padded code
 operand, the hi/lo norm rows, the center, ``base_cols``, the bf16
 codebooks) is built once per geometry and held by ``FlatIndex`` /
-``IVFIndex``; a batch builds its query operand alone, in one pass. The
-oracle below is the construction these replaced (every operand rebuilt
-per batch, the query operand by a loop over subspaces): each operand
-must equal it bit for bit, so K1 sees what it saw before.
+``IVFIndex`` and by each shard of their sharded forms; a batch builds its
+query operand alone, in one pass. The oracle below is the construction
+these replaced (every operand rebuilt per batch, the query operand by a
+loop over subspaces): each operand must equal it bit for bit, so K1 sees
+what it saw before. The IVF partition-padded layout of a sharded index is
+held to the host construction it replaced the same way.
 
 The CPU tests run K1's plain twin; the card tests (``cuda``) hold two
 queries on one index against a freshly loaded index's first query and
@@ -14,6 +16,7 @@ against K1 on the oracle's operands, bit for bit. This file imports no
 JAX, so the card runs it with ``--noconftest``."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -24,6 +27,9 @@ import gulon_tpu_torch as gt
 from gulon_tpu_torch.ops.cuda import adc
 from gulon_tpu_torch.ops.distance import sq_norms
 from gulon_tpu_torch.ops.pq import split_subspaces, subspace_bounds
+from gulon_tpu_torch.parallel import make_mesh, shard_index
+from gulon_tpu_torch.parallel import ops as pops
+from gulon_tpu_torch.probes.adc_probes import probe_scan_operands
 from gulon_tpu_torch.utils import tracing
 
 N, D, M, K_CODES = 9000, 24, 5, 256  # D = 24 over M = 5: one padded subspace lane
@@ -31,8 +37,8 @@ N, D, M, K_CODES = 9000, 24, 5, 256  # D = 24 over M = 5: one padded subspace la
 
 def _oracle(queries, codebooks, codes, recon_norms, *, bounds, tile_rows, num_rows,
             winners, center_scores):
-    """The operands as ``prepare_scan_operands`` and ``_block_scan`` built
-    them for every batch before the index held them."""
+    """The operands as they were built for every batch before an index
+    held them."""
     num_q = queries.shape[0]
     m, k_codes, dsub = codebooks.shape
     pretransposed = num_rows > 0
@@ -126,23 +132,23 @@ def _problem(num_q, seed=0, dev="cpu"):
 def test_operands_equal_the_per_batch_construction(num_q, centered, winners):
     """The one-pass query operand, the held hi/lo rows, ``base_cols`` and the
     padded code operand against the oracle, pretransposed (int8) and from
-    row-major codes (int32), and ``prepare_scan_operands``' fields."""
+    row-major codes (int32), and the probes' operands, at the own width."""
     bounds, cb, codes, norms, q = _problem(num_q, seed=num_q)
     codes_t = adc.pack_codes_t(codes, K_CODES)
     for src, rows in ((codes_t, N), (codes, 0)):
-        kw = dict(bounds=bounds, tile_rows=0, num_rows=rows, winners=winners,
-                  center_scores=centered)
-        ref = _oracle(q, cb, src, norms, **kw)
-        held = {}
-        ops = adc.scan_index_operands(held, cb, src, norms, num_q=num_q, **kw)
-        assert list(held.values()) == [ops] and ops["t"] == ref["t"]
-        _same_bits(adc.query_operand(q, ops), ref["q_op"])
-        for name in ("codes_t", "norms_hl", "center", "base_cols", "cb"):
-            _same_bits(ops[name], ref[name])
-        prep = adc.prepare_scan_operands(q, cb, src, norms, **kw)
-        for name in ("q_pad", "codes_t", "norms", "center", "qs"):
-            _same_bits(prep[name], ref[name])
-        assert (prep["t"], prep["qt"]) == (ref["t"], ref["qt"])
+        kw = dict(bounds=bounds, num_rows=rows, center_scores=centered)
+        ref = _oracle(q, cb, src, norms, tile_rows=0, winners=winners, **kw)
+        k1 = adc.K1Operands(cb, src, norms, **kw)
+        t, base_cols = k1.geometry(num_q, winners=winners)
+        assert list(k1._base_cols) == [(t, winners)] and t == ref["t"]
+        _same_bits(k1.query_operand(q), ref["q_op"])
+        _same_bits(base_cols, ref["base_cols"])
+        for name in ("codes_t", "norms_hl", "center", "cb"):
+            _same_bits(getattr(k1, name), ref[name])
+        probe = probe_scan_operands(q, cb, src, norms, winners=winners, **kw)
+        for name in ("q_op", "codes_t", "norms_hl", "base_cols", "cb", "qs"):
+            _same_bits(probe[name], ref[name])
+        assert probe["nblk"] == ref["t"] // 128
 
 
 def _flat(dev="cpu", n=N, d=D, m=M, iters=4):
@@ -189,11 +195,11 @@ def test_operand_builds_once_per_geometry(holder, flat, ivf):
     builds its own, and as its width differs it replaces the first."""
     if holder == "direct":
         bounds, cb, codes, norms, _ = _problem(1)
-        held = {}
+        k1 = adc.K1Operands(cb, adc.pack_codes_t(codes, K_CODES), norms, bounds=bounds,
+                            num_rows=N)
 
         def query(q):
-            adc.adc_scan_fused(q, cb, adc.pack_codes_t(codes, K_CODES), norms, bounds=bounds,
-                               k=10, num_rows=N, winners=4, held=held)
+            adc.scan_top_k(k1, q, k=10, winners=4)
     else:
         index = _fresh((flat if holder == "flat" else ivf)[0])
         index.pallas_winners = 4
@@ -209,8 +215,8 @@ def test_operand_builds_once_per_geometry(holder, flat, ivf):
     query(q)
     query(q)
     assert tracing.counter("k1.operand_builds") - builds == 2
-    held = held if holder == "direct" else index._k1_operands
-    assert [key[0] for key in held] == [2048]
+    k1 = k1 if holder == "direct" else index._k1_operands
+    assert list(k1._base_cols) == [(2048, 4)]
 
 
 def test_geometries_of_one_width_share_the_code_operand():
@@ -218,15 +224,17 @@ def test_geometries_of_one_width_share_the_code_operand():
     the first's code operand and norm rows, and both stay held."""
     bounds, cb, codes, norms, q = _problem(600)
     codes_t = adc.pack_codes_t(codes[:8192], K_CODES)
-    held = {}
-    kw = dict(bounds=bounds, num_rows=8192, winners=4)
-    small = adc.scan_index_operands(held, cb, codes_t, norms[:8192], num_q=12, **kw)
-    big = adc.scan_index_operands(held, cb, lambda: 1 / 0, norms[:8192], num_q=600, **kw)
-    assert (small["t"], big["t"]) == (4096, 2048) and len(held) == 2
-    assert big["codes_t"] is small["codes_t"] and big["norms_hl"] is small["norms_hl"]
-    ref = _oracle(q, cb, codes_t, norms[:8192], tile_rows=0, center_scores=False, **kw)
-    for name in ("codes_t", "norms_hl", "base_cols"):
-        _same_bits(big[name], ref[name])
+    k1 = adc.K1Operands(cb, codes_t, norms[:8192], bounds=bounds, num_rows=8192)
+    t_small, _ = k1.geometry(12, winners=4)
+    held = (k1.codes_t, k1.norms_hl)
+    t_big, base_cols = k1.geometry(600, winners=4)
+    assert (t_small, t_big) == (4096, 2048) and len(k1._base_cols) == 2
+    assert k1.codes_t is held[0] and k1.norms_hl is held[1]
+    ref = _oracle(q, cb, codes_t, norms[:8192], bounds=bounds, num_rows=8192, winners=4,
+                  tile_rows=0, center_scores=False)
+    _same_bits(base_cols, ref["base_cols"])
+    for name in ("codes_t", "norms_hl"):
+        _same_bits(getattr(k1, name), ref[name])
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf"])
@@ -264,16 +272,18 @@ def _index_oracle(index, q):
 
 
 def _check_entry_against_oracle(index, q):
-    """The index's one held entry equals the oracle's operands, and K1 (or
-    its twin) gives the same packed winners on both."""
-    (entry,) = index._k1_operands.values()
+    """The index's one held geometry and its operands equal the oracle's,
+    and K1 (or its twin) gives the same packed winners on both."""
+    k1 = index._k1_operands
+    ((t, winners),) = k1._base_cols
     ref = _index_oracle(index, q)
-    for name in ("codes_t", "norms_hl", "base_cols", "cb"):
-        _same_bits(entry[name], ref[name])
-    q_op = adc.query_operand(q, entry)
+    _same_bits(k1._base_cols[(t, winners)], ref["base_cols"])
+    for name in ("codes_t", "norms_hl", "cb"):
+        _same_bits(getattr(k1, name), ref[name])
+    q_op = k1.query_operand(q)
     _same_bits(q_op, ref["q_op"])
-    kw = dict(winners=entry["winners"], nblk=entry["t"] // 128)
-    _same_bits(adc.fused_block_scan(entry["codes_t"], entry["norms_hl"], q_op, entry["cb"], **kw),
+    kw = dict(winners=winners, nblk=t // 128)
+    _same_bits(adc.fused_block_scan(k1.codes_t, k1.norms_hl, q_op, k1.cb, **kw),
                adc.fused_block_scan(ref["codes_t"], ref["norms_hl"], ref["q_op"], ref["cb"], **kw))
 
 
@@ -283,6 +293,102 @@ def test_the_held_entry_equals_the_per_batch_construction(kind, flat, ivf):
     index = _fresh(index)
     index.query_arrays(10, x[:40])
     _check_entry_against_oracle(index, index._prepare_queries(x[:40]))
+
+
+def _batches(query, q, n=3):
+    builds = tracing.counter("k1.operand_builds")
+    out = [query(q) for _ in range(n)]
+    return out, tracing.counter("k1.operand_builds") - builds
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_the_shards_of_a_sharded_flat_index_hold_their_operands(flat, monkeypatch, shards):
+    """K1 forced on the CPU mesh (its plain twin, as ``force_kernel`` runs
+    it): each shard builds its operands once over three batches, and the
+    answers equal the scan over operands built for each call."""
+    index, x = flat
+    index = _fresh(index)
+    sharded = shard_index(index, make_mesh(devices=["cpu"] * shards))
+    monkeypatch.setattr(pops, "scan_flat_shards",
+                        functools.partial(pops.scan_flat_shards, force_kernel=True))
+    q = index._prepare_queries(x[:24] + 0.01)
+    got, builds = _batches(lambda b: sharded.query_arrays(10, b), x[:24] + 0.01)
+    assert builds == shards and all(k1 is not None for k1 in sharded.k1_sharded)
+    ref = pops.sharded_adc_scan(
+        q, sharded.codebooks_rep, sharded.codes_sharded, sharded.norms_sharded,
+        mesh=sharded.mesh, bounds=index.pq.bounds, k=10,
+        winners=index.resolved_pallas_winners(), force_kernel=True,
+    )
+    for d, ids in got:
+        _same_bits(d, ref[0])
+        _same_bits(ids, ref[1])
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_the_shards_of_a_sharded_ivf_index_hold_their_operands(ivf, shards):
+    """The ``pallas`` route per shard: each shard builds its operands once
+    over three batches, which answer alike."""
+    index, x = ivf
+    sharded = shard_index(_fresh(index), make_mesh(devices=["cpu"] * shards))
+    got, builds = _batches(lambda b: sharded.query_arrays(10, b), x[:24] + 0.01)
+    assert builds == shards
+    for d, ids in got[1:]:
+        _same_bits(d, got[0][0])
+        _same_bits(ids, got[0][1])
+
+
+def _oracle_shard_layouts(sharded):
+    """Each shard's partition-padded layout as the host built it before the
+    layout had one function: ``(codes_t, row constants, blk_part, row
+    map)``, one ``npad`` for every shard, row maps holding global rows."""
+    base = sharded.base
+    sizes = base.partition_sizes().astype(np.int64)
+    num_p = len(sizes)
+    n_shards = sharded.mesh.shape["rows"]
+    g_starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    psz = -(-sizes // 128) * 128
+    pstart = np.zeros(num_p, np.int64)
+    fill = np.zeros(n_shards, np.int64)
+    for p in np.argsort(sharded.local_starts, kind="stable"):
+        s = int(sharded.part_shard[p])
+        pstart[p] = fill[s]
+        fill[s] += psz[p]
+    npad = max(int(fill.max()) if num_p else 128, 128)
+    codes_np = base.codes.cpu().numpy().astype(np.int32)
+    rc_np = base.row_const.cpu().numpy().astype(np.float32)
+    codes_pal = np.zeros((n_shards, npad, base.pq.num_quantizers), np.int32)
+    rc_pal = np.full((n_shards, npad), 2.0e38, np.float32)
+    rmap = np.full((n_shards, npad), -1, np.int32)
+    blk_part = np.zeros((n_shards, npad // 128), np.int64)
+    for p in range(num_p):
+        s, ls = int(sharded.part_shard[p]), int(pstart[p])
+        gs, sz = int(g_starts[p]), int(sizes[p])
+        codes_pal[s, ls : ls + sz] = codes_np[gs : gs + sz]
+        rc_pal[s, ls : ls + sz] = rc_np[gs : gs + sz]
+        rmap[s, ls : ls + sz] = np.arange(gs, gs + sz, dtype=np.int32)
+        blk_part[s, ls // 128 : (ls + int(psz[p])) // 128] = p
+    return [
+        (adc.pack_codes_t(torch.from_numpy(codes_pal[r]), base.pq.num_clusters),
+         torch.from_numpy(rc_pal[r]), torch.from_numpy(blk_part[r]), torch.from_numpy(rmap[r]))
+        for r in range(n_shards)
+    ]
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_a_shards_ivf_layout_equals_the_host_construction(ivf, shards):
+    """``partition_layout`` over each shard's partitions, in their local
+    order, against the numpy construction it replaced, bit for bit."""
+    index, _ = ivf
+    sharded = shard_index(_fresh(index), make_mesh(devices=["cpu"] * shards))
+    layouts = sharded._pallas_layouts()
+    for (k1, blk_part, rmap), (codes_t, rc_pal, blk_ref, rmap_ref) in zip(
+        layouts, _oracle_shard_layouts(sharded)
+    ):
+        k1.geometry(16, winners=4)
+        _same_bits(k1.codes_t[:, : k1.n], codes_t)
+        assert not bool(k1.codes_t[:, k1.n :].any())  # the row tile's padding
+        for got, ref in ((k1.norms, rc_pal), (blk_part, blk_ref), (rmap, rmap_ref)):
+            _same_bits(got, ref)
 
 
 @pytest.fixture(scope="module")

@@ -144,7 +144,7 @@ def test_k3_edge_plain_on_cpu(case):
 def test_winner_columns_invert_the_kernel_layout():
     nblk, winners, n_tiles = 4, 3, 2
     n_cols = n_tiles * nblk * winners
-    block, rank = cs.winner_columns(n_cols, winners, nblk, "cpu")
+    block, rank = adc._winner_blocks(n_cols, winners, nblk, "cpu")
     blocks = torch.arange(n_tiles * nblk)
     for w in range(winners):
         cols = adc._winner_columns(blocks, w, winners, nblk)
