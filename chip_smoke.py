@@ -189,16 +189,21 @@ EMBEDDING_CALL = ("torch.nn.functional.embedding(codes + s K, codebook [m K, dsu
 # 0 all +inf (NaN against every row: each block's winner is the packed
 # NaN of its lowest row, K1's rule), "sentinel" gives block b only its
 # first (37 b) % 129 rows and the IVF padding value 2e38 on the others;
-# "index" lays the operands out as an index does (``k1_operands``). The last eight are deep: m*dsub 304 (glove300's
-# width, 5 chunks) and 688 (11 chunks, two ring stages: the deepest row
-# block held decoded) are held decoded, their codebooks gathered from
-# global memory; 768 and 800 (K = 1024; codebooks in global memory), 1000,
-# 720 (dsub 1, 720 code rows) and 900 (codebooks in shared memory) are
-# streamed, gathering 8, 8, 4, 1 and 2 lanes a load (ops/cuda/adc.py::k1_plan);
+# "index" lays the operands out as an index does (``k1_operands``). The
+# last eleven are deep: m*dsub 304 (glove300's width, 5 chunks) and 688
+# (11 chunks, two ring stages: the deepest row block held decoded) are
+# held decoded, their codebooks gathered from global memory; 768 and 800
+# (K = 1024; codebooks in global memory), 1000, 720 (dsub 1, 720 code
+# rows) and 900 (codebooks in shared memory) are streamed, gathering 8, 8,
+# 4, 1 and 2 lanes a load (ops/cuda/adc.py::k1_plan), 256 queries a tile;
 # 960 over 25 subspaces of 39 and 38 lanes, on index operands, at 4
 # winners uncentered (the IVF form), streams at 40 lanes a subspace on the
 # card (the plan's width: depth 1,004, codebooks in global memory, 8 lanes
-# a load).
+# a load). Past one 256-query tile: gist's layout at 300 queries (the
+# second tile ragged, its second warpgroup's 128 queries wholly past the
+# batch) and 768 at 513 (three tiles, the last holding one query); 800
+# over 100 at K = 80 keeps its 128 KB of codebooks in shared memory and
+# so streams 128 queries a tile.
 K1_EDGE_CASES = (
     (8192, 24, 4, 16, 1, 1, True, None),
     (8192, 24, 4, 16, 7, 2, False, None),
@@ -219,6 +224,9 @@ K1_EDGE_CASES = (
     (4096, 720, 720, 16, 130, 1, True, None),
     (4096, 900, 90, 64, 65, 2, False, None),
     (16384, 960, 25, 256, 129, 4, False, "index"),
+    (4096, 960, 25, 256, 300, 1, True, "index"),
+    (4096, 768, 96, 256, 513, 3, False, None),
+    (4096, 800, 100, 80, 129, 2, True, None),
 )
 # K2 edge shapes: (rows, D, queries, NaN rows); D = 1022 is too deep for
 # a resident query tile and streams the query chunks beside the rows.

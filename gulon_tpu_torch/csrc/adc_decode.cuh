@@ -44,13 +44,16 @@ __device__ __forceinline__ int load_code(const void* codes, int code_bytes, int6
 // bytes, set the decode's cost. All code loads are issued before the
 // codebook loads that depend on them, so a chunk costs two memory round
 // trips. Code is the code operand's element type; VW is gather_lanes(dsub).
+// MaxGathers (0: no bound) bounds the gathers a thread has in flight, and
+// so the registers they hold: the groups are then decoded in batches of
+// MaxGathers / (8 / VW), each two round trips.
 template <int VW> struct LanesOf;
 template <> struct LanesOf<8> { using T = uint4; };
 template <> struct LanesOf<4> { using T = uint2; };
 template <> struct LanesOf<2> { using T = uint32_t; };
 template <> struct LanesOf<1> { using T = uint16_t; };
 
-template <int NT, typename Code, int VW>
+template <int NT, typename Code, int VW, int MaxGathers>
 __device__ __forceinline__ void decode_chunk(
     uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
     const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
@@ -59,70 +62,77 @@ __device__ __forceinline__ void decode_chunk(
   constexpr int kGroups = 8 * kRows / NT;  // 16-byte groups a thread
   constexpr int kStride = NT / kRows;
   constexpr int kPer = 8 / VW;                     // gathers a group
+  constexpr int kFit = MaxGathers / kPer > 0 ? MaxGathers / kPer : 1;
+  constexpr int kBatch = MaxGathers == 0 || kFit > kGroups ? kGroups : kFit;  // groups a batch
+  static_assert(kGroups % kBatch == 0, "whole batches of groups");
   constexpr int kOffset = sizeof(Code) == 1 ? 128 : 0;  // int8 holds code - 128
   const int md = m * dsub;
   const int r = tid & 127;
   const int64_t row = row0 + r;
   const int g0 = tid >> 7;  // group i of this thread is kStride i + g0
-  int code[kGroups * kPer];
 #pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int col = min(c * kChunk + 8 * (kStride * i + g0), md - 1);
-    int sub = col / dsub, off = col - sub * dsub;
+  for (int i0 = 0; i0 < kGroups; i0 += kBatch) {
+    int code[kBatch * kPer];
 #pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      code[kPer * i + t] = __ldg(codes + static_cast<int64_t>(min(sub, m - 1)) * n_cols + row);
-      if ((off += VW) >= dsub) {
-        off -= dsub;
-        ++sub;
+    for (int i = 0; i < kBatch; ++i) {
+      const int col = min(c * kChunk + 8 * (kStride * (i0 + i) + g0), md - 1);
+      int sub = col / dsub, off = col - sub * dsub;
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        code[kPer * i + t] = __ldg(codes + static_cast<int64_t>(min(sub, m - 1)) * n_cols + row);
+        if ((off += VW) >= dsub) {
+          off -= dsub;
+          ++sub;
+        }
       }
     }
-  }
-  union {
-    Lanes v;
-    uint16_t h[VW];
-  } x[kGroups * kPer];
+    union {
+      Lanes v;
+      uint16_t h[VW];
+    } x[kBatch * kPer];
 #pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int col = c * kChunk + 8 * (kStride * i + g0);
-    const int start = min(col, md - 1);
-    int sub = start / dsub, off = start - sub * dsub;
+    for (int i = 0; i < kBatch; ++i) {
+      const int col = c * kChunk + 8 * (kStride * (i0 + i) + g0);
+      const int start = min(col, md - 1);
+      int sub = start / dsub, off = start - sub * dsub;
 #pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      const int k = code[kPer * i + t] + kOffset;
-      const bool ok = col + VW * t < md && k >= 0 && k < k_codes;
-      const Lanes v = *reinterpret_cast<const Lanes*>(cb + (ok ? (sub * k_codes + k) * dsub + off : 0));
-      x[kPer * i + t].v = ok ? v : Lanes{};
-      if ((off += VW) >= dsub) {
-        off -= dsub;
-        ++sub;
+      for (int t = 0; t < kPer; ++t) {
+        const int k = code[kPer * i + t] + kOffset;
+        const bool ok = col + VW * t < md && k >= 0 && k < k_codes;
+        const Lanes v =
+            *reinterpret_cast<const Lanes*>(cb + (ok ? (sub * k_codes + k) * dsub + off : 0));
+        x[kPer * i + t].v = ok ? v : Lanes{};
+        if ((off += VW) >= dsub) {
+          off -= dsub;
+          ++sub;
+        }
       }
     }
-  }
-  const bool has_norms = (md >> 6) == c || ((md + 1) >> 6) == c;
-  const uint32_t n_hi = has_norms ? __ldg(norms + row) : 0u;
-  const uint32_t n_lo = has_norms ? __ldg(norms + n_cols + row) : 0u;
+    const bool has_norms = (md >> 6) == c || ((md + 1) >> 6) == c;
+    const uint32_t n_hi = has_norms ? __ldg(norms + row) : 0u;
+    const uint32_t n_lo = has_norms ? __ldg(norms + n_cols + row) : 0u;
 #pragma unroll
-  for (int i = 0; i < kGroups; ++i) {
-    const int g = kStride * i + g0;
-    uint32_t w[4];
+    for (int i = 0; i < kBatch; ++i) {
+      const int g = kStride * (i0 + i) + g0;
+      uint32_t w[4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t v[2];
+      for (int p = 0; p < 4; ++p) {
+        uint32_t v[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int lane = 2 * p + h;
-        const int col = c * kChunk + 8 * g + lane;
-        v[h] = col < md       ? x[kPer * i + lane / VW].h[lane % VW]
-               : col == md     ? n_hi
-               : col == md + 1 ? n_lo
-               : col < md + 4  ? kOneBf16
-                               : 0u;
+        for (int h = 0; h < 2; ++h) {
+          const int lane = 2 * p + h;
+          const int col = c * kChunk + 8 * g + lane;
+          v[h] = col < md       ? x[kPer * i + lane / VW].h[lane % VW]
+                 : col == md     ? n_hi
+                 : col == md + 1 ? n_lo
+                 : col < md + 4  ? kOneBf16
+                                 : 0u;
+        }
+        w[p] = v[0] | (v[1] << 16);
       }
-      w[p] = v[0] | (v[1] << 16);
+      *reinterpret_cast<uint4*>(dst + r * 128 + ((g ^ (r & 7)) << 4)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
-    *reinterpret_cast<uint4*>(dst + r * 128 + ((g ^ (r & 7)) << 4)) =
-        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
@@ -133,40 +143,44 @@ __host__ __device__ constexpr int gather_lanes(int dsub) {
   return dsub % 8 == 0 ? 8 : dsub % 4 == 0 ? 4 : dsub % 2 == 0 ? 2 : 1;
 }
 
-template <int NT, typename Code>
+template <int NT, typename Code, int MaxGathers>
 __device__ __forceinline__ void decode_chunk(
     uint8_t* dst, int c, int64_t row0, const Code* codes, const uint16_t* norms,
     const uint16_t* cb, int n_cols, int m, int k_codes, int dsub, int tid) {
   switch (gather_lanes(dsub)) {
     case 8:
-      decode_chunk<NT, Code, 8>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      decode_chunk<NT, Code, 8, MaxGathers>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes,
+                                            dsub, tid);
       break;
     case 4:
-      decode_chunk<NT, Code, 4>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      decode_chunk<NT, Code, 4, MaxGathers>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes,
+                                            dsub, tid);
       break;
     case 2:
-      decode_chunk<NT, Code, 2>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      decode_chunk<NT, Code, 2, MaxGathers>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes,
+                                            dsub, tid);
       break;
     default:
-      decode_chunk<NT, Code, 1>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes, dsub, tid);
+      decode_chunk<NT, Code, 1, MaxGathers>(dst, c, row0, codes, norms, cb, n_cols, m, k_codes,
+                                            dsub, tid);
   }
 }
 
 // The same from the untyped code operand (code_bytes 1, 2 or 4).
-template <int NT>
+template <int NT, int MaxGathers = 0>
 __device__ __forceinline__ void decode_chunk(
     uint8_t* dst, int c, int64_t row0, const void* codes, int code_bytes,
     const uint16_t* norms, const uint16_t* cb, int n_cols, int m, int k_codes, int dsub,
     int tid) {
   if (code_bytes == 1)
-    decode_chunk<NT>(dst, c, row0, static_cast<const int8_t*>(codes), norms, cb, n_cols, m,
-                     k_codes, dsub, tid);
+    decode_chunk<NT, int8_t, MaxGathers>(dst, c, row0, static_cast<const int8_t*>(codes), norms,
+                                         cb, n_cols, m, k_codes, dsub, tid);
   else if (code_bytes == 2)
-    decode_chunk<NT>(dst, c, row0, static_cast<const int16_t*>(codes), norms, cb, n_cols, m,
-                     k_codes, dsub, tid);
+    decode_chunk<NT, int16_t, MaxGathers>(dst, c, row0, static_cast<const int16_t*>(codes),
+                                          norms, cb, n_cols, m, k_codes, dsub, tid);
   else
-    decode_chunk<NT>(dst, c, row0, static_cast<const int32_t*>(codes), norms, cb, n_cols, m,
-                     k_codes, dsub, tid);
+    decode_chunk<NT, int32_t, MaxGathers>(dst, c, row0, static_cast<const int32_t*>(codes),
+                                          norms, cb, n_cols, m, k_codes, dsub, tid);
 }
 
 // Block held decoded: all nch chunks of the row block from its codes and

@@ -49,17 +49,27 @@
 //   a time in the 128-byte-swizzled layout that wgmma reads (zero lanes
 //   pad depth to a multiple of 16 inside the kernel);
 // - one producer warp streams the queries past the decoded block by TMA
-//   ([128][64] bf16 chunks, 128-byte swizzle, an mbarrier ring); the
-//   query operand (~230 KB at Q = 1024) stays in L2;
-// - two consumer warpgroups run wgmma m64n128k16 (64 queries each on M,
-//   the block's 128 rows on N, f32 accumulators in registers) and select
-//   straight off the accumulators (see hopper.cuh).
+//   ([kQTile][64] bf16 chunks, one box each, 128-byte swizzle, an mbarrier
+//   ring); the query operand (~230 KB at Q = 1024) stays in L2;
+// - two consumer warpgroups run wgmma m64n128k16 (kQTile / 2 queries each
+//   on M, as kQTile / 128 m64 tiles; the block's 128 rows on N, f32
+//   accumulators in registers) and select straight off the accumulators
+//   (see hopper.cuh), one m64 tile after the other.
 // A row block too deep to sit decoded in shared memory beside two ring
 // stages (depth above ~700, or many code rows) takes the streamed
 // instantiation of the same kernel: the consumers decode one [128][64]
 // chunk at a time, straight from the codes in global memory, into a ring
 // of three decoded chunks and contract it at once, re-decoding the block
-// for every query tile (8 times at Q = 1024) as the mma.sync version did.
+// for every query tile. Its query tile is 256 where it fits (make_plan):
+// each warpgroup then holds two m64 accumulator tiles (128 f32 registers
+// a thread, given it by a producer warpgroup through setmaxnreg) and
+// issues two wgmma a k-step on the same decoded chunk, so a block is
+// decoded ceil(Q / 256) times, 4 at Q = 1024, and the decode of one chunk
+// overlaps twice the wgmma work of the one before. An m64 tile wholly
+// past the batch skips its selection and writes nothing (its wgmma run on
+// the zeros TMA fills in: a branch around them serializes them all). Its
+// decode bounds the gathers a thread has in flight (kGathers), so that
+// one-lane gathers fit their registers beside the accumulators.
 // One barrier a chunk: the slot a chunk is decoded into was last read by
 // the chunk three before, which every warpgroup waited for before the
 // previous chunk's barrier; the decode of one chunk overlaps the wgmma of
@@ -73,8 +83,8 @@
 // load; an odd dsub left as it is gathers one lane, two bytes.
 //
 // Plan. make_plan picks, per shape, held or streamed, codebooks in shared
-// or global memory, the ring stages, the lanes a gather and the operands'
-// subspace width; the launch and the exported gulon_adc_scan_plan both
+// or global memory, the query tile, the ring stages, the lanes a gather
+// and the operands' subspace width; the launch and the exported gulon_adc_scan_plan both
 // call it, and the Python wrapper lays an index's operands out at that
 // width and counts each launch by the plan the latter returns.
 //
@@ -102,25 +112,35 @@ namespace {
 using namespace adc_decode;
 
 constexpr int kConsumers = 256;              // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;    // + one producer warp
 constexpr int kMaxStages = 6;
 constexpr int kDecSlots = 3;  // decoded chunks of the streamed mode
+constexpr int kGathers = 16;  // most codebook gathers a decoding thread has in flight
 enum Stage { kDecode = 0, kContract = 1, kMin = 2, kFull = 3 };
 __host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
 
+// Threads of a block at query tile qtile: the consumers and one producer
+// warp; at 256 a whole producer warpgroup, which hands its registers to
+// the consumers (setmaxnreg 24 / 240): ptxas sizes a launch by whole
+// warpgroups, 168 registers a thread at either count, too few for 128
+// accumulators beside the decode.
+__host__ __device__ constexpr int threads_of(int qtile) {
+  return kConsumers + (qtile == 256 ? 128 : 32);
+}
+
 // Shared-memory offsets from the 1024-byte-aligned base: the decoded row
-// block (nch [128][64] chunks; kDecSlots when streamed), the query ring,
-// the ring's barriers, the codebooks (when held there), and, when the
-// block is held decoded, its codes and norms and the column table.
+// block (nch [128][64] chunks; kDecSlots when streamed), the query ring
+// (nst [qtile][64] chunks), the ring's barriers, the codebooks (when held
+// there), and, when the block is held decoded, its codes and norms and the
+// column table.
 struct Layout {
   int ring, bars, cb, codes, norms, tab, total;
 };
 
 __host__ __device__ inline Layout layout(int nch, int nst, int m, int cb_bytes,
-                                         int streamed) {
+                                         int streamed, int qtile) {
   Layout L;
   L.ring = (streamed ? kDecSlots : nch) * hopper::kChunkBytes;
-  L.bars = L.ring + nst * hopper::kChunkBytes;
+  L.bars = L.ring + nst * qtile * 128;
   L.cb = round16(L.bars + 2 * nst * 8);
   L.codes = L.cb + round16(cb_bytes);
   L.norms = L.codes + (streamed ? 0 : round16(m * hopper::kRows * 2));
@@ -129,9 +149,12 @@ __host__ __device__ inline Layout layout(int nch, int nst, int m, int cb_bytes,
   return L;
 }
 
-template <bool kStreamed, int kStage>
-__global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
-    const __grid_constant__ CUtensorMap qmap,  // queries [num_q][depth] bf16
+// kQTile: queries a query tile, 128 or 256; each consumer warpgroup holds
+// kQTile / 128 m64 accumulator tiles (warpgroup wg's tile t: queries
+// qt kQTile + wg kQTile / 2 + 64 t + [0, 64)).
+template <bool kStreamed, int kStage, int kQTile>
+__global__ void __launch_bounds__(threads_of(kQTile), 1) adc_scan_kernel(
+    const __grid_constant__ CUtensorMap qmap,  // queries [num_q][depth] bf16, [kQTile][64] boxes
     const void* __restrict__ codes,            // [m, n_cols] of code_bytes each
     int code_bytes,
     const uint16_t* __restrict__ norms,        // [2, n_cols] bf16 hi/lo
@@ -140,11 +163,13 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
     int n_cols, int num_q, int depth, int m, int k_codes, int dsub,
     int winners, int nblk, int nch, int nst, int cb_smem) {
   using namespace hopper;
+  constexpr int kTiles = kQTile / 128;        // m64 tiles a consumer warpgroup
+  constexpr int kStageBytes = kQTile * 128;   // one [kQTile][64] bf16 query chunk
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int cb_len = m * k_codes * dsub;
-  const Layout L = layout(nch, nst, m, cb_smem ? cb_len * 2 : 0, kStreamed);
+  const Layout L = layout(nch, nst, m, cb_smem ? cb_len * 2 : 0, kStreamed, kQTile);
   uint8_t* dec = smem;
   uint8_t* ring = smem + L.ring;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
@@ -158,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   const int b0 = static_cast<int>(static_cast<int64_t>(n_blocks) * blockIdx.x / gridDim.x);
   const int b1 = static_cast<int>(static_cast<int64_t>(n_blocks) * (blockIdx.x + 1) / gridDim.x);
   if (b0 >= b1) return;
-  const int n_qt = (num_q + kRows - 1) / kRows;
+  const int n_qt = (num_q + kQTile - 1) / kQTile;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -172,6 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
 
   const int wg = warpgroup_index();
   if (wg == kConsumers / 128) {  // producer warp: the query chunks, block after block
+    if constexpr (kTiles > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (kStage != kDecode && tid == kConsumers) {
       int it = 0;
       for (int blk = b0; blk < b1; ++blk)
@@ -179,8 +205,8 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
           for (int c = 0; c < nch; ++c, ++it) {
             const int st = it % nst;
             mbar_wait(&empty[st], ((it / nst) & 1) ^ 1);
-            mbar_expect_tx(&full[st], kChunkBytes);
-            tma_load_2d(ring + st * kChunkBytes, &qmap, &full[st], c * kChunk, qt * kRows);
+            mbar_expect_tx(&full[st], kStageBytes);
+            tma_load_2d(ring + st * kStageBytes, &qmap, &full[st], c * kChunk, qt * kQTile);
           }
     }
     return;
@@ -189,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   // consumers, once per thread block: the codebooks and, for blocks held
   // decoded, the column table (column -> codebook offset and code row, or
   // the kind of extra lane)
+  if constexpr (kTiles > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   if (cb_smem) {
     const int n16 = cb_len / 8;
     for (int i = tid; i < n16; i += kConsumers)
@@ -201,7 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int n_win = n_blocks * winners;
-  float acc[64];
+  float acc[kTiles][64];
   int it = 0;
   int dk = 0;  // chunks decoded in the streamed mode
   for (int blk = b0; blk < b1; ++blk) {
@@ -218,41 +245,56 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
 
     const int col0 = (blk / nblk) * winners * nblk + (blk % nblk);
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int q = qt * kRows + wg * 64 + warp * 16 + (lane >> 2);
+      // this warpgroup's first query, and its m64 tiles that hold a query
+      const int qw = qt * kQTile + wg * (kQTile / 2);
+      const int live = kTiles == 1 ? 1 : min(kTiles, max(0, (num_q - qw + 63) / 64));
+      const int q = qw + warp * 16 + (lane >> 2);  // + 64 t in tile t
       if constexpr (kStage == kDecode) {  // the decode alone, then zeros
         if (kStreamed)
           for (int c = 0; c < nch; ++c) {
             uint8_t* b = dec + (dk++ % kDecSlots) * kChunkBytes;
-            decode_chunk<kConsumers>(b, c, row0, codes, code_bytes, norms,
-                                     cb_smem ? cb_s : cb, n_cols, m, k_codes, dsub, tid);
+            decode_chunk<kConsumers, kGathers>(b, c, row0, codes, code_bytes, norms,
+                                               cb_smem ? cb_s : cb, n_cols, m, k_codes, dsub,
+                                               tid);
             fence_proxy_async();
             bar_sync(1, kConsumers);
           }
-        if ((lane & 3) == 0 && q < num_q) out[static_cast<int64_t>(q) * n_win + col0] = 0.f;
-        if ((lane & 3) == 1 && q + 8 < num_q)
-          out[static_cast<int64_t>(q + 8) * n_win + col0] = 0.f;
+#pragma unroll
+        for (int t = 0; t < kTiles; ++t) {
+          const int qq = q + 64 * t;
+          if ((lane & 3) == 0 && qq < num_q) out[static_cast<int64_t>(qq) * n_win + col0] = 0.f;
+          if ((lane & 3) == 1 && qq + 8 < num_q)
+            out[static_cast<int64_t>(qq + 8) * n_win + col0] = 0.f;
+        }
         continue;
       }
       // chunk c's wgmma group is issued before chunk c-1's stage is freed;
       // chunk 0 overwrites the accumulators. Streamed, chunk c is first
-      // decoded into the slot that chunk c-3 read.
+      // decoded into the slot that chunk c-3 read. Each k-step's wgmma of
+      // the kTiles tiles read the same decoded chunk. Every tile issues its
+      // wgmma, a tile past the batch on the zeros TMA fills in: a branch
+      // around them, inside the pipeline or around it, makes ptxas
+      // serialize every wgmma (C7519, C7514) or spill.
       auto mma_chunk = [&](int c) {
         uint8_t* b = dec + c * kChunkBytes;
         if (kStreamed) {
           b = dec + (dk++ % kDecSlots) * kChunkBytes;
-          decode_chunk<kConsumers>(b, c, row0, codes, code_bytes, norms, cb_smem ? cb_s : cb,
-                                   n_cols, m, k_codes, dsub, tid);
+          decode_chunk<kConsumers, kGathers>(b, c, row0, codes, code_bytes, norms,
+                                             cb_smem ? cb_s : cb, n_cols, m, k_codes, dsub, tid);
           fence_proxy_async();
           bar_sync(1, kConsumers);
         }
         const int st = it % nst;
         mbar_wait(&full[st], (it / nst) & 1);
-        const uint64_t desc_a = sw128_desc(ring + st * kChunkBytes + wg * 64 * 128);
+        const uint8_t* qa = ring + st * kStageBytes + wg * (kQTile / 2) * 128;
         const uint64_t desc_b = sw128_desc(b);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)  // lanes past depth are zero in both operands
-          wgmma_m64n128k16(acc, desc_a + 2 * kk, desc_b + 2 * kk, (c | kk) != 0);
+#pragma unroll
+          for (int t = 0; t < kTiles; ++t)
+            wgmma_m64n128k16(acc[t], sw128_desc(qa + t * 64 * 128) + 2 * kk, desc_b + 2 * kk,
+                             (c | kk) != 0);
         wgmma_commit();
         ++it;
         return st;
@@ -266,24 +308,28 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
       }
       wgmma_wait<0>();
       release(&empty[prev], lane);
-      fence_regs(acc);
-
-      if constexpr (kStage == kContract) {  // row 0's scores (acc_row(0, 0, lane & ~3))
-        if ((lane & 3) == 0) {
-          if (q < num_q) out[static_cast<int64_t>(q) * n_win + col0] = acc[0];
-          if (q + 8 < num_q) out[static_cast<int64_t>(q + 8) * n_win + col0] = acc[2];
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        fence_regs(acc[t]);
+        if (t >= live) continue;
+        const int qq = q + 64 * t;
+        if constexpr (kStage == kContract) {  // row 0's scores (acc_row(0, 0, lane & ~3))
+          if ((lane & 3) == 0) {
+            if (qq < num_q) out[static_cast<int64_t>(qq) * n_win + col0] = acc[t][0];
+            if (qq + 8 < num_q) out[static_cast<int64_t>(qq + 8) * n_win + col0] = acc[t][2];
+          }
+          continue;
         }
-        continue;
-      }
-      if constexpr (kStage == kFull) pack_rows(acc, lane);
-      for (int w = 0; w < winners; ++w) {
-        const float v0 = block_min<0>(acc, lane);
-        const float v1 = block_min<1>(acc, lane);
-        const int64_t col = col0 + w * nblk;
-        if ((lane & 3) == 0 && q < num_q) out[static_cast<int64_t>(q) * n_win + col] = v0;
-        if ((lane & 3) == 1 && q + 8 < num_q)
-          out[static_cast<int64_t>(q + 8) * n_win + col] = v1;
-        if (w + 1 < winners) mask_winner(acc, v0, v1);
+        if constexpr (kStage == kFull) pack_rows(acc[t], lane);
+        for (int w = 0; w < winners; ++w) {
+          const float v0 = block_min<0>(acc[t], lane);
+          const float v1 = block_min<1>(acc[t], lane);
+          const int64_t col = col0 + w * nblk;
+          if ((lane & 3) == 0 && qq < num_q) out[static_cast<int64_t>(qq) * n_win + col] = v0;
+          if ((lane & 3) == 1 && qq + 8 < num_q)
+            out[static_cast<int64_t>(qq + 8) * n_win + col] = v1;
+          if (w + 1 < winners) mask_winner(acc[t], v0, v1);
+        }
       }
     }
   }
@@ -291,9 +337,13 @@ __global__ void __launch_bounds__(kThreads, 1) adc_scan_kernel(
 
 // K1's launch plan for a shape: the first that fits a block's shared
 // memory, in order: the row block held decoded before streamed, the
-// codebooks in shared memory before gathered from global memory, then the
-// most query-ring stages. The launch and gulon_adc_scan_plan both take it
-// from here, so what the wrapper counts is what runs.
+// codebooks in shared memory before gathered from global memory, then,
+// streamed, a 256-query tile before a 128-query one (held: 128, the block
+// is decoded once whatever the tile), then the most query-ring stages. So
+// a streamed plan takes 256 wherever its three decoded slots, two ring
+// stages of 32 KB and its codebooks (when in shared memory) fit. The
+// launch and gulon_adc_scan_plan both take it from here, so what the
+// wrapper counts is what runs.
 struct Plan {
   int streamed;  // 1: each row block decoded a chunk at a time per query tile
   int cb_smem;   // 1: codebooks staged in shared memory; 0: gathered from global
@@ -301,6 +351,7 @@ struct Plan {
   int lanes;     // codebook lanes one gather loads (1 when held decoded)
   int smem;      // dynamic shared memory, bytes (1024 of alignment included)
   int width;     // subspace width to lay the codebook and query operands out at
+  int qtile;     // queries a query tile: 256 or 128
 };
 
 // The subspace width an index of this shape lays K1's operands out at:
@@ -332,14 +383,15 @@ bool make_plan(int depth, int m, int k_codes, int dsub, Plan* p) {
     const int streamed = plan >> 1;
     if (cb_smem && cb_len64 * 2 > kSmemLimit) continue;
     const int cb_bytes = cb_smem ? static_cast<int>(cb_len64 * 2) : 0;
-    for (int s = kMaxStages; s >= 2; --s) {
-      const int total = 1024 + layout(nch, s, m, cb_bytes, streamed).total;
-      if (total <= kSmemLimit) {
-        *p = Plan{streamed, cb_smem, s, streamed ? gather_lanes(dsub) : 1, total,
-                  operand_width(m, k_codes, dsub, streamed)};
-        return true;
+    for (int qtile = streamed ? 256 : 128; qtile >= 128; qtile -= 128)
+      for (int s = kMaxStages; s >= 2; --s) {
+        const int total = 1024 + layout(nch, s, m, cb_bytes, streamed, qtile).total;
+        if (total <= kSmemLimit) {
+          *p = Plan{streamed, cb_smem, s, streamed ? gather_lanes(dsub) : 1, total,
+                    operand_width(m, k_codes, dsub, streamed), qtile};
+          return true;
+        }
       }
-    }
   }
   return false;
 }
@@ -365,13 +417,15 @@ int launch(const void* codes, int code_bytes, const void* norms, const void* q,
   if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
   const int grid = std::min(n_cols / kRows, sms);
   CUtensorMap qmap;
-  if (!sw128_map(&qmap, q, 2, depth, num_q, static_cast<uint64_t>(q_stride) * 2, kRows))
+  if (!sw128_map(&qmap, q, 2, depth, num_q, static_cast<uint64_t>(q_stride) * 2, plan.qtile))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = plan.streamed ? adc_scan_kernel<true, kStage> : adc_scan_kernel<false, kStage>;
+  auto kernel = !plan.streamed      ? adc_scan_kernel<false, kStage, 128>
+                : plan.qtile == 256 ? adc_scan_kernel<true, kStage, 256>
+                                    : adc_scan_kernel<true, kStage, 128>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads_of(plan.qtile), plan.smem, static_cast<cudaStream_t>(stream)>>>(
       qmap, codes, code_bytes, static_cast<const uint16_t*>(norms),
       static_cast<const uint16_t*>(cb), static_cast<float*>(out), n_cols, num_q,
       depth, m, k_codes, dsub, winners, nblk, nch, plan.nst, plan.cb_smem);
@@ -406,10 +460,10 @@ extern "C" int gulon_adc_scan_stage(const void* codes, int code_bytes,
              dsub, 1, nblk, stream);
 }
 
-// The plan a launch at this shape takes (make_plan), as six ints:
+// The plan a launch at this shape takes (make_plan), as seven ints:
 // streamed, codebooks in shared memory, ring stages, lanes a gather,
-// dynamic shared memory bytes and the operands' subspace width. Returns a
-// cudaError_t (0 = a plan exists); needs no device.
+// dynamic shared memory bytes, the operands' subspace width and the query
+// tile. Returns a cudaError_t (0 = a plan exists); needs no device.
 extern "C" int gulon_adc_scan_plan(int depth, int m, int k_codes, int dsub, int* out) {
   Plan plan;
   if (out == nullptr || !make_plan(depth, m, k_codes, dsub, &plan))
@@ -420,5 +474,6 @@ extern "C" int gulon_adc_scan_plan(int depth, int m, int k_codes, int dsub, int*
   out[3] = plan.lanes;
   out[4] = plan.smem;
   out[5] = plan.width;
+  out[6] = plan.qtile;
   return 0;
 }

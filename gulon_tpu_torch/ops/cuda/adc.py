@@ -34,11 +34,12 @@ them in one block, so callers keep ``N >= 256*k``. Limits: K <= 1024,
 k <= 128, N >= 256*k; ``FlatIndex`` falls back to the decode scan
 outside them. Any depth runs on the card: a row block too deep to sit
 decoded in shared memory is decoded chunk by chunk for each query tile
-(the streamed plan, past a depth of about 700), its codebooks gathered
-from global memory when they do not fit beside it, each gather loading
-the largest of 8, 4, 2 and 1 lanes that divides the operands' subspace
-width. :class:`K1Operands` lays its codebook and query operands out at
-the width K1's plan gives (:func:`k1_plan`'s ``width``:
+(the streamed plan, past a depth of about 700; 256 queries a tile where
+that fits), its codebooks gathered from global memory when they do not
+fit beside it, each gather loading the largest of 8, 4, 2 and 1 lanes
+that divides the operands' subspace width. :class:`K1Operands` lays its
+codebook and query operands out at the width K1's plan gives
+(:func:`k1_plan`'s ``width``:
 where the plan streams, ``dsub`` rounded up to 8 lanes if that adds no
 64-lane chunk to the depth), so 39 lanes at 960 dimensions over 25
 subspaces become 40, zero lanes facing zero lanes, and its gathers load
@@ -435,7 +436,7 @@ def _block_scan_plain(
 
 _LIB = None
 # the fields of K1's launch plan, in the order gulon_adc_scan_plan writes them
-K1_PLAN_FIELDS = ("streamed", "cb_smem", "stages", "lanes", "smem", "width")
+K1_PLAN_FIELDS = ("streamed", "cb_smem", "stages", "lanes", "smem", "width", "qtile")
 
 
 def _kernel():
@@ -467,11 +468,13 @@ def k1_plan(m: int, k_codes: int, dsub: int) -> dict:
     at a time for each query tile), ``cb_smem`` (1: codebooks in shared
     memory, 0: gathered from global memory), ``stages`` (query-ring
     stages), ``lanes`` (codebook lanes one gather loads; 1 when held
-    decoded), ``smem`` (dynamic shared memory, bytes) and ``width`` (the
+    decoded), ``smem`` (dynamic shared memory, bytes), ``width`` (the
     subspace width an index of this shape lays its codebook and query
     operands out at: ``dsub`` rounded up to 8 lanes where the plan streams
     at fewer lanes a gather and that adds no 64-lane chunk, else
-    ``dsub``)."""
+    ``dsub``) and ``qtile`` (queries a query tile: 256 where a streamed
+    plan fits it, so a block is decoded 4 times a 1024-query batch, else
+    128)."""
     out = (ctypes.c_int * len(K1_PLAN_FIELDS))()
     err = _kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, out)
     if err != 0:
@@ -484,11 +487,11 @@ def count_launch(plan: dict, n_cols: int, num_q: int) -> None:
     ``plan`` (:func:`k1_plan`): ``k1.launches``, ``k1.launches.streamed``,
     ``k1.launches.cb_global``, the 128-row blocks it covers
     (``k1.blocks``), the block decodes it performs (``k1.block_decodes``:
-    each block once held decoded, once per 128-query tile streamed),
-    and ``k1.gather_lanes`` (the plan's lanes a gather, summed over
-    launches)."""
+    each block once held decoded, once per query tile of the plan's
+    ``qtile`` queries streamed), and ``k1.gather_lanes`` (the plan's lanes
+    a gather, summed over launches)."""
     blocks = n_cols // _LANES
-    decodes = blocks * (-(-num_q // _LANES) if plan["streamed"] else 1)
+    decodes = blocks * (-(-num_q // plan["qtile"]) if plan["streamed"] else 1)
     for name, n in (
         ("k1.launches", 1), ("k1.launches.streamed", plan["streamed"]),
         ("k1.launches.cb_global", 1 - plan["cb_smem"]), ("k1.blocks", blocks),

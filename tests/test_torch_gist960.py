@@ -10,7 +10,7 @@ plain twin (``scan_strategy="pallas"``), whose one winner a 128-row block
 is held to the reference's own block winners. On a card (tests marked
 ``cuda``) a 262,144-row index answers 1,024 queries through ``auto``,
 which takes K1 in its streamed plan: every launch streamed, codebooks
-from global memory, each block decoded once per 128-query tile, on
+from global memory, each block decoded once per 256-query tile, on
 operands laid out at 40 lanes a subspace (the plan's ``width``), so
 8 lanes a gather; its winners equal the plain twin's but at near-ties.
 """
@@ -146,10 +146,10 @@ def test_auto_takes_k1_streamed_on_the_card(card):
     winner a block and no rescore; every launch is streamed with its
     codebooks in global memory, on operands padded from 39 lanes a
     subspace to 40 (the plan at the index's own shape gathers one lane,
-    at 40 it gathers 8), and decodes each block 8 times; the ids equal the
-    plain twin's on the same operands but at near-ties within ``2^-14
-    max(|v|, S)``, ``S = ||q||^2 + center`` the size of the terms a
-    centered score sums."""
+    at 40 it gathers 8), and decodes each block 4 times (256 queries a
+    tile); the ids equal the plain twin's on the same operands but at
+    near-ties within ``2^-14 max(|v|, S)``, ``S = ||q||^2 + center`` the
+    size of the terms a centered score sums."""
     x, q = _corpus(262_144, 1024, device=card)
     index = _build(x, card, 5)
     assert index.resolve_strategy(1024, 10) == "pallas"
@@ -163,12 +163,11 @@ def test_auto_takes_k1_streamed_on_the_card(card):
     assert n["k1.gather_lanes"] == 8 * n["k1.launches"]
     assert n["k1.launches.lane_padded"] == n["k1.launches"]
     assert n["k1.blocks"] == adc._round_up(262_144, 2048) // 128
-    assert n["k1.block_decodes"] == 8 * n["k1.blocks"]
-    assert adc.k1_plan(M, K, 39) == dict(streamed=1, cb_smem=0, stages=6, lanes=1,
-                                          smem=148_576, width=40)
-    plan40 = adc.k1_plan(M, K, 40)
-    assert (plan40["streamed"], plan40["cb_smem"], plan40["lanes"], plan40["width"]) == (
-        1, 0, 8, 40)
+    assert n["k1.block_decodes"] == 4 * n["k1.blocks"]
+    assert adc.k1_plan(M, K, 39) == dict(streamed=1, cb_smem=0, stages=5, lanes=1,
+                                          smem=214_096, width=40, qtile=256)
+    assert adc.k1_plan(M, K, 40) == dict(streamed=1, cb_smem=0, stages=5, lanes=8,
+                                          smem=214_096, width=40, qtile=256)
 
     k1 = index._k1_operands
     assert k1.lane_padded and tuple(k1.cb.shape) == (M, K, 40)

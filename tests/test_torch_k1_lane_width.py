@@ -69,8 +69,10 @@ def test_the_rule_reads_the_plan_on_the_card_only(monkeypatch):
     index's own shape; elsewhere the plain twin, which gathers nothing,
     keeps the own width."""
     cb = torch.zeros((M, K, 39))
-    plans = {40: dict(streamed=1, cb_smem=0, stages=6, lanes=1, smem=148_576, width=40),
-             39: dict(streamed=0, cb_smem=1, stages=6, lanes=1, smem=200_000, width=39)}
+    plans = {40: dict(streamed=1, cb_smem=0, stages=5, lanes=1, smem=214_096, width=40,
+                      qtile=256),
+             39: dict(streamed=0, cb_smem=1, stages=6, lanes=1, smem=200_000, width=39,
+                      qtile=128)}
     for width, plan in plans.items():
         monkeypatch.setattr(adc, "k1_plan", lambda m, k, d, p=plan: p)
         assert adc._k1_lane_width(cb, "cuda") == width
@@ -240,9 +242,9 @@ K1_LANE_COUNTERS = ("k1.launches", "k1.launches.lane_padded", "k1.gather_lanes")
 
 
 @pytest.mark.parametrize("plan,streamed,expect", [
-    (dict(streamed=1, cb_smem=0, lanes=8), True, (1, 1, 8)),  # gist-960 at 40 lanes
-    (dict(streamed=1, cb_smem=0, lanes=1), False, (1, 0, 1)),  # an odd width left as it is
-    (dict(streamed=0, cb_smem=1, lanes=1), False, (1, 0, 1)),  # held decoded
+    (dict(streamed=1, cb_smem=0, lanes=8, qtile=256), True, (1, 1, 8)),  # gist-960 at 40 lanes
+    (dict(streamed=1, cb_smem=0, lanes=1, qtile=256), False, (1, 0, 1)),  # an odd width as it is
+    (dict(streamed=0, cb_smem=1, lanes=1, qtile=128), False, (1, 0, 1)),  # held decoded
 ], ids=["streamed-padded", "streamed-own-width", "held"])
 def test_a_k1_launch_counts_its_padded_lanes(raw, monkeypatch, plan, streamed, expect):
     """The owner counts each launch on the card in

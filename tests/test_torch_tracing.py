@@ -330,15 +330,18 @@ def _k1_counts(fn):
 
 
 @pytest.mark.parametrize("plan,num_q,expect", [
-    (dict(streamed=0, cb_smem=1, lanes=1), 1024, (1, 0, 0, 9248, 9248, 1)),
-    (dict(streamed=1, cb_smem=0, lanes=1), 1024, (1, 1, 1, 9248, 8 * 9248, 1)),
-    (dict(streamed=1, cb_smem=1, lanes=8), 129, (1, 1, 0, 9248, 2 * 9248, 8)),
-    (dict(streamed=0, cb_smem=0, lanes=1), 7, (1, 0, 1, 9248, 9248, 1)),
-], ids=["held", "streamed-gist", "streamed-ragged", "held-cb-global"])
+    (dict(streamed=0, cb_smem=1, lanes=1, qtile=128), 1024, (1, 0, 0, 9248, 9248, 1)),
+    (dict(streamed=1, cb_smem=0, lanes=1, qtile=256), 1024, (1, 1, 1, 9248, 4 * 9248, 1)),
+    (dict(streamed=1, cb_smem=1, lanes=8, qtile=256), 129, (1, 1, 0, 9248, 9248, 8)),
+    (dict(streamed=0, cb_smem=0, lanes=1, qtile=128), 7, (1, 0, 1, 9248, 9248, 1)),
+    (dict(streamed=1, cb_smem=0, lanes=8, qtile=256), 257, (1, 1, 1, 9248, 2 * 9248, 8)),
+    (dict(streamed=1, cb_smem=1, lanes=8, qtile=128), 1024, (1, 1, 0, 9248, 8 * 9248, 8)),
+], ids=["held", "streamed-gist", "streamed-ragged", "held-cb-global", "streamed-two-tiles",
+        "streamed-tile128"])
 def test_a_k1_launch_is_counted_by_its_plan(plan, num_q, expect):
     """Held decoded, a block is decoded once a launch; streamed, once per
-    128-query tile (a ragged last tile counts); lanes a gather add up over
-    launches."""
+    query tile of the plan's ``qtile`` queries (a ragged last tile counts);
+    lanes a gather add up over launches."""
     n = _k1_counts(lambda: tad.count_launch(plan, 9248 * 128, num_q))
     assert tuple(n[c] for c in K1_PLAN_COUNTERS) == expect
 
@@ -371,41 +374,48 @@ def test_the_batch_cells_shapes_launch_k1_held(card, shape):
     assert n["k1.gather_lanes"] == 1
 
 
-# (streamed, codebooks in shared memory, lanes a gather, operand width) of
-# K1_EDGE_CASES' deep shapes, by (D, m, K); 960 over 25 is laid out as an
-# index lays it (at 40 lanes a subspace, not 39)
+# (streamed, codebooks in shared memory, lanes a gather, operand width,
+# query tile) of K1_EDGE_CASES' deep shapes, by (D, m, K); 960 over 25 is
+# laid out as an index lays it (at 40 lanes a subspace, not 39). Streamed
+# plans take 256 queries a tile but where 128 KB of codebooks in shared
+# memory leave no room for it (800 over 100 at K = 80).
 DEEP_PLANS = {
-    (300, 19, 256): (0, 0, 1, 16), (688, 8, 256): (0, 0, 1, 86),
-    (768, 96, 256): (1, 0, 8, 8), (1000, 250, 16): (1, 1, 4, 4),
-    (800, 100, 1024): (1, 0, 8, 8), (720, 720, 16): (1, 1, 1, 1),
-    (900, 90, 64): (1, 1, 2, 10), (960, 25, 256): (1, 0, 8, 40),
+    (300, 19, 256): (0, 0, 1, 16, 128), (688, 8, 256): (0, 0, 1, 86, 128),
+    (768, 96, 256): (1, 0, 8, 8, 256), (1000, 250, 16): (1, 1, 4, 4, 256),
+    (800, 100, 1024): (1, 0, 8, 8, 256), (720, 720, 16): (1, 1, 1, 1, 256),
+    (900, 90, 64): (1, 1, 2, 10, 256), (960, 25, 256): (1, 0, 8, 40, 256),
+    (800, 100, 80): (1, 1, 8, 8, 128),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dmk", list(DEEP_PLANS), ids=lambda k: f"d{k[0]}-m{k[1]}-K{k[2]}")
 def test_the_plan_the_wrapper_counts_is_the_kernels(card, dmk):
-    """At each deep shape of ``K1_EDGE_CASES``: the plan the wrapper reads
-    (``k1_plan``, cached) is the one ``gulon_adc_scan_plan`` returns, it is
-    the documented one, and the launch is counted by it."""
+    """At each deep shape of ``K1_EDGE_CASES`` (each case of it): the plan
+    the wrapper reads (``k1_plan``, cached) is the one
+    ``gulon_adc_scan_plan`` returns, it is the documented one, and the
+    launch is counted by it."""
     import ctypes
 
     import chip_smoke as cs
 
-    (case,) = [c for c in cs.K1_EDGE_CASES if c[1:4] == dmk]
-    operands, nblk, _ = cs.k1_operands(torch.Generator(device=card).manual_seed(7), *case,
-                                       dev=card)
-    m, k_codes, dsub = operands[3].shape
-    raw = (ctypes.c_int * len(tad.K1_PLAN_FIELDS))()
-    assert tad._kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, raw) == 0
-    plan = tad.k1_plan(m, k_codes, dsub)
-    assert plan == dict(zip(tad.K1_PLAN_FIELDS, raw))
-    assert (plan["streamed"], plan["cb_smem"], plan["lanes"], plan["width"]) == DEEP_PLANS[dmk]
-    n = _k1_counts(lambda: tad.fused_block_scan(*operands, winners=case[5], nblk=nblk))
-    torch.cuda.synchronize()
-    blocks = operands[0].shape[1] // 128
-    tiles = -(-case[4] // 128)
-    assert n == {"k1.launches": 1, "k1.launches.streamed": plan["streamed"],
-                 "k1.launches.cb_global": 1 - plan["cb_smem"], "k1.blocks": blocks,
-                 "k1.block_decodes": blocks * (tiles if plan["streamed"] else 1),
-                 "k1.gather_lanes": plan["lanes"]}
+    cases = [c for c in cs.K1_EDGE_CASES if c[1:4] == dmk]
+    assert cases
+    for case in cases:
+        operands, nblk, _ = cs.k1_operands(torch.Generator(device=card).manual_seed(7), *case,
+                                           dev=card)
+        m, k_codes, dsub = operands[3].shape
+        raw = (ctypes.c_int * len(tad.K1_PLAN_FIELDS))()
+        assert tad._kernel().gulon_adc_scan_plan(m * dsub + 4, m, k_codes, dsub, raw) == 0
+        plan = tad.k1_plan(m, k_codes, dsub)
+        assert plan == dict(zip(tad.K1_PLAN_FIELDS, raw))
+        assert (plan["streamed"], plan["cb_smem"], plan["lanes"], plan["width"],
+                plan["qtile"]) == DEEP_PLANS[dmk]
+        n = _k1_counts(lambda: tad.fused_block_scan(*operands, winners=case[5], nblk=nblk))
+        torch.cuda.synchronize()
+        blocks = operands[0].shape[1] // 128
+        tiles = -(-case[4] // plan["qtile"])
+        assert n == {"k1.launches": 1, "k1.launches.streamed": plan["streamed"],
+                     "k1.launches.cb_global": 1 - plan["cb_smem"], "k1.blocks": blocks,
+                     "k1.block_decodes": blocks * (tiles if plan["streamed"] else 1),
+                     "k1.gather_lanes": plan["lanes"]}
