@@ -3,9 +3,15 @@ plain reference (``h100bench/reference``) from the cell's raw data, the
 index the program built and the answers it gave.
 
 The build is judged by itself (``code_gap``, ``lloyd_gain``,
-``norm_err``, ``coarse_gain``, ``part_miss``); the answers are judged
-against the reference's own ADC scan over that index (``dist_err``,
-``adc_miss``). Each is a widest gap or a share, 0 for a perfect result:
+``norm_err``, ``coarse_gain``, ``part_miss``, ``row_err``); the answers
+are judged against the reference's own scan over that index (``dist_err``,
+``adc_miss``). A PQ index (``flat``, ``ivf``; a flat one with its cache
+decoded is ``flat``) is scanned over its codes' reconstruction; an
+``exact`` index over the data itself, in float64 from the raw rows (never
+the rows the program stored, which ``row_err`` judges), so that there
+``dist_err`` is the gap to the exact distance and ``adc_miss`` the share
+of answers farther than the exact k-th nearest. Each number is a widest
+gap or a share, 0 for a perfect result:
 
 - ``dist_err``: widest gap between a reported distance and the exact
   distance from the query to the reported row's reconstruction, over
@@ -15,6 +21,8 @@ against the reference's own ADC scan over that index (``dist_err``,
   configuration scans (all rows; for IVF, those of the ``probe``
   partitions with the nearest centroids), by more than ``1e-6`` of the
   scale above;
+- ``row_err`` (exact): widest relative gap ``||v - x|| / ||x||`` of a
+  stored row ``v`` to the data's row ``x`` (normalised for angular);
 - ``code_gap``: widest gap between a row's distance to its code's
   codeword and to the nearest codeword, per subspace, over ``||x_s||^2 +
   ||c||^2`` (IVF: on the residuals to the row's partition);
@@ -25,6 +33,9 @@ against the reference's own ADC scan over that index (``dist_err``,
 - ``part_miss``: share of rows whose partition's centroid is farther than
   the nearest centroid by more than TF32 products can err (an exact
   comparison: a sound build reads 0).
+
+``code_gap``, ``lloyd_gain`` and ``norm_err`` read PQ codes: asked of an
+exact index, they raise.
 """
 
 from __future__ import annotations
@@ -49,14 +60,15 @@ PART_ROUNDING = 2.0 ** -7
 class IndexState:
     """What the check reads of a built index, in the corpus's row order."""
 
-    kind: str  # "flat" | "ivf"
-    bounds: List[Tuple[int, int]]
-    codebooks: torch.Tensor  # [m, K, width] f32
-    codes: torch.Tensor  # [N, m] int64
+    kind: str  # "flat" | "ivf" | "exact"
+    bounds: Optional[List[Tuple[int, int]]] = None  # (PQ kinds)
+    codebooks: Optional[torch.Tensor] = None  # [m, K, width] f32 (PQ kinds)
+    codes: Optional[torch.Tensor] = None  # [N, m] int64 (PQ kinds)
     norms: Optional[torch.Tensor] = None  # [N] f32 stored ||x^||^2 (flat)
     part: Optional[torch.Tensor] = None  # [N] int64 partition (IVF)
     centroids: Optional[torch.Tensor] = None  # [P, D] f32 (IVF)
     probe: int = 0  # partitions a query probes (IVF)
+    vectors: Optional[torch.Tensor] = None  # [N, D] f32 stored rows (exact)
 
 
 @dataclasses.dataclass
@@ -76,8 +88,12 @@ def _residual(state: IndexState, x: torch.Tensor, sl: slice = slice(None)) -> to
     return x[sl]
 
 
-def reconstruction(state: IndexState) -> torch.Tensor:
-    """``[N, D]`` float64 reconstruction of every row."""
+def reconstruction(state: IndexState, corpus: torch.Tensor) -> torch.Tensor:
+    """``[N, D]`` float64 rows the answers are judged against: the codes'
+    reconstruction of every row, or for an exact index ``corpus``, the
+    reference's own float64 rows."""
+    if state.kind == "exact":
+        return corpus
     xr = rpq.decode(state.codebooks.to(torch.float64), state.codes, state.bounds)
     if state.kind == "ivf":
         xr = xr + state.centroids.to(torch.float64)[state.part]
@@ -88,8 +104,15 @@ def _blocks(n: int, step: int) -> Iterable[slice]:
     return (slice(s, min(s + step, n)) for s in range(0, n, step))
 
 
+def _pq(state: IndexState, name: str) -> IndexState:
+    """``state``, which must hold PQ codes for the number ``name``."""
+    if state.codes is None:
+        raise ValueError(f"{name} reads PQ codes; a {state.kind} index has none")
+    return state
+
+
 def code_gap(state: IndexState, x: torch.Tensor, block: int = 1 << 15) -> float:
-    cb = state.codebooks.to(torch.float64)
+    cb = _pq(state, "code_gap").codebooks.to(torch.float64)
     cn = (cb * cb).sum(-1)  # [m, K]
     width = cb.shape[2]
     worst = 0.0
@@ -135,6 +158,18 @@ def part_miss(state: IndexState, x: torch.Tensor, block: int = 1 << 14) -> float
     return bad / x.shape[0]
 
 
+def row_err(state: IndexState, x: torch.Tensor, block: int = 1 << 16) -> float:
+    """Widest ``||v - x|| / ||x||`` of the stored rows ``v`` (exact)."""
+    if state.vectors is None:
+        raise ValueError(f"row_err reads stored rows; a {state.kind} index has none")
+    worst = 0.0
+    for sl in _blocks(x.shape[0], block):
+        xb = x[sl]
+        gap = torch.linalg.vector_norm(state.vectors[sl].to(torch.float64) - xb, dim=1)
+        worst = max(worst, float((gap / (torch.linalg.vector_norm(xb, dim=1) + 1e-30)).max()))
+    return worst
+
+
 def answer_numbers(
     state: IndexState,
     xr: torch.Tensor,  # [N, D] f64 reconstruction
@@ -178,7 +213,7 @@ def numbers(
     out: Dict[str, float] = {}
     dev = corpus.device
     if {"dist_err", "adc_miss"} & set(names):
-        xr = reconstruction(state)
+        xr = reconstruction(state, corpus)
         q = queries[torch.from_numpy(answers.query_rows).to(dev)]
         out.update(answer_numbers(
             state, xr, q,
@@ -189,13 +224,14 @@ def numbers(
     if "code_gap" in names:
         out["code_gap"] = code_gap(state, corpus)
     if "lloyd_gain" in names:
-        cb = state.codebooks.to(torch.float64)
+        cb = _pq(state, "lloyd_gain").codebooks.to(torch.float64)
         width = cb.shape[2]
         pts = rpq.split(_residual(state, corpus), state.bounds, width)
         out["lloyd_gain"] = lloyd_gain(pts, cb)
         del pts
     if "norm_err" in names:
-        xr = rpq.decode(state.codebooks.to(torch.float64), state.codes, state.bounds)
+        cb = _pq(state, "norm_err").codebooks.to(torch.float64)
+        xr = rpq.decode(cb, state.codes, state.bounds)
         ref = (xr * xr).sum(-1)
         out["norm_err"] = float(
             ((state.norms.to(torch.float64) - ref).abs() / (ref + 1e-30)).max()
@@ -206,6 +242,8 @@ def numbers(
         out["coarse_gain"] = lloyd_gain(corpus[None], c[None])
     if "part_miss" in names:
         out["part_miss"] = part_miss(state, corpus)
+    if "row_err" in names:
+        out["row_err"] = row_err(state, corpus)
     missing = [n for n in names if n not in out]
     if missing:
         raise ValueError(f"no such check number: {missing}")

@@ -2,9 +2,10 @@
 program's always-on counters ``k1.block_decodes`` over ``k1.blocks``
 (``gulon_tpu_torch/ops/cuda/adc.py::count_launch``, by the launch plan
 the kernel itself picks). 1.0 where a block is held decoded and decoded
-once; in the streamed plan a block is decoded once per 128-query tile, 8
-times a 1024-query batch. ``None`` where no device work was traced (a CPU
-run) or where the program keeps no such counters."""
+once; in the streamed plan a block is decoded once per query tile of the
+plan's ``qtile`` queries (256 where it fits, else 128): 4 times a
+1024-query batch at gist-960. ``None`` where no device work was traced (a
+CPU run) or where the program keeps no such counters."""
 
 
 def _program_counters(ctx):

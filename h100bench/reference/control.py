@@ -2,10 +2,14 @@
 below the one the configuration states (its ``checks`` file names each).
 
 It builds the same index (k-means from drawn rows, the reference's
-subspace split, encode, norms) and answers the same queries (the flat
-scan over every row; IVF: the ``probe`` partitions with the nearest
-centroids, then their rows), with every product on the grid of the
-precision given, so that the check can be shown to fail it.
+subspace split, encode, norms; exact: the rows themselves) and answers
+the same queries (the flat scan over every row; IVF: the ``probe``
+partitions with the nearest centroids, then their rows; exact: every
+row), with every product on the grid of the precision given, so that the
+check can be shown to fail it. A flat index with its cache decoded is
+the flat control: the cache is the codes' reconstruction. The exact
+control keeps its rows on the ``rows`` grid and reports the distances its
+``scan`` computes from them, with no float32 rescore.
 """
 
 from __future__ import annotations
@@ -38,6 +42,9 @@ class ControlSystem:
         x = torch.from_numpy(np.asarray(vectors, np.float32)).to(self.device)
         if cosine:
             x = exact.normalized(x)
+        if spec["kind"] == "exact":
+            rows = rpq.rounded(x, p["rows"])
+            return ControlIndex(IndexState(kind="exact", vectors=rows), cosine)
         m, k = spec["pq"]["num_quantizers"], spec["pq"]["num_clusters"]
         iters, seed = max_iters or spec["pq"]["max_iters"], spec["pq"]["seed"]
         bounds = rpq.subspace_bounds(x.shape[1], m)
@@ -65,16 +72,19 @@ class ControlSystem:
         q = torch.from_numpy(np.asarray(q, np.float32)).to(self.device)
         if index.cosine:
             q = exact.normalized(q)
-        r = rpq.decode(s.codebooks, s.codes, s.bounds)  # residual reconstruction
+        if s.kind == "exact":
+            r, norms = s.vectors, (s.vectors * s.vectors).sum(-1)
+        else:
+            r, norms = rpq.decode(s.codebooks, s.codes, s.bounds), s.norms  # residual
         if s.kind == "ivf":
             c = s.centroids
-            row_const = s.norms + 2.0 * (c[s.part] * r).sum(-1)
+            row_const = norms + 2.0 * (c[s.part] * r).sum(-1)
         vals, rows = [], []
         for b in range(0, q.shape[0], block):
             qb = q[b : b + block]
             qn = (qb * qb).sum(-1)
-            if s.kind == "flat":
-                d = qn[:, None] + s.norms[None, :] - 2.0 * rpq.mm(qb, r.T, p["scan"])
+            if s.kind != "ivf":
+                d = qn[:, None] + norms[None, :] - 2.0 * rpq.mm(qb, r.T, p["scan"])
             else:
                 cdist = qn[:, None] + (c * c).sum(-1)[None, :] - 2.0 * rpq.mm(qb, c.T, "f32")
                 probed = torch.topk(cdist, min(s.probe, c.shape[0]), dim=1, largest=False).indices
@@ -88,7 +98,8 @@ class ControlSystem:
 
     @staticmethod
     def corpus_rows(index: ControlIndex) -> np.ndarray:
-        return np.arange(index.state.codes.shape[0])
+        s = index.state
+        return np.arange((s.vectors if s.kind == "exact" else s.codes).shape[0])
 
     @staticmethod
     def export(index: ControlIndex) -> IndexState:

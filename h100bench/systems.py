@@ -10,6 +10,12 @@ import torch
 from h100bench.check import IndexState
 from h100bench.corpus import rows_of_keys
 
+# ExactIndex field <- the key of an exact configuration's index section
+EXACT_FIELDS = {
+    "operand": "operand", "rescore_factor": "rescore_factor",
+    "exact_rescore": "exact_rescore", "scan_strategy": "strategy",
+}
+
 
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
@@ -28,12 +34,23 @@ class PortSystem:
 
     def build(self, keys, vectors: np.ndarray, max_iters=None):
         """Build through the public entry from host arrays, as users call it;
-        ``max_iters`` cuts the Lloyd loops (a warm-up build)."""
+        ``max_iters`` cuts the Lloyd loops (a warm-up build). An exact index
+        takes the fields its file states; a flat one with ``"cache": true``
+        decodes its cache after the build, as ``enable_cache()`` does for
+        users."""
         gt, spec = self.gt, self.spec
         metric = gt.Metric.parse(spec["metric"])
+        if spec["kind"] == "exact":
+            index = gt.build_exact_index(keys, vectors, metric, device=self.device)
+            for field, key in EXACT_FIELDS.items():
+                setattr(index, field, spec[key])
+            _sync(self.device)
+            return index
         pq = gt.PQConfig(**dict(spec["pq"], **({"max_iters": max_iters} if max_iters else {})))
         if spec["kind"] == "flat":
             index = gt.build_flat_index(keys, vectors, metric, pq, device=self.device)
+            if spec.get("cache"):
+                index.enable_cache()
         else:
             index = gt.build_ivf_index(
                 keys, vectors, metric, pq, num_partitions=spec["partitions"],
@@ -65,6 +82,10 @@ class PortSystem:
 
     def export(self, index) -> IndexState:
         rows = torch.from_numpy(self.corpus_rows(index)).to(index.device)
+        if self.spec["kind"] == "exact":
+            vectors = torch.empty_like(index.vectors)
+            vectors[rows] = index.vectors
+            return IndexState(kind="exact", vectors=vectors)
         codes = torch.empty_like(index.codes, dtype=torch.long)
         codes[rows] = index.codes.long()
         state = IndexState(

@@ -17,18 +17,28 @@ CELLS = {  # real cell -> (tiny configuration, traffic)
     "glove100.batch1024": ("tiny-flat", "batch1024"),
     "sift128.ivf.batch1024": ("tiny-ivf", "batch1024"),
     "glove100.build": ("tiny-flat", "build.back-to-back"),
+    "gist960.exact.batch1024": ("tiny-exact", "batch1024"),
+    "glove100.cached.batch1024": ("tiny-cached", "batch1024"),
 }
+KINDS = ("flat", "ivf", "exact", "cached")
 # limits at the tiny size: sound CPU runs read far below them
 TINY_LIMITS = {
     "dist_err": 1e-5, "adc_miss": 0.05, "code_gap": 1e-5, "lloyd_gain": 0.01,
-    "norm_err": 1e-5, "coarse_gain": 0.01, "part_miss": 0.0,
+    "norm_err": 1e-5, "coarse_gain": 0.01, "part_miss": 0.0, "row_err": 0.0,
+}
+_INDEX = {
+    "flat": {"kind": "flat", "metric": "cosine"},
+    "ivf": {"kind": "ivf", "metric": "l2", "partitions": 8, "probe": 2},
+    "exact": {"kind": "exact", "metric": "l2", "operand": "bf16", "rescore_factor": 4,
+              "exact_rescore": True, "strategy": "auto"},
+    "cached": {"kind": "flat", "metric": "cosine", "cache": True},
 }
 
 
 def tiny_config(kind: str) -> dict:
-    index = {"kind": "flat", "metric": "cosine"} if kind == "flat" else {
-        "kind": "ivf", "metric": "l2", "partitions": 8, "probe": 2}
-    index["pq"] = {"num_clusters": 16, "num_quantizers": 4, "max_iters": 100, "seed": 0}
+    index = dict(_INDEX[kind])
+    if kind != "exact":
+        index["pq"] = {"num_clusters": 16, "num_quantizers": 4, "max_iters": 100, "seed": 0}
     return {
         "name": f"tiny-{kind}",
         "dataset": {"n": 4096, "d": 16, "queries": 300, "k": 10},
@@ -44,7 +54,7 @@ def make_root(tmp: Path, *, real_limits: bool = False) -> Path:
     for sub in ("configs", "traffic", "checks"):
         (h / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(REPO / "h100bench" / "metrics", h / "metrics", dirs_exist_ok=True)
-    for kind in ("flat", "ivf"):
+    for kind in KINDS:
         (h / "configs" / f"tiny-{kind}.json").write_text(json.dumps(tiny_config(kind)))
     for _, traffic in CELLS.values():
         shutil.copy(REPO / "h100bench" / "traffic" / f"{traffic}.json", h / "traffic")
@@ -57,7 +67,7 @@ def make_root(tmp: Path, *, real_limits: bool = False) -> Path:
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     bench["configs"] = [
         {"name": f"tiny-{k}", "source": "test", "file": f"h100bench/configs/tiny-{k}.json",
-         "reduced": [], "why": "test"} for k in ("flat", "ivf")
+         "reduced": [], "why": "test"} for k in KINDS
     ]
     bench["workloads"] = [
         {"name": cell, "config": conf, "traffic": traffic, "chips": 1, "why": "test"}

@@ -44,11 +44,70 @@ def test_traced_runs_report_per_layer_metrics_and_a_breakdown(root):
     assert any(n.endswith(".profile.txt") for n in written)
 
 
+@pytest.mark.parametrize("cell", ["gist960.exact.batch1024", "glove100.cached.batch1024"])
+def test_a_sound_run_of_each_new_index_kind_is_correct(root, cell):
+    res, _, _ = tiny.run(root, cell)
+    assert res["correct"] and res["attempted"] % 1024 == 0 and res["attempted"] >= 1024
+    assert set(res["metrics"]) == {"qps", "recall_at_10", "setup_s"}
+    if cell.startswith("gist960.exact"):
+        assert set(res["checks"]) == {"dist_err", "adc_miss", "row_err"}
+        assert res["checks"]["row_err"]["value"] == 0.0
+        assert res["metrics"]["recall_at_10"]["value"] > 0.99
+
+
+def test_the_port_builds_each_kind_its_file_states(root):
+    """An exact configuration sets the index's fields and exports its rows
+    in corpus order; a cached one decodes its cache, so ``auto`` resolves to
+    the cached route, and exports as a flat index."""
+    import numpy as np
+
+    from h100bench import corpus
+    from h100bench.spec import Spec
+    from h100bench.systems import PortSystem
+
+    conf = Spec(root).cell("gist960.exact.batch1024").config
+    x, _ = corpus.make(conf, "cpu")
+    perm = np.random.default_rng(0).permutation(len(x))
+    system = PortSystem(dict(conf, index=dict(conf["index"], rescore_factor=3)), "cpu")
+    index = system.build(np.asarray(corpus.keys_for(len(x)))[perm], x[perm])
+    assert (index.operand, index.rescore_factor, index.exact_rescore) == ("bf16", 3, True)
+    state = system.export(index)
+    assert state.kind == "exact" and state.codes is None
+    assert torch.equal(state.vectors, torch.from_numpy(x))
+    assert system.corpus_rows(index).tolist() == list(range(len(x)))
+
+    conf = Spec(root).cell("glove100.cached.batch1024").config
+    x, _ = corpus.make(conf, "cpu")
+    system = PortSystem(conf, "cpu")
+    index = system.build(corpus.keys_for(len(x)), x)
+    assert index.decoded_cache is not None and index.resolve_strategy(1024, 10) == "cached"
+    state = system.export(index)
+    assert state.kind == "flat" and state.norms is not None and state.vectors is None
+
+
+@pytest.mark.parametrize("exact_rescore", [True, False])
+def test_the_programs_own_lower_path_is_the_exact_cells_control(root, monkeypatch, exact_rescore):
+    """K2's route (its plain twin here) reports distances within
+    ``dist_err``'s limit with the f32 rescore the configuration states, and
+    fails it with the distances re-ranked from its bf16 operand:
+    ``control.py --program-index``. (At 32 row blocks one winner a block
+    misses far more answers than at 7,813, so ``adc_miss`` is not read.)"""
+    from h100bench import control
+
+    monkeypatch.setattr(control, "ROOT", root)
+    out = control.run("gist960.exact.batch1024", 7, 0.5, "cpu",
+                      {"strategy": "pallas", "exact_rescore": exact_rescore})
+    dist_err = out["checks"]["dist_err"]
+    assert (dist_err["value"] <= dist_err["limit"]) is exact_rescore
+    assert exact_rescore or out["correct"] is False
+
+
 def _patch_query(monkeypatch, fault):
+    from gulon_tpu_torch.models.exact import ExactIndex
     from gulon_tpu_torch.models.flat import FlatIndex
     from gulon_tpu_torch.models.ivf import IVFIndex
 
-    for cls in (FlatIndex, IVFIndex):
+    for cls in (FlatIndex, IVFIndex, ExactIndex):
         original = cls.query_arrays
 
         def broken(self, k, vectors, _original=original):
@@ -81,7 +140,8 @@ def _altered(index, d, i):  # one answer altered where it is produced
     return d, i
 
 
-@pytest.mark.parametrize("cell", ["glove100.batch1024", "sift128.ivf.batch1024"])
+@pytest.mark.parametrize("cell", ["glove100.batch1024", "sift128.ivf.batch1024",
+                                  "gist960.exact.batch1024", "glove100.cached.batch1024"])
 @pytest.mark.parametrize("fault", ["stale", "half", "altered"])
 def test_a_broken_query_path_is_not_correct(root, monkeypatch, cell, fault):
     _patch_query(monkeypatch, {"stale": _stale(), "half": _half, "altered": _altered}[fault])

@@ -74,8 +74,9 @@ def test_the_batch_readers_read_the_latest_session(readers, flat, corpus):
     query = spans["gulon.query"]
     assert query["count"] == 1
     waits = {k: v for k, v in spans.items() if k.startswith("gulon.wait.")}
-    assert set(waits) == {"gulon.wait.upload_queries", "gulon.wait.upload_base_cols"}
-    assert readers["host_syncs.batch"](_ctx(TRACED)) == 2.0
+    # the index holds K1's operands: a batch waits only on its queries' upload
+    assert set(waits) == {"gulon.wait.upload_queries"}
+    assert readers["host_syncs.batch"](_ctx(TRACED)) == 1.0
     host = readers["query_host_ms.batch"](_ctx(TRACED))
     wait_s = sum(v["total_s"] for v in waits.values())
     assert host == pytest.approx(1e3 * (query["total_s"] - wait_s))

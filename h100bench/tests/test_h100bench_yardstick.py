@@ -118,3 +118,55 @@ def test_idle_gaps_go_to_the_innermost_open_span():
     # gaps: 0-10 (mid 5: outer), 30-60 (mid 45: inner), 70-100 (mid 85: outer)
     assert gaps == {"outer": 40e-9, "inner": 30e-9}
     assert dict(idle_gaps(merged, [], 0, 100)) == {"host outside any span": 70e-9}
+
+
+def test_check_numbers_of_an_exact_index_read_the_data_not_the_stored_rows():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(512, 8, generator=g, dtype=torch.float64)
+    q = x[:16] + 0.01
+    d, rows = exact.topk_smallest(q, x, 10)
+    ans = check.Answers(np.arange(16), d.numpy(), rows.numpy())
+    names = ["dist_err", "adc_miss", "row_err"]
+    sound = check.IndexState("exact", vectors=x.float())
+    nums = check.numbers(names, sound, x, q, ans)
+    assert nums["dist_err"] < 1e-12 and nums["adc_miss"] == 0.0 and nums["row_err"] < 1e-7
+    # rows stored on the bf16 grid, answers consistent with them: the data sees it
+    xb = rpq.rounded(x, "bf16")
+    db, rb = exact.topk_smallest(q, xb.double(), 10)
+    low = check.numbers(names, check.IndexState("exact", vectors=xb), x, q,
+                        check.Answers(np.arange(16), db.numpy(), rb.numpy()))
+    assert low["dist_err"] > 1e-4 and low["row_err"] > 1e-4
+    for name in ("code_gap", "lloyd_gain", "norm_err"):
+        with pytest.raises(ValueError, match="PQ codes"):
+            check.numbers([name], sound, x)
+
+
+def test_dense_roofline_reads_the_work_adc_scan_work_gives():
+    from types import SimpleNamespace
+
+    from h100bench.spec import Spec
+
+    read = Spec(h100bench_tiny.REPO).metric_reader("dense_roofline")
+    config = {"dataset": {"n": 1_000_000, "d": 960}}
+    traffic = {"batch": 1024, "k": 10}
+    # two batches: K2 3 ms each, beside K1 and a sort that do not count
+    kernels = [("void dense_kernel<Bf16Op>(CUtensorMap, CUtensorMap)", 0, 3_000_000),
+               ("void dense_kernel<Bf16Op>(CUtensorMap, CUtensorMap)", 4_000_000, 7_000_000),
+               ("void adc_scan_kernel<false, 3, 128>", 7_000_000, 9_000_000),
+               ("DeviceSegmentedRadixSortKernel", 9_000_000, 9_500_000)]
+
+    def ctx(kernels, peaks=H100):
+        return SimpleNamespace(view=SimpleNamespace(kernels=kernels, units=2), config=config,
+                               traffic=traffic, peaks=peaks)
+
+    flop, nbytes = roofline.adc_scan_work(
+        1024, 1_000_000, 960, distinct_rows=1_000_000, code_bytes_per_row=1920, k=10)
+    # by hand: 2 x 1024 x 10^6 x 960 = 1.96608e12 FLOP, 1.988 ms at 989 TFLOP/s;
+    # 1.92e9 + 1,966,080 + 81,920 bytes, 0.574 ms at 3.35 TB/s
+    assert flop == 1.96608e12 and nbytes == 1_920_000_000 + 1024 * 960 * 2 + 1024 * 80
+    least, which = roofline.least_seconds(flop, nbytes, H100)
+    assert which == "bf16 tensor cores"
+    share = read(ctx(kernels))
+    assert share == pytest.approx(100.0 * least / 3e-3) == pytest.approx(66.26, abs=0.01)
+    assert read(ctx(kernels[2:])) is None  # no dense kernel ran
+    assert read(ctx(kernels, peaks=None)) is None  # a card without published peaks
