@@ -262,7 +262,7 @@ def build_ivf_index(
         coarse_cfg = KMeansConfig(
             k=num_partitions, max_iters=coarse_max_iters, seed=coarse_seed, init=coarse_init,
         )
-        with tracing.span("gulon.build.train"):
+        with tracing.span("gulon.build.train"), tracing.span("gulon.build.coarse"):
             if mesh is not None:
                 from gulon_tpu_torch.parallel.ops import sharded_fit_kmeans
 

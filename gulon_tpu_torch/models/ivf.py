@@ -596,6 +596,8 @@ def _pallas_ivf_query(
         d = torch.where(valid, bv + gt + qn[:, None], _INF)
         kk = min(k, d.shape[1])
         fetch = min(rescore * kk, d.shape[1]) if rescore else kk
+        tracing.count("ivf.selects")
+        tracing.count("ivf.select_keys", d.numel())
         best, pos = smallest_k_nan_last(d, fetch)
         pos = pos.long()
         win_rows = torch.gather(bi, 1, pos)

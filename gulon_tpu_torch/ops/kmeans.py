@@ -2,13 +2,17 @@
 
 Counterpart of ``gulon_tpu/ops/kmeans.py`` (reference ``KMeans.scala``):
 
-- assignment is a blocked matmul + argmin (``||c||^2 - 2<x,c>``,
-  ``KMeans.scala:37-52``), so no ``[n, k]`` score matrix of the whole
-  input is ever held;
-- the centroid update is a blocked one-hot matmul at full f32, the
-  reference's segment sum (``gulon_tpu/ops/kmeans.py:154``): it adds in a
-  fixed order, so a fixed input gives the same bits on every run, on the
-  card too; empty clusters become zero vectors (``KMeans.scala:198-226``);
+- assignment is one batched product per row block and an argmin
+  (``||c||^2 - 2<x,c>``, ``KMeans.scala:37-52``): the rows carry two
+  lanes of ones and the centroids ``-2 c`` and ``||c||^2`` split in two,
+  so the product is the score and each score tile is written once and
+  read once; no ``[n, k]`` score matrix of the whole input is held;
+- the centroid update sorts each subspace's rows by assignment (one
+  stable sort) and sums each cluster's run of rows in a fixed order, the
+  reference's segment sum (``gulon_tpu/ops/kmeans.py:154``) at about
+  ``n d`` reads, not ``n k d`` multiply-adds: a fixed input gives the
+  same bits on every run, on the card too (no float atomics); empty
+  clusters become zero vectors (``KMeans.scala:198-226``);
 - all m subspaces of a stacked ``[m, n, d]`` input train at once, and
   each stops at its own fixpoint ("assignment unchanged",
   ``KMeans.scala:149``): a converged subspace keeps its centroids and
@@ -53,26 +57,81 @@ class KMeansResult(NamedTuple):
     converged: torch.Tensor  # [m] bool (or scalar)
 
 
+# the assignment's product has a depth (the d lanes and two of ||c||^2)
+# and a width (the centroids) rounded up to this: rows of 32 bytes, which
+# the tensor cores' loads and the score tile's stores want (on an H100,
+# the product over 9,990 centroids took 1.8x the time of 9,992 at
+# deep-image-96's coarse shape)
+_ALIGN = 8
+# the update sums a cluster's sorted rows in pieces of at most this many
+# rows, each in row order, then the pieces in order
+_PIECE_ROWS = 128
+# the norm of a padding centroid: its score, above any real one
+_PAD_NORM = 2.0 ** 100
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _score_centroids(centroids: torch.Tensor) -> torch.Tensor:
+    """``[m, k, d] -> [m, k', w]``: ``-2 c``, then ``||c||^2`` as a part on
+    the TF32 grid (its low 13 bits cleared) and the rest, then zeros; and
+    padding centroids up to ``k'`` whose score is ``_PAD_NORM``. A row
+    ``[x, 1, 1, 0...]`` times it is ``||c||^2 - 2<x,c>``: ``-2 c`` is on
+    the grid ``c`` is on, and the norm keeps its f32 bits to within 2^-20
+    of it under TF32 (the rest is at most 2^-10 of the norm)."""
+    m, k, d = centroids.shape
+    cn = sq_norms(centroids)
+    hi = (cn.view(torch.int32) & -(1 << 13)).view(torch.float32)
+    out = centroids.new_zeros((m, _aligned(k), _aligned(d + 2)))
+    out[:, :k, :d] = -2.0 * centroids
+    out[:, :k, d] = hi
+    out[:, :k, d + 1] = cn - hi
+    out[:, k:, d] = _PAD_NORM
+    return out
+
+
 def _assign_blocked(
     x: torch.Tensor, centroids: torch.Tensor, block: int,
     precision: str = "default",
 ) -> torch.Tensor:
     """Nearest centroid, tiled over rows: ``[m, n, d], [m, k, d] -> [m, n]``
-    int32 (ties to the lowest centroid, as ``jnp.argmin``)."""
-    n = x.shape[1]
+    int32 (ties to the lowest centroid, as ``jnp.argmin``). Each block's
+    scores are one batched product (:func:`_score_centroids`), at
+    ``precision``; the padding centroids never win."""
+    m, n, d = x.shape
     block = max(1, min(block, n))
-    cn = sq_norms(centroids)  # [m, k]
-    ct = centroids.transpose(1, 2)  # [m, d, k]
-    out = torch.empty(x.shape[:2], dtype=torch.int32, device=x.device)
+    ct = _score_centroids(centroids.to(torch.float32)).transpose(1, 2)  # [m, w, k]
+    xa = x.new_zeros((m, block, ct.shape[1]), dtype=torch.float32)
+    xa[:, :, d : d + 2] = 1.0
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     for start in range(0, n, block):
-        xt = x[:, start : start + block]
-        scores = cn[:, None, :] - 2.0 * matmul(xt, ct, precision)
-        out[:, start : start + block] = torch.argmin(scores, dim=-1)
+        rows = min(block, n - start)
+        xa[:, :rows, :d] = x[:, start : start + rows]
+        out[:, start : start + rows] = torch.argmin(matmul(xa[:, :rows], ct, precision), dim=-1)
     return out
 
 
-# elements of one [m, block, k] one-hot tile of the centroid update
-_UPDATE_TILE = 1 << 26
+def _ordered_segment_sum(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """``[S, d]`` sums of the consecutive runs of ``rows`` ``[R, d]``, run
+    ``s`` being ``lengths[s]`` rows (the lengths add up to ``R``).
+
+    Each run is summed in pieces of ``_PIECE_ROWS`` rows, each piece in
+    row order, then its pieces in order (``torch.segment_reduce``: a
+    thread a piece and lane): the order of addition depends on the
+    lengths alone, and nothing is read back to the host. The piece count
+    is padded to a bound known on the host, the spare pieces empty and
+    the last run's."""
+    (num,), dev, piece = lengths.shape, lengths.device, _PIECE_ROWS
+    total = rows.shape[0] // piece + num  # >= sum of max(ceil(len / piece), 1)
+    pieces = torch.clamp((lengths + piece - 1) // piece, min=1)
+    pieces[-1] += total - pieces.sum()
+    run = torch.repeat_interleave(torch.arange(num, device=dev), pieces, output_size=total)
+    nth = torch.arange(total, device=dev) - (torch.cumsum(pieces, 0) - pieces)[run]
+    sizes = torch.clamp(lengths[run] - nth * piece, min=0, max=piece)
+    partial = torch.segment_reduce(rows, "sum", lengths=sizes, axis=0, unsafe=True)
+    return torch.segment_reduce(partial, "sum", lengths=pieces, axis=0, unsafe=True)
 
 
 def _segment_sums(
@@ -82,28 +141,23 @@ def _segment_sums(
     """Per-cluster sums ``[m, k, d]`` and counts ``[m, k, 1]`` (f32) of
     the rows, leaving out rows where the ``[n]`` mask ``valid`` is False.
 
-    The sums are blocked one-hot matmuls at full f32, block after block in
-    row order (``gulon_tpu/ops/kmeans.py:154-183``), so their order of
-    addition is fixed and a fixed input gives the same bits on every run;
-    ``index_add_`` adds with float atomics on the card, in no fixed order.
-    The counts are an integer ``bincount``."""
+    Each subspace's rows are stably sorted by cluster, then each
+    cluster's run is summed in a fixed order (:func:`_ordered_segment_sum`),
+    so a fixed input gives the same bits on every run; ``index_add_``
+    adds with float atomics on the card, in no fixed order. Rows left out
+    sort into one more cluster, dropped. The counts are an integer
+    ``bincount``."""
     m, n, d = x.shape
-    block = max(1, min(n, _UPDATE_TILE // max(m * k, 1)))
-    ids = torch.arange(k, device=x.device, dtype=assignments.dtype)
-    sums = torch.zeros((m, k, d), dtype=torch.float32, device=x.device)
-    for start in range(0, n, block):
-        a = assignments[:, start : start + block]
-        onehot = a[:, :, None] == ids  # [m, b, k]
-        if valid is not None:
-            onehot = onehot & valid[None, start : start + block, None]
-        sums += matmul(
-            onehot.to(torch.float32).transpose(1, 2), x[:, start : start + block], "highest"
-        )
-    seg = assignments.long() + torch.arange(m, device=x.device)[:, None] * k
+    keys = assignments.to(torch.int32)
     if valid is not None:
-        seg = seg[:, valid]
-    counts = torch.bincount(seg.reshape(-1), minlength=m * k).reshape(m, k, 1)
-    return sums, counts.to(torch.float32)
+        keys = torch.where(valid[None, :], keys, k)
+    order = torch.sort(keys, dim=1, stable=True).indices  # [m, n]
+    rows = torch.gather(x.to(torch.float32), 1, order[:, :, None].expand(m, n, d))
+    runs = keys.long() + torch.arange(m, device=x.device)[:, None] * (k + 1)
+    counts = torch.bincount(runs.reshape(-1), minlength=m * (k + 1))
+    sums = _ordered_segment_sum(rows.reshape(m * n, d), counts)
+    return (sums.reshape(m, k + 1, d)[:, :k],
+            counts.reshape(m, k + 1, 1)[:, :k].to(torch.float32))
 
 
 def _means(sums: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

@@ -76,14 +76,15 @@ def split_subspaces(x: torch.Tensor, bounds, pad_width: int) -> torch.Tensor:
 
 class PQConfig(NamedTuple):
     """Mirrors ``ProductQuantizer.Config`` (``ProductQuantizer.scala:107-111``);
-    the same fields and defaults as ``gulon_tpu.ops.pq.PQConfig``."""
+    the same fields and defaults as ``gulon_tpu.ops.pq.PQConfig``, and
+    ``encode_precision``."""
 
     num_clusters: int = 256
     num_quantizers: int = 25
     max_iters: int = 100
     seed: int = 0
     block_rows: int = 65536
-    # training/encode matmul precision, see ops/precision.py
+    # the training's matmul precision, see ops/precision.py
     precision: str = "default"
     # optional row subsample for codebook training
     train_sample: Optional[int] = None
@@ -93,6 +94,9 @@ class PQConfig(NamedTuple):
     # scan's operands are bf16, so its reconstruction points are then
     # exactly the codebook's
     snap_bf16: bool = True
+    # the precision at which the trained quantizer assigns codes
+    # (ProductQuantizer.encode_precision)
+    encode_precision: str = "highest"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +106,9 @@ class ProductQuantizer:
     codebooks: torch.Tensor  # [m, K, pad_width] f32, zero-padded
     bounds: Tuple[Tuple[int, int], ...]  # (start, width) per subspace
     num_clusters: int
+    # the encode's matmul precision (PQConfig.encode_precision); a saved
+    # index does not keep it, and loads at the default
+    encode_precision: str = "highest"
 
     @property
     def num_quantizers(self) -> int:
@@ -140,11 +147,18 @@ class ProductQuantizer:
         return split_subspaces(x, self.bounds, self.pad_width)
 
     def encode(
-        self, x, block_rows: int = 65536, precision: str = "default"
+        self, x, block_rows: int = 65536, precision: Optional[str] = None
     ) -> torch.Tensor:
-        """``[n, D] -> [n, m]`` nearest-codeword index per subspace."""
+        """``[n, D] -> [n, m]`` nearest-codeword index per subspace, at
+        ``precision`` or else the quantizer's ``encode_precision``, full f32
+        by default: the reference's f32 argmin
+        (``ProductQuantizer.scala:25-35``). Under TF32 a row can take a
+        codeword farther than its nearest by about 5e-4 of ``||x_s||^2 +
+        ||c||^2``; codes are assigned once, so the f32 product costs little."""
         xs = self.split(x)
-        assigns = _assign_blocked(xs, self.codebooks, block_rows, precision)
+        assigns = _assign_blocked(
+            xs, self.codebooks, block_rows, precision or self.encode_precision
+        )
         return assigns.T.to(self.dtype_codes)
 
     def decode(self, codes: torch.Tensor) -> torch.Tensor:
@@ -291,5 +305,6 @@ def train_product_quantizer(
     if config.snap_bf16:
         centroids = centroids.to(torch.bfloat16).to(torch.float32)
     return ProductQuantizer(
-        codebooks=centroids, bounds=bounds, num_clusters=config.num_clusters
+        codebooks=centroids, bounds=bounds, num_clusters=config.num_clusters,
+        encode_precision=config.encode_precision,
     )

@@ -267,12 +267,13 @@ def sharded_encode(
     *,
     chunk: int = 1 << 20,
     block_rows: int = 65536,
-    precision: str = "default",
+    precision: Optional[str] = None,
 ) -> np.ndarray:
     """Mesh-parallel bulk encode: rows shard over every device of the mesh
     (both axes), each device encodes its rows with its copy of the
     codebooks, and ``x`` (host array or tensor) streams through the mesh
-    ``chunk`` rows at a time, never the whole corpus through one device.
+    ``chunk`` rows at a time, never the whole corpus through one device,
+    at ``precision`` or else the quantizer's ``encode_precision``.
     Returns the ``[N, m]`` codes as a host array, in every process."""
     positions = _positions(mesh)
     n_dev, sub = mesh.size, mesh.devices.shape[1]

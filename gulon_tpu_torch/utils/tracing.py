@@ -24,7 +24,9 @@
   ``k1.blocks``, ``k1.block_decodes``, ``k1.gather_lanes``), and
   ``k1.launches.lane_padded`` (``K1Operands.scan``: launches whose
   codebook and query operands carry zero lanes past each subspace's own
-  width).
+  width), and the IVF K1 route's selection (``models/ivf.py``:
+  ``ivf.selects``, its calls, and ``ivf.select_keys``, the keys its sort
+  takes, counted from the shape).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

@@ -5,9 +5,10 @@ takes the JAX package's init draw through ``init_indices=`` (the uniform
 sample or the k-means++ draw); with it and ``precision="highest"`` the
 two loops follow the same trajectory up to f32 summation order: >= 99.9 %
 of assignments equal, centroids within atol 1e-4, equal iteration counts
-and convergence flags. The centroid update is the JAX package's blocked
-one-hot sum (within 1e-5 relative), and the progress reports carry its
-six values.
+and convergence flags. The centroid update equals the JAX package's blocked
+one-hot sum and a plain one-hot update (within 1e-5 relative), the
+assignment a plain argmin, ties included, two runs give the same bits,
+and the progress reports carry its six values.
 """
 
 import numpy as np
@@ -132,17 +133,83 @@ def test_update_matches_blocked_one_hot(m, n, k):
         assert np.all(got[i, k - 2:] == 0.0)
 
 
-def test_update_is_blocked_in_row_order(monkeypatch):
-    """Tiles of a few rows give the same means as one tile, within f32
-    summation order: the block loop covers every row once."""
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.normal(size=(2, 1000, 4)).astype(np.float32))
-    a = torch.from_numpy(rng.integers(0, 9, size=(2, 1000)).astype(np.int32))
-    whole = tkm._update(x, a, 9)
-    monkeypatch.setattr(tkm, "_UPDATE_TILE", 2 * 9 * 37)  # 37-row tiles
-    np.testing.assert_allclose(
-        tkm._update(x, a, 9).numpy(), whole.numpy(), rtol=1e-5, atol=1e-6
-    )
+def _plain_update(x, a, k, valid=None):
+    """The update written out plainly: a ``[m, n, k]`` one-hot of the
+    assignments (rows left out by ``valid`` zeroed) times the rows, in
+    float64; empty clusters zero."""
+    onehot = torch.nn.functional.one_hot(a.long(), k).to(torch.float64)
+    if valid is not None:
+        onehot = onehot * valid[None, :, None]
+    sums = onehot.transpose(1, 2) @ x.to(torch.float64)
+    counts = onehot.sum(dim=1)[..., None]
+    return torch.where(counts > 0, sums / counts.clamp(min=1), 0.0), counts
+
+
+@pytest.mark.parametrize("m,n,d,k,piece", [
+    (1, 20000, 6, 4096, 128),  # about 5 rows a cluster, many clusters empty
+    (2, 6000, 96, 40, 128),  # runs of about 150 rows: two pieces each
+    (3, 3000, 4, 256, 3),  # pieces of 3 rows: many a run, a ragged last
+    (25, 800, 4, 256, 128),  # PQ's shape, small
+], ids=["k4096", "d96-two-pieces", "pieces-of-3", "m25"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all-rows", "valid-mask"])
+def test_update_matches_plain_one_hot(monkeypatch, m, n, d, k, piece, masked):
+    """The sorted, fixed-order segment sum against the plain one-hot
+    update in float64, at 1e-5 relative (atol 1e-6): f32 sums of at most
+    a few hundred rows of magnitude about 4 round by under 1e-6 relative
+    each step. The last three clusters get no rows, so they and every
+    cluster a mask empties read zero; the counts are exact."""
+    monkeypatch.setattr(tkm, "_PIECE_ROWS", piece)
+    rng = np.random.default_rng(n + k + piece)
+    x = torch.from_numpy(rng.normal(size=(m, n, d)).astype(np.float32) * 3.0 + 1.0)
+    a = torch.from_numpy(rng.integers(0, k - 3, size=(m, n)).astype(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.7) if masked else None
+    sums, counts = tkm._segment_sums(x, a, k, valid)
+    ref, ref_counts = _plain_update(x, a, k, valid)
+    np.testing.assert_array_equal(counts.numpy(), ref_counts.numpy())
+    got = tkm._means(sums, counts)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-6)
+    assert np.all(got[:, k - 3:].numpy() == 0.0)
+    assert np.all(got.numpy()[ref_counts.numpy()[..., 0] == 0] == 0.0)
+
+
+def test_assignment_matches_plain_argmin_ties_to_the_lowest():
+    """Rows and centroids on a grid of small integers, so every score is
+    exact in f32 and many rows are equally near two or more centroids
+    (three centroids are repeated): the port's argmin equals the plain
+    ``argmin`` of ``||x - c||^2`` in float64, which takes the lowest
+    centroid of a tie, for each subspace and across row blocks."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-4, 5, size=(3, 2500, 5)).astype(np.float32))
+    c = torch.from_numpy(rng.integers(-4, 5, size=(3, 70, 5)).astype(np.float32))
+    c[:, 50:53] = c[:, 10:13]
+    d2 = ((x[:, :, None, :].double() - c[:, None, :, :].double()) ** 2).sum(-1)
+    ref = torch.argmin(d2, dim=-1)
+    best = d2.min(dim=-1, keepdim=True).values
+    assert int(((d2 == best).sum(-1) > 1).sum()) > 1000  # ties are common here
+    for block in (2500, 777):
+        for precision in ("default", "highest"):
+            got = tkm._assign_blocked(x, c, block, precision)
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def test_two_runs_give_the_same_bits():
+    """The same input twice: equal centroids, assignments and iteration
+    counts bit for bit, the update and the assignment each too; under a
+    valid mask the update equals the update of the kept rows alone, bit
+    for bit (the left-out rows sort into a run of their own)."""
+    x = torch.from_numpy(_stacked(12, m=3, n=4000, k=24))
+    cfg = tkm.KMeansConfig(k=24, max_iters=8, seed=2)
+    r1, r2 = (tkm.fit_kmeans(x, cfg, device="cpu") for _ in range(2))
+    assert torch.equal(r1.centroids, r2.centroids)
+    assert torch.equal(r1.assignments, r2.assignments) and r1.iterations == r2.iterations
+    a = r1.assignments
+    s1, s2 = (tkm._segment_sums(x, a, 24) for _ in range(2))
+    assert torch.equal(s1[0], s2[0]) and torch.equal(s1[1], s2[1])
+    keep = torch.arange(4000) % 3 != 0
+    masked = tkm._segment_sums(x, a, 24, keep)
+    kept = tkm._segment_sums(x[:, keep], a[:, keep], 24)
+    assert torch.equal(masked[0], kept[0]) and torch.equal(masked[1], kept[1])
 
 
 def test_kmeans_pp_with_injected_jax_draw():

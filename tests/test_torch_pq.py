@@ -142,3 +142,49 @@ def test_mesh_training_equals_single_process(corpus, init, sub_parallel):
     assert got.device == torch.device("cpu")
     np.testing.assert_allclose(got.codebooks.numpy(), one.codebooks.numpy(), atol=1e-6)
     assert torch.equal(got.encode(corpus), one.encode(corpus))
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "flat-mesh"])
+def test_builds_assign_codes_at_full_f32(corpus, monkeypatch, kind):
+    """Every build encodes its rows at ``precision="highest"`` (TF32
+    would hand a row a codeword farther than its nearest), single-device
+    and over a mesh, whatever precision the training takes."""
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.parallel import make_mesh
+
+    seen = []
+    assign = tpq._assign_blocked
+    monkeypatch.setattr(tpq, "_assign_blocked",
+                        lambda *a: seen.append(a[3]) or assign(*a))
+    keys = np.array([f"k{i:05d}" for i in range(len(corpus))], dtype=object)
+    cfg = gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=3)
+    if kind == "ivf":
+        gt.build_ivf_index(keys, corpus, pq_config=cfg, num_partitions=8,
+                           coarse_max_iters=3, device="cpu")
+    else:
+        mesh = make_mesh(devices=["cpu"] * 2) if kind == "flat-mesh" else None
+        gt.build_flat_index(keys, corpus, pq_config=cfg, mesh=mesh, device="cpu")
+    assert seen and set(seen) == {"highest"}
+
+
+@pytest.mark.parametrize("kind", ["flat", "ivf", "flat-mesh"])
+def test_builds_encode_at_the_configured_precision(corpus, monkeypatch, kind):
+    """``PQConfig.encode_precision`` reaches every build's encode,
+    single-device and over a mesh, apart from the training's precision."""
+    import gulon_tpu_torch as gt
+    from gulon_tpu_torch.parallel import make_mesh
+
+    seen = []
+    assign = tpq._assign_blocked
+    monkeypatch.setattr(tpq, "_assign_blocked",
+                        lambda *a: seen.append(a[3]) or assign(*a))
+    keys = np.array([f"k{i:05d}" for i in range(len(corpus))], dtype=object)
+    cfg = gt.PQConfig(num_clusters=16, num_quantizers=4, max_iters=3,
+                      precision="highest", encode_precision="default")
+    if kind == "ivf":
+        gt.build_ivf_index(keys, corpus, pq_config=cfg, num_partitions=8,
+                           coarse_max_iters=3, device="cpu")
+    else:
+        mesh = make_mesh(devices=["cpu"] * 2) if kind == "flat-mesh" else None
+        gt.build_flat_index(keys, corpus, pq_config=cfg, mesh=mesh, device="cpu")
+    assert seen and set(seen) == {"default"}

@@ -256,6 +256,50 @@ def test_a_build_records_one_span_per_lloyd_iteration(corpus, kind):
     assert spans["gulon.wait.kmeans_done"]["count"] == len(seen)
 
 
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
+def test_the_coarse_k_means_has_a_span_of_its_own(corpus, kind):
+    """``gulon.build.coarse`` opens once an IVF build, inside its first
+    ``gulon.build.train``, around the coarse k-means's iterations (the
+    residual PQ's stay directly under ``gulon.build.train``); a flat
+    build, which has no coarse k-means, never opens it."""
+    keys, x, _ = corpus
+    if kind == "flat":
+        spans, prof = _profiled(lambda: gt.build_flat_index(keys, x, pq_config=PQ, device="cpu"))
+        assert "gulon.build.coarse" not in spans
+        return
+    spans, prof = _profiled(lambda: gt.build_ivf_index(
+        keys, x, pq_config=PQ, num_partitions=12, coarse_max_iters=6, device="cpu"))
+    assert spans["gulon.build.coarse"]["count"] == 1
+    tree = _tree(prof)
+    assert ("gulon.build.coarse", "gulon.build.train") in tree
+    assert ("gulon.kmeans.iter", "gulon.build.coarse") in tree
+    assert ("gulon.kmeans.iter", "gulon.build.train") in tree
+    assert ("gulon.wait.coarse_result", "gulon.build.coarse") in tree
+
+
+@pytest.mark.parametrize("route", ["pallas", "masked"])
+def test_the_ivf_selection_counts_its_sort_keys(ivf, corpus, route):
+    """The IVF K1 route (its plain twin on the CPU) counts one selection a
+    batch and the keys its sort takes: the batch's queries times K1's
+    winner columns, 4 a 128-row block of the padded layout; always on,
+    with no profiler. Another route counts none."""
+    import dataclasses
+
+    index = dataclasses.replace(ivf, scan_strategy=route)
+    q = corpus[2]
+    index.query_arrays(K, q)
+    names = ("ivf.selects", "ivf.select_keys")
+    before = {c: tracing.counter(c) for c in names}
+    for _ in range(3):
+        index.query_arrays(K, q)
+    n = {c: tracing.counter(c) - v for c, v in before.items()}
+    if route == "masked":
+        assert n == {"ivf.selects": 0, "ivf.select_keys": 0}
+        return
+    columns = index._k1_operands.codes_t.shape[1] // 128 * index.pallas_winners
+    assert n == {"ivf.selects": 3, "ivf.select_keys": 3 * len(q) * columns}
+
+
 @pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
 def test_fit_kmeans_records_its_iterations(corpus, stacked):
     x = torch.from_numpy(corpus[1][:3000])
