@@ -31,6 +31,13 @@ phases); any failure raises and the script exits non-zero:
    1-4 winners centered and uncentered, depth 100, K=512 and K=1024 int16
    codes, NaN rows, an all-+inf query, IVF padding rows, depths 304 to
    1004, 4 winners uncentered on index operands at 40 lanes a subspace).
+   Then the IVF selection kernel (``ivf_topk``) at both IVF cells' shapes
+   (sift-128: 1,000 partitions, probe 50; deep-96: 9,990, probe 499; 1,024
+   queries, 4 winners, fetch 10 and 40): bit for bit its plain twin and,
+   below +inf, the masked sort over every winner column it replaces,
+   each time beside the bytes it must read, the twin's and the masked sort's;
+   on the IVF paths below (ivf1m's routes, the streamed IVF index, the
+   command line, AOT, ivf1m sharded) it launches once a K1 launch.
    Ids >= 99.5 % equal, values within ``2^-14 * max(|v|, 1)``,
    every id mismatch a near-tie, NaN winners in the same places and rows
    (an all-+inf query's: each block's lowest row, as the plain version
@@ -633,6 +640,146 @@ def phase_kernel(seed: int, launches_per_batch: float) -> dict:
             raise AssertionError(f"K1 disagrees with its plain version: {case}")
         cases.append(case)
     return cases[0] | {"max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+# ---- the IVF selection (ivf_topk) ---------------------------------------------
+
+# The two IVF cells' shapes: (partitions, probe, rows, smallest and largest
+# partition in rows, K1's subspace width). deep-96's partitions are its cell's (351-5,109 rows,
+# median 927); sift-128's are drawn alike around its mean of 1,000.
+IVF_TOPK_SHAPES = {
+    "sift128": (1000, 50, 1_000_000, 200, 4000, 6),
+    "deep96": (9990, 499, 9_990_000, 351, 5109, 4),
+}
+IVF_TOPK_MASKED_CALL = ("the masked sort: probe mask and group term gathered onto every "
+                        "winner column, torch.where, stable torch.sort over all of them")
+
+
+def masked_ivf_select(packed, base_cols, group_term, qn, probe_mask, blk_part, fetch):
+    """The IVF selection as the route ran it before ``ivf_topk``: every
+    winner column masked and sorted; the oracle of this smoke and of
+    ``tests/test_torch_ivf_select.py``."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda.adc import unpack_block_winners
+    from gulon_tpu_torch.ops.topk import smallest_k_nan_last
+
+    bv, _ = unpack_block_winners(packed, base_cols)
+    col_part = blk_part[torch.clamp(base_cols.long() // 128, max=blk_part.shape[0] - 1)]
+    valid = (bv < _INVALID_MIN) & probe_mask[:, col_part]
+    d = torch.where(valid, bv + group_term[:, col_part] + qn[:, None], float("inf"))
+    return smallest_k_nan_last(d, fetch)
+
+
+def _ivf_topk_operands(seed: int, shape: str, num_q: int = 1024, winners: int = 4,
+                       device: str = "cuda"):
+    """Selection operands at an IVF cell's shape on the card: the
+    partition-padded layout of lognormal partition sizes (``partition_layout``
+    over one code row), K1's winner columns at its 1,024-query row tile
+    (random distances with lane bits, padding rows invalid), group terms,
+    query norms and a ``LimitGroups`` probe mask of random centroid
+    distances."""
+    import numpy as np
+    import torch
+
+    from gulon_tpu_torch.models.ivf import _probe_mask_limit_groups, partition_layout
+    from gulon_tpu_torch.ops.cuda.adc import _base_cols, block_layout, padded_depth
+
+    num_p, probe, rows, low, high, dsub = IVF_TOPK_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    sizes = np.exp(rng.normal(0.0, 0.45, num_p))
+    sizes = np.clip(np.round(sizes * rows / sizes.sum()), low, high).astype(np.int64)
+    n = int(sizes.sum())
+    codes = torch.zeros((n, 1), dtype=torch.uint8, device=device)
+    rc = torch.zeros(n, device=device)
+    _, _, blocks, _ = partition_layout(codes, rc, sizes, np.arange(num_p), 256,
+                                       num_parts=num_p)
+    nbp = blocks.blk_part.shape[0]
+    _, t, _, nblk = block_layout(num_q, 256, padded_depth(25, dsub), nbp * 128, 0, winners)
+    base_cols = _base_cols(-(-nbp * 128 // t) * t, t, winners, device)
+    nw = base_cols.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randn((num_q, nw), generator=gen, device=device).abs()
+    v[:, base_cols.long() // 128 >= blocks.real_blocks] = 2.0e38
+    lanes = torch.randint(0, 128, (num_q, nw), generator=gen, device=device, dtype=torch.int32)
+    packed = ((v.view(torch.int32) & ~127) | lanes).view(torch.float32)
+    gt = torch.randn((num_q, num_p), generator=gen, device=device)
+    qn = torch.rand(num_q, generator=gen, device=device) + 1.0
+    cdist = torch.randn((num_q, num_p), generator=gen, device=device)
+    mask = _probe_mask_limit_groups(cdist, probe)
+    return dict(packed=packed, base_cols=base_cols, gt=gt, qn=qn, mask=mask, blocks=blocks,
+                nblk=nblk, probe=probe, sizes=sizes)
+
+
+def phase_ivf_topk(seed: int, smi: str) -> dict:
+    """The IVF selection kernel at both IVF cells' shapes (1,024 queries,
+    4 winners a block, fetch 10 and 40): kernel and plain twin bit for bit
+    (values and columns), and against the masked sort it replaces
+    (values; columns where it ranks below +inf); the kernel's ms beside
+    its bound (the bytes it must read: each probed winner column, the
+    mask row, the probed partitions' group terms and ranges, the query
+    norm, the output), the plain twin's ms and the masked sort's
+    (``library_ms``)."""
+    import torch
+
+    from gulon_tpu_torch.ops.cuda import ivf_topk
+    from gulon_tpu_torch.utils import tracing
+
+    out = {}
+    for shape in IVF_TOPK_SHAPES:
+        ops = _ivf_topk_operands(seed, shape)
+        blocks = ops["blocks"]
+        args = (ops["packed"], ops["gt"], ops["qn"], ops["mask"], blocks.ranges,
+                blocks.blk_part, blocks.real_blocks)
+        num_q, nw = ops["packed"].shape
+        col_part = ivf_topk.column_partitions(blocks.ranges, blocks.blk_part,
+                                              blocks.real_blocks, nw, 4, ops["nblk"])
+        probed_cols = int(ops["mask"][:, col_part].sum())
+        probed_parts = int(ops["mask"].sum())
+        for fetch in (10, 40):
+            kw = dict(winners=4, nblk=ops["nblk"], fetch=fetch)
+
+            def kernel():
+                return ivf_topk.ivf_select(*args, **kw)
+
+            def plain():
+                return ivf_topk._select_plain(*args, **kw)
+
+            def masked():
+                return masked_ivf_select(ops["packed"], ops["base_cols"], ops["gt"], ops["qn"],
+                                         ops["mask"], blocks.blk_part, fetch)
+
+            tracing.set_counter("ivf.topk.launches", 0)
+            got, ref, old = kernel(), plain(), masked()
+            torch.cuda.synchronize()
+            launches = tracing.counter("ivf.topk.launches")
+            same_twin = (torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+                         and torch.equal(got[1], ref[1]))
+            named = ~torch.isposinf(old[0])
+            same_masked = (torch.equal(got[0].view(torch.int32), old[0].view(torch.int32))
+                           and torch.equal(got[1][named], old[1][named]))
+            bytes_read = (probed_cols * 4 + num_q * ops["mask"].shape[1] + probed_parts * 12
+                          + num_q * 4 + num_q * fetch * 8)
+            case = dict(
+                phase="ivf_topk", shape=shape, queries=num_q, partitions=ops["mask"].shape[1],
+                probe=ops["probe"], winner_columns=nw, nblk=ops["nblk"], fetch=fetch,
+                probed_columns_per_query=probed_cols / num_q,
+                column_bound=blocks.column_bound(("groups", ops["probe"]), 4, nw),
+                rows=int(ops["sizes"].sum()), padded_rows=int(blocks.blk_part.shape[0]) * 128,
+                plan=ivf_topk.topk_plan(fetch), launches=launches, equal_to_twin=same_twin,
+                equal_to_masked_sort=same_masked, bytes_read=bytes_read,
+                ms=_kernel_ms(kernel), plain_ms=_plain_ms(plain),
+                bound_ms=bytes_read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_resource="HBM", library_ms=_kernel_ms(masked),
+                library_call=IVF_TOPK_MASKED_CALL, card=smi,
+            )
+            _emit(case)
+            if not (same_twin and same_masked and launches == 1):
+                raise AssertionError(f"the IVF selection kernel disagrees: {case}")
+            out[f"{shape}_fetch{fetch}"] = case
+        del ops, args
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- probes (P1-P4) -----------------------------------------------------------
@@ -1621,6 +1768,7 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
     batches = [rng.choice(n, batch, replace=False) for _ in range(4)]
 
     tracing.set_counter("k1.launches", 0)
+    tracing.set_counter("ivf.topk.launches", 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = gt.build_ivf_index(
@@ -1660,12 +1808,13 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
         build_s=build_s, layout_s=layout_s, strategy=strategy, rebuild=rebuild,
     )
     for name, idx in routes.items():
-        before = tracing.counter("k1.launches")
-        out[name] = dict(
-            ms_per_batch=[_serve_checked(idx, x, rows, k) for rows in batches],
-            launches=tracing.counter("k1.launches") - before,
-        )
+        before = _launch_counts()
+        out[name] = dict(ms_per_batch=[_serve_checked(idx, x, rows, k) for rows in batches])
+        after = _launch_counts()
+        out[name].update(launches=after["K1"] - before["K1"],
+                         topk_launches=after["TOPK"] - before["TOPK"])
         out[name]["launches_per_batch"] = out[name]["launches"] / len(batches)
+        out[name]["topk_launches_per_batch"] = out[name]["topk_launches"] / len(batches)
     launches_serve = tracing.counter("k1.launches")
 
     # small batches go sublinear and return the masked scan's distances
@@ -1705,11 +1854,16 @@ def phase_ivf_path(seed: int, n: int = 1_000_000, device: str = "cuda"):
     }
     out["launches_serve"] = launches_serve
     out["launches"] = tracing.counter("k1.launches")
+    out["topk_launches"] = tracing.counter("ivf.topk.launches")
     _emit({"phase": "ivf_path", **out})
     if min(out[name]["launches"] for name in routes if name != "masked") < 4:
         raise AssertionError(f"K1 launched too rarely on the IVF routes: {out}")
-    if out["masked"]["launches"] != 0:
-        raise AssertionError("the masked route launched K1")
+    if out["masked"]["launches"] != 0 or out["masked"]["topk_launches"] != 0:
+        raise AssertionError("the masked route launched K1 or the selection kernel")
+    # the K1 routes select once a K1 launch, through the kernel
+    if any(out[name]["topk_launches"] != out[name]["launches"] for name in routes) or (
+            out["topk_launches"] != out["launches"]):
+        raise AssertionError(f"the IVF selection kernel did not launch once a K1 launch: {out}")
     for nq, s in small.items():
         if s["strategy"] not in ("gathered", "bucketed"):
             raise AssertionError(f"auto took {s['strategy']!r} for {nq} queries")
@@ -1802,24 +1956,21 @@ class _Cli:
     launches made inside its calls only."""
 
     def __init__(self):
-        self.launches = {"K1": 0, "K2": 0, "K3": 0}
+        self.launches = dict.fromkeys(_launch_counts(), 0)
         self.seconds = {}
 
     def __call__(self, label, argv, stdin=None) -> str:
         from gulon_tpu_torch import cli
-        from gulon_tpu_torch.utils import tracing
 
-        before = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
-                  tracing.counter("k3.launches"))
+        before = _launch_counts()
         out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
         self.seconds[label] = time.perf_counter() - t0
-        after = (tracing.counter("k1.launches"), tracing.counter("k2.launches"),
-                 tracing.counter("k3.launches"))
-        for name, b, a in zip(("K1", "K2", "K3"), before, after):
-            self.launches[name] += a - b
+        after = _launch_counts()
+        for name in self.launches:
+            self.launches[name] += after[name] - before[name]
         if rc != 0:
             raise AssertionError(f"cli {label} exited {rc}: {err.getvalue()[-2000:]}")
         return out.getvalue()
@@ -1938,6 +2089,7 @@ def phase_cli_path(seed: int, smi: str, n: int = 400_000) -> dict:
     tracing.set_counter("k1.launches", 0)
     tracing.set_counter("k2.launches", 0)
     tracing.set_counter("k3.launches", 0)
+    tracing.set_counter("ivf.topk.launches", 0)
     run = _Cli()
     out = dict(n=n, d=d, card=smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2348,18 +2500,21 @@ def _streaming_child(path: str, train_sample: int) -> dict:
     equal["codebooks"] = bool(torch.equal(ivf.pq.codebooks, again.pq.codebooks))
     del again, ivf_runs
     strategy = ivf.resolve_strategy(batch, k)
-    before = tracing.counter("k1.launches")
+    before = tracing.counter("k1.launches"), tracing.counter("ivf.topk.launches")
     ms = [_serve_checked(ivf, x, rows, k) for rows in batches]
-    ivf_serve_launches = tracing.counter("k1.launches") - before
+    ivf_serve_launches = tracing.counter("k1.launches") - before[0]
+    ivf_topk_launches = tracing.counter("ivf.topk.launches") - before[1]
     rec = {name: gt.recall_of(idx, truth, x, keys)[10].mean for name, idx in (
         ("pallas", ivf), ("masked", dataclasses.replace(ivf, scan_strategy="masked")))}
     out["ivf"] = dict(
         partitions=ivf.num_partitions, probe=ivf.strategy.count, strategy=strategy,
         build_s=ivf_build_s, ms_per_batch=ms, serve_launches=ivf_serve_launches,
+        serve_topk_launches=ivf_topk_launches,
         recall10=rec, recall10_ratio=rec["pallas"] / max(rec["masked"], 1e-12),
         rebuild_bit_equal=equal,
     )
     out["launches"] = tracing.counter("k1.launches")
+    out["topk_launches"] = tracing.counter("ivf.topk.launches")
     out["ivf"]["kernel"] = _ivf_kernel_check(
         ivf, torch.from_numpy(x[batches[0]]).cuda(), ivf_serve_launches / len(batches),
         "streaming_ivf_kernel",
@@ -2410,6 +2565,7 @@ def phase_streaming(seed: int, x, smi: str) -> dict:
         "ivf_ratio": out["ivf"]["recall10_ratio"] >= 0.97,
         "ivf_rebuild": all(out["ivf"]["rebuild_bit_equal"].values()),
         "k1": out["serve_launches"] >= 8,
+        "ivf_topk": out["ivf"]["serve_topk_launches"] == out["ivf"]["serve_launches"],
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -2526,11 +2682,13 @@ def _recall_rows(index, truth, x, k: int = 10) -> float:
 def _route(index, x, batches, k, counter: str) -> dict:
     """A warm-up batch, then ``batches`` through ``index``: host ms of
     each (ending in a synchronize) and the launches of the ``counter``
-    kernel ("K1" or "K2") they made."""
+    kernel ("K1" or "K2") and of the IVF selection kernel they made."""
     _serve(index, x, batches[0], k)
-    before = _launch_counts()[counter]
+    before = _launch_counts()
     ms = [_serve_checked(index, x, rows, k) for rows in batches]
-    return dict(ms_per_batch=ms, launches=_launch_counts()[counter] - before)
+    after = _launch_counts()
+    return dict(ms_per_batch=ms, launches=after[counter] - before[counter],
+                topk_launches=after["TOPK"] - before["TOPK"])
 
 
 def _mesh_child(rank: int, port: int, work: str, backend: str) -> dict:
@@ -2645,6 +2803,7 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     tracing.set_counter("k1.launches", 0)
     tracing.set_counter("k2.launches", 0)
     tracing.set_counter("k3.launches", 0)
+    tracing.set_counter("ivf.topk.launches", 0)
     t0 = time.perf_counter()
     x = low_rank_corpus(seed, n, d, intrinsic=24, n_clusters=10_000)
     keys = np.array([f"d{i:08d}" for i in range(n)], dtype=object)  # sorted: row i is key i
@@ -2799,6 +2958,7 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
         "encode_near_ties": out["encode_vs_single_card"]["differing_rows_near_ties"],
         "ivf_pallas": resolved == "pallas",
         "ivf_launches": ivf_route["launches"] == shards * len(batches),
+        "ivf_topk_launches": ivf_route["topk_launches"] == ivf_route["launches"],
         "ivf_recall": ivf_route["recall10_ratio"] >= 0.99,
         "multiprocess": all(c["id_equal"] == 1.0 or c["mismatches_near_ties"]
                             for c in out["multiprocess"]["against_one_process"]),
@@ -2807,7 +2967,8 @@ def phase_sharded(seed: int, smi: str, ivf_ctx: dict, work: str,
     for name, r in routes.items():
         checks[f"{name}_launches"] = (
             r[f"mesh{shards}"]["launches"] == shards * len(batches)
-            and r["mesh1"]["launches"] == len(batches))
+            and r["mesh1"]["launches"] == len(batches)
+            and r[f"mesh{shards}"]["topk_launches"] == r["mesh1"]["topk_launches"] == 0)
         checks[f"{name}_recall"] = r["recall10_ratio"] >= 0.99
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -2819,7 +2980,8 @@ def _launch_counts() -> dict:
     from gulon_tpu_torch.utils import tracing
 
     return {"K1": tracing.counter("k1.launches"), "K2": tracing.counter("k2.launches"),
-            "K3": tracing.counter("k3.launches")}
+            "K3": tracing.counter("k3.launches"),
+            "TOPK": tracing.counter("ivf.topk.launches")}
 
 
 def _aot_check(p, q, plain_out, batch, k) -> dict:
@@ -2959,7 +3121,7 @@ def main(argv=None) -> int:
         _emit(_mesh_child(int(rank), int(port), work, backend))
         return 0
     import gulon_tpu_torch as gt
-    from gulon_tpu_torch.ops.cuda import _build, adc, dense
+    from gulon_tpu_torch.ops.cuda import _build, adc, dense, ivf_topk
     from gulon_tpu_torch.probes import adc_probes, floor_probe, kernel_probe
 
     smi = _nvidia_smi()
@@ -2970,13 +3132,15 @@ def main(argv=None) -> int:
     })
 
     t0 = time.perf_counter()
-    sources = ("adc_scan", "dense_scan", "adc_probes", "kernel_probe", "floor_probe")
+    sources = ("adc_scan", "dense_scan", "adc_probes", "kernel_probe", "floor_probe",
+               "ivf_topk")
     _build.build(sources)  # one nvcc each, in parallel
     adc._kernel()
     dense._kernel()
     adc_probes._kernel()
     kernel_probe._kernel()
     floor_probe._kernel()
+    ivf_topk._kernel()
     for name in sources:
         seconds, report = _build.BUILD_INFO.get(name, (0.0, ""))
         _emit({
@@ -2992,6 +3156,7 @@ def main(argv=None) -> int:
     if main_path["launches"] == 0:
         raise AssertionError("the main path never launched K1")
     k1 = phase_kernel(args.seed, main_path["launches_per_batch"])
+    topk = phase_ivf_topk(args.seed, smi)
     probes = phase_probes(args.seed, smi)
     for name, count in probes["launches"].items():
         if count == 0:
@@ -3074,6 +3239,18 @@ def main(argv=None) -> int:
             launches_by_path={"exact": exact["launches_k3"], "cli": cli_l["K3"],
                               "aot": aot_l["K3"], "packed": packed_l["K3"],
                               "sharded": sh_all["K3"]},
+        ),
+        _kernel_entry(
+            "ivf_topk", "gulon_tpu_torch/csrc/ivf_topk.cu",
+            "none: the JAX package's IVF epilogue ranks with lax.top_k under XLA",
+            ivf["topk_launches"] + streaming["topk_launches"] + cli_l["TOPK"] + aot_l["TOPK"]
+            + sh_all["TOPK"], 0.0,
+            topk["deep96_fetch10"] | {
+                "launches_per_batch": ivf["pallas_w4"]["topk_launches_per_batch"]},
+            launches_by_path={"ivf": ivf["topk_launches"],
+                              "streaming": streaming["topk_launches"], "cli": cli_l["TOPK"],
+                              "aot": aot_l["TOPK"], "sharded": sh_all["TOPK"]},
+            **{name: {k: case[k] for k in case_keys[:-2]} for name, case in topk.items()},
         ),
         *_probe_entries(probes),
     ]})

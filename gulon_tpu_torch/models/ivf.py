@@ -53,16 +53,12 @@ from gulon_tpu_torch.models.index import Index, Result
 from gulon_tpu_torch.models.keyindex import GroupedKeyIndex
 from gulon_tpu_torch.models.metric import Metric
 from gulon_tpu_torch.ops import scan as scan_ops
-from gulon_tpu_torch.ops.cuda.adc import (
-    _INVALID_MIN,
-    K1Operands,
-    pack_codes_t,
-    unpack_block_winners,
-)
+from gulon_tpu_torch.ops.cuda.adc import K1Operands, pack_codes_t
+from gulon_tpu_torch.ops.cuda.ivf_topk import ivf_select
 from gulon_tpu_torch.ops.distance import nearest, normalize_rows, sq_norms
 from gulon_tpu_torch.ops.pq import ProductQuantizer
 from gulon_tpu_torch.ops.precision import matmul
-from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k, smallest_k_nan_last
+from gulon_tpu_torch.ops.topk import approx_smallest_k, smallest_k
 from gulon_tpu_torch.utils import tracing
 
 _INF = float("inf")
@@ -522,29 +518,65 @@ _PALLAS_BLOCK = 128
 _PALLAS_PAD_SENTINEL = 2.0e38  # > _INVALID_MIN: padding rows never win
 
 
-def partition_layout(codes, row_const, sizes, parts, k_codes: int, npad: int = 0):
+@dataclasses.dataclass(frozen=True)
+class PartitionBlocks:
+    """Where each partition's rows sit in a partition-padded layout (one
+    device's, or one shard's), as the IVF selection reads them
+    (``ops/cuda/ivf_topk.py``): ``blk_part [NBP]`` int64, the partition of
+    each 128-row block (0 on the padding blocks past the partitions);
+    ``ranges [P, 2]`` int32, the blocks ``[b0, b1)`` of each of the index's
+    ``P`` partitions (empty where it has no rows here), which fill blocks
+    ``[0, real_blocks)``; ``largest_blocks[c]`` (host), the blocks of the
+    ``c + 1`` largest partitions here, for :meth:`column_bound`."""
+
+    blk_part: torch.Tensor
+    ranges: torch.Tensor
+    real_blocks: int
+    largest_blocks: np.ndarray
+
+    def column_bound(self, probe, winners: int, num_cols: int) -> int:
+        """The most winner columns one query's probe can hold among K1's
+        ``num_cols``, ``winners`` a block, from the probe ``(kind, count)``
+        of :func:`_probe_kind` alone: under ``"groups"`` the blocks of the
+        ``count`` largest partitions and the padding blocks the columns
+        cover; under ``"vectors"``, whose probe can reach every partition,
+        all of them."""
+        kind, count = probe
+        if kind != "groups":
+            return num_cols
+        blocks = int(self.largest_blocks[min(count, len(self.largest_blocks)) - 1]) if (
+            count > 0 and len(self.largest_blocks)) else 0
+        return min(num_cols, winners * (blocks + num_cols // winners - self.real_blocks))
+
+
+def partition_layout(codes, row_const, sizes, parts, k_codes: int, npad: int = 0, *,
+                     num_parts: int):
     """The partition-padded row layout of the fused-kernel scan over rows
     grouped by partition: ``codes [n, m]`` and ``row_const [n]`` hold
     partition ``parts[i]``'s ``sizes[i]`` rows after those of ``parts[:i]``
-    from row 0 on (rows past them are not read). Each partition starts on
-    a 128-row block, so each selection block belongs to one partition.
-    Returns, on the rows' device, ``(codes_t [m, Np]`` (:func:`pack_codes_t`,
-    code 0 on padding rows), ``row_const [Np]`` f32 (padding rows carry
+    from row 0 on (rows past them are not read); ``num_parts`` is the
+    index's partition count. Each partition starts on a 128-row block, so
+    each selection block belongs to one partition. Returns, on the rows'
+    device, ``(codes_t [m, Np]`` (:func:`pack_codes_t`, code 0 on padding
+    rows), ``row_const [Np]`` f32 (padding rows carry
     ``_PALLAS_PAD_SENTINEL``, above the kernel's invalid threshold, and
-    never win a block min), ``blk_part [Np/128]`` (the partition of each
-    block, 0 past the last) and ``row_map [Np]`` int32 (padded row -> row,
-    -1 on padding)``; ``Np`` is ``npad`` if larger than the padded
-    partitions."""
+    never win a block min), :class:`PartitionBlocks` and ``row_map [Np]``
+    int32 (padded row -> row, -1 on padding)``; ``Np`` is ``npad`` if
+    larger than the padded partitions."""
     dev = codes.device
     sizes = np.asarray(sizes, np.int64)
     psz = -(-sizes // _PALLAS_BLOCK) * _PALLAS_BLOCK
     n, fill = int(sizes.sum()), int(psz.sum())
     npad = max(npad, fill)
+    nblocks = psz // _PALLAS_BLOCK
+    ranges = np.zeros((num_parts, 2), np.int32)
+    ranges[np.asarray(parts, np.int64)] = np.stack(
+        [np.cumsum(nblocks) - nblocks, np.cumsum(nblocks)], axis=1)
     with tracing.span("gulon.wait.upload_layout"):
-        shift, sizes_t, blocks, parts_t = (
-            torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+        shift, sizes_t, blocks, parts_t, ranges_t = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in ((np.cumsum(psz) - psz) - (np.cumsum(sizes) - sizes), sizes,
-                      psz // _PALLAS_BLOCK, parts)
+                      nblocks, np.asarray(parts, np.int64), ranges)
         )
     dst = torch.repeat_interleave(shift, sizes_t, output_size=n) + torch.arange(n, device=dev)
     rc_pal = torch.full((npad,), _PALLAS_PAD_SENTINEL, device=dev)
@@ -557,7 +589,9 @@ def partition_layout(codes, row_const, sizes, parts, k_codes: int, npad: int = 0
     blk_part[: fill // _PALLAS_BLOCK] = torch.repeat_interleave(
         parts_t, blocks, output_size=fill // _PALLAS_BLOCK
     )
-    return pack_codes_t(codes_pal, k_codes), rc_pal, blk_part, row_map
+    layout = PartitionBlocks(blk_part, ranges_t, fill // _PALLAS_BLOCK,
+                             np.cumsum(np.sort(ranges[:, 1] - ranges[:, 0])[::-1]))
+    return pack_codes_t(codes_pal, k_codes), rc_pal, layout, row_map
 
 
 def _pallas_ivf_query(
@@ -566,11 +600,12 @@ def _pallas_ivf_query(
     group_term: torch.Tensor,  # [Q, P] f32
     probe_mask: torch.Tensor,  # [Q, P] bool
     k1: K1Operands,  # over the partition-padded layout (row constants as norms)
-    blk_part: torch.Tensor,  # [Npad/128] partition of each 128-row block
+    blocks: PartitionBlocks,  # the layout's partitions
     row_map: torch.Tensor,  # [Npad] int32 padded row -> original row (-1 pad)
     *,
     k: int,
     winners: int,
+    probe,  # (kind, count) of the probe behind probe_mask (_probe_kind)
     rescore: int = 0,
 ):
     """Kernel K1 plus the epilogue of the IVF ``pallas`` strategy
@@ -578,33 +613,37 @@ def _pallas_ivf_query(
 
     K1 emits ``winners`` (value, row) candidates per 128-row block of the
     partition-padded layout. Each winner column belongs to one block and
-    so to one partition: ``col_part = blk_part[base_cols // 128]``, read
-    from the ``base_cols`` the launch returns, so the block-constant group
-    term and probe mask apply after the in-kernel min. ``rescore > 0``
-    over-fetches ``rescore * k`` candidates and re-ranks them with exact
-    f32 ADC distances (:func:`ivf_block_rescore`).
+    so to one partition, so the block-constant group term and probe mask
+    apply after the in-kernel min. The selection
+    (``ops/cuda/ivf_topk.py::ivf_select``) reads only the columns of each
+    query's probed partitions and returns the ``fetch`` smallest, as a
+    stable sort over every column with the unprobed ones at +inf ranks
+    them. ``rescore > 0`` over-fetches ``rescore * k`` candidates and
+    re-ranks them with exact f32 ADC distances (:func:`ivf_block_rescore`).
+    ``ivf.select_keys`` counts the columns the selection may read: the
+    batch's queries times :meth:`PartitionBlocks.column_bound`.
     """
     npad = row_map.shape[0]
     packed, base_cols = k1.scan(q, winners=winners)
+    t, _ = k1.geometry(q.shape[0], winners=winners)
     with tracing.span("gulon.scan.select"):
-        bv, bi = unpack_block_winners(packed, base_cols)
-        col_blk = torch.clamp(base_cols.long() // _PALLAS_BLOCK, max=blk_part.shape[0] - 1)
-        col_part = blk_part[col_blk]  # [NW]
-        gt = group_term[:, col_part]  # [Q, NW]
-        pm = probe_mask[:, col_part]
-        valid = (bv < _INVALID_MIN) & pm
-        d = torch.where(valid, bv + gt + qn[:, None], _INF)
-        kk = min(k, d.shape[1])
-        fetch = min(rescore * kk, d.shape[1]) if rescore else kk
+        nw = packed.shape[1]
+        kk = min(k, nw)
+        fetch = min(rescore * kk, nw) if rescore else kk
         tracing.count("ivf.selects")
-        tracing.count("ivf.select_keys", d.numel())
-        best, pos = smallest_k_nan_last(d, fetch)
-        pos = pos.long()
-        win_rows = torch.gather(bi, 1, pos)
+        tracing.count("ivf.select_keys", q.shape[0] * blocks.column_bound(probe, winners, nw))
+        best, cols = ivf_select(
+            packed, group_term, qn, probe_mask, blocks.ranges, blocks.blk_part,
+            blocks.real_blocks, winners=winners, nblk=t // _PALLAS_BLOCK, fetch=fetch,
+        )
+        safe = torch.clamp(cols, min=0).long()
+        win_rows = base_cols[safe] + (torch.gather(packed.view(torch.int32), 1, safe) & 127)
         if rescore:
+            col_part = blocks.blk_part[torch.clamp(base_cols[safe].long() // _PALLAS_BLOCK,
+                                                   max=blocks.blk_part.shape[0] - 1)]
             best, win_rows = scan_ops.ivf_block_rescore(
                 q, qn, k1.codebooks, k1.codes_t, k1.norms, best, win_rows,
-                torch.gather(gt, 1, pos), bounds=k1.bounds, k=kk,
+                torch.gather(group_term, 1, col_part), bounds=k1.bounds, k=kk,
             )
         # rows of the padded tail past npad only ever carry +inf winners
         ids = row_map[torch.clamp(win_rows.long(), max=npad - 1)]
@@ -640,7 +679,7 @@ class IVFIndex(Index):
     _codes_pad: Optional[torch.Tensor] = None  # [N + pad, m], built lazily
     _row_const_pad: Optional[torch.Tensor] = None  # [N + pad] f32
     # lazily built partition-padded layout of the pallas strategy:
-    # (row_const [Np], blk_part [Np/128], row_map [Np]); its code operand
+    # (row_const [Np], PartitionBlocks, row_map [Np]); its code operand
     # lives in _k1_operands
     _pallas_layout: Optional[tuple] = None
     # K1's operands over the layout (ops/cuda/adc.py::K1Operands), built
@@ -715,19 +754,20 @@ class IVFIndex(Index):
     def _pallas_operands(self):
         """Partition-padded layout of the fused-kernel scan, built once on
         the index's device (:func:`partition_layout`): ``(row_const [Np],
-        blk_part [Np/128], row_map [Np])``; K1's operands over it, its
+        PartitionBlocks, row_map [Np])``; K1's operands over it, its
         code operand with them, are held in ``_k1_operands``."""
         if self._pallas_layout is None or self._k1_operands is None:
             with tracing.span("gulon.scan.operands"):
-                codes_t, rc_pal, blk_part, row_map = partition_layout(
+                codes_t, rc_pal, blocks, row_map = partition_layout(
                     self.codes, self.row_const, self.partition_sizes(),
                     np.arange(self.num_partitions), self.pq.num_clusters,
+                    num_parts=self.num_partitions,
                 )
                 self._k1_operands = K1Operands(
                     self.pq.codebooks, codes_t, rc_pal, bounds=self.pq.bounds,
                     num_rows=codes_t.shape[1],
                 )
-            self._pallas_layout = (rc_pal, blk_part, row_map)
+            self._pallas_layout = (rc_pal, blocks, row_map)
         return self._pallas_layout
 
     def _k1(self) -> K1Operands:
@@ -839,10 +879,11 @@ class IVFIndex(Index):
 
     def _query_pallas(self, q, qn, group_term, probe_mask, k_eff: int):
         """The fused-kernel strategy over the partition-padded layout."""
-        _, blk_part, row_map = self._pallas_operands()
+        _, blocks, row_map = self._pallas_operands()
         return _pallas_ivf_query(
-            q, qn, group_term, probe_mask, self._k1_operands, blk_part, row_map,
+            q, qn, group_term, probe_mask, self._k1_operands, blocks, row_map,
             k=k_eff, winners=self.pallas_winners, rescore=self.pallas_rescore,
+            probe=(_probe_kind(self.strategy), self.strategy.count),
         )
 
     def _query_sublinear(self, strategy, q, qn, group_term, cdist, probe_mask, k_eff):

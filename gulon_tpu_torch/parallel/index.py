@@ -351,13 +351,13 @@ class ShardedIVFIndex(_Sharded):
             npad = max([int(psz[p].sum()) for p in parts] + [_PALLAS_BLOCK])
             layouts = [None] * len(parts)
             for r in self.mesh.local_rows:
-                codes_t, rc_pal, blk_part, rmap = partition_layout(
+                codes_t, rc_pal, blocks, rmap = partition_layout(
                     self.codes_sharded[r], self.row_const_sharded[r], sizes[parts[r]],
-                    parts[r], base.pq.num_clusters, npad,
+                    parts[r], base.pq.num_clusters, npad, num_parts=base.num_partitions,
                 )
                 k1 = K1Operands(self.codebooks_rep[r], codes_t, rc_pal,
                                 bounds=base.pq.bounds, num_rows=npad)
-                layouts[r] = (k1, blk_part, self._global_rows(r, rmap))
+                layouts[r] = (k1, blocks, self._global_rows(r, rmap))
             self._pallas_sh = layouts
         return self._pallas_sh
 
@@ -369,10 +369,11 @@ class ShardedIVFIndex(_Sharded):
         base = self.base
 
         def shard_fn(r):
-            k1, blk_part, rmap = layouts[r]
+            k1, blocks, rmap = layouts[r]
             return _pallas_ivf_query(
-                q[r], qn[r], group_term[r], probe_mask[r], k1, blk_part, rmap,
+                q[r], qn[r], group_term[r], probe_mask[r], k1, blocks, rmap,
                 k=k_eff, winners=base.pallas_winners, rescore=base.pallas_rescore,
+                probe=(_probe_kind(base.strategy), base.strategy.count),
             )
 
         return pops.scan_and_merge(self.mesh, k_eff, shard_fn)

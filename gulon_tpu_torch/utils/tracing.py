@@ -25,8 +25,10 @@
   ``k1.launches.lane_padded`` (``K1Operands.scan``: launches whose
   codebook and query operands carry zero lanes past each subspace's own
   width), and the IVF K1 route's selection (``models/ivf.py``:
-  ``ivf.selects``, its calls, and ``ivf.select_keys``, the keys its sort
-  takes, counted from the shape).
+  ``ivf.selects``, its calls, and ``ivf.select_keys``, the winner columns
+  it may read, a bound from the probe and the layout's partition sizes,
+  no sync; ``ops/cuda/ivf_topk.py``: ``ivf.topk.launches``, its kernel's
+  launches).
 - :func:`snapshot` returns both; :func:`reset` clears both.
 
 A profiler turns the spans on: ``cli --profile``, or any caller's

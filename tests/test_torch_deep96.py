@@ -11,8 +11,8 @@ benchmark's own comparison (``h100bench/check.py::answer_numbers`` over
 ``h100bench/reference``: exact distances to the reconstruction of the
 index's codes, the nearest among the probed partitions' rows). On a card
 (tests marked ``cuda``) ``auto`` takes K1 at 1,024 queries, and the
-selection counts the keys it sorts: the batch's queries times K1's
-winner columns.
+selection counts the keys it may read: the batch's queries times the
+winner columns of the probe's largest partitions.
 """
 
 import dataclasses
@@ -128,22 +128,29 @@ def card():
 @pytest.mark.cuda
 def test_auto_takes_k1_and_counts_the_keys_it_sorts(card):
     """200,000 rows in 200 partitions, probe 10, 1,024 queries: ``auto``
-    resolves to K1 (``pallas``), one launch and one selection a batch,
-    whose sort takes the batch's queries times K1's winner columns (4 a
-    128-row block of the padded layout); its answers pass the check's
-    exact comparison up to the cell's bf16 limits."""
+    resolves to K1 (``pallas``), one launch, one selection and one launch
+    of the selection kernel a batch, which may read the batch's queries
+    times the winner columns of the 10 largest partitions and of the
+    padding blocks (4 a 128-row block of the padded layout), fewer than
+    all of K1's; its answers pass the check's exact comparison up to the
+    cell's bf16 limits."""
     x, q = _corpus(200_000, 1024, device=card)
     index = gt.build_ivf_index(
         keys_for(len(x)), x, gt.Metric.COSINE, gt.PQConfig(max_iters=8), num_partitions=200,
         strategy=gt.LimitGroups(10), coarse_max_iters=10, device=card)
     assert index.resolve_strategy(1024, 10) == "pallas"
     index.query_arrays(10, q)  # operands built
-    before = {c: tracing.counter(c) for c in ("k1.launches", "ivf.selects", "ivf.select_keys")}
+    names = ("k1.launches", "ivf.selects", "ivf.select_keys", "ivf.topk.launches")
+    before = {c: tracing.counter(c) for c in names}
     dists, ids = index.query_arrays(10, q)
     torch.cuda.synchronize()
     n = {c: tracing.counter(c) - v for c, v in before.items()}
-    columns = index._k1_operands.codes_t.shape[1] // 128 * index.pallas_winners
-    assert n == {"k1.launches": 1, "ivf.selects": 1, "ivf.select_keys": 1024 * columns}
+    blocks = -(-index.partition_sizes().astype(np.int64) // 128)
+    padding = index._k1_operands.codes_t.shape[1] // 128 - int(blocks.sum())
+    columns = index.pallas_winners * (int(np.sort(blocks)[::-1][:10].sum()) + padding)
+    assert columns < index._k1_operands.codes_t.shape[1] // 128 * index.pallas_winners
+    assert n == {"k1.launches": 1, "ivf.selects": 1, "ivf.select_keys": 1024 * columns,
+                 "ivf.topk.launches": 1}
     system = PortSystem(_spec(200, 10), card)
     state = system.export(index)
     rows = system.corpus_rows(index)

@@ -381,13 +381,13 @@ def test_a_shards_ivf_layout_equals_the_host_construction(ivf, shards):
     index, _ = ivf
     sharded = shard_index(_fresh(index), make_mesh(devices=["cpu"] * shards))
     layouts = sharded._pallas_layouts()
-    for (k1, blk_part, rmap), (codes_t, rc_pal, blk_ref, rmap_ref) in zip(
+    for (k1, blocks, rmap), (codes_t, rc_pal, blk_ref, rmap_ref) in zip(
         layouts, _oracle_shard_layouts(sharded)
     ):
         k1.geometry(16, winners=4)
         _same_bits(k1.codes_t[:, : k1.n], codes_t)
         assert not bool(k1.codes_t[:, k1.n :].any())  # the row tile's padding
-        for got, ref in ((k1.norms, rc_pal), (blk_part, blk_ref), (rmap, rmap_ref)):
+        for got, ref in ((k1.norms, rc_pal), (blocks.blk_part, blk_ref), (rmap, rmap_ref)):
             _same_bits(got, ref)
 
 

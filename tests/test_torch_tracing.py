@@ -280,24 +280,31 @@ def test_the_coarse_k_means_has_a_span_of_its_own(corpus, kind):
 @pytest.mark.parametrize("route", ["pallas", "masked"])
 def test_the_ivf_selection_counts_its_sort_keys(ivf, corpus, route):
     """The IVF K1 route (its plain twin on the CPU) counts one selection a
-    batch and the keys its sort takes: the batch's queries times K1's
-    winner columns, 4 a 128-row block of the padded layout; always on,
-    with no profiler. Another route counts none."""
+    batch and the keys its selection may read: the batch's queries times
+    the winner columns of the probe's ``count`` largest partitions and of
+    the padding blocks K1's columns cover, 4 a 128-row block; always on,
+    with no profiler. The plain twin launches no kernel. Another route
+    counts none."""
     import dataclasses
 
     index = dataclasses.replace(ivf, scan_strategy=route)
     q = corpus[2]
     index.query_arrays(K, q)
-    names = ("ivf.selects", "ivf.select_keys")
+    names = ("ivf.selects", "ivf.select_keys", "ivf.topk.launches")
     before = {c: tracing.counter(c) for c in names}
     for _ in range(3):
         index.query_arrays(K, q)
     n = {c: tracing.counter(c) - v for c, v in before.items()}
     if route == "masked":
-        assert n == {"ivf.selects": 0, "ivf.select_keys": 0}
+        assert n == {"ivf.selects": 0, "ivf.select_keys": 0, "ivf.topk.launches": 0}
         return
-    columns = index._k1_operands.codes_t.shape[1] // 128 * index.pallas_winners
-    assert n == {"ivf.selects": 3, "ivf.select_keys": 3 * len(q) * columns}
+    blocks = -(-index.partition_sizes().astype(np.int64) // 128)
+    padding = index._k1_operands.codes_t.shape[1] // 128 - int(blocks.sum())
+    largest = int(np.sort(blocks)[::-1][: index.strategy.count].sum())
+    columns = index.pallas_winners * (largest + padding)
+    assert columns < index._k1_operands.codes_t.shape[1] // 128 * index.pallas_winners
+    assert n == {"ivf.selects": 3, "ivf.select_keys": 3 * len(q) * columns,
+                 "ivf.topk.launches": 0}
 
 
 @pytest.mark.parametrize("stacked", [False, True], ids=["unstacked", "stacked"])
